@@ -1,0 +1,27 @@
+"""PyTorch/CUDA phase vocoder: the port of phase_vocoder_tpu to an H100.
+
+time_stretch and pitch_shift run on hand-written CUDA kernels
+(csrc/pvoc_fused.cu, csrc/resample.cu) for CUDA tensors, and on their
+plain torch versions for CPU tensors. This package never imports jax.
+
+Quick start:
+    import phase_vocoder_tpu_torch as pv
+    y = pv.time_stretch(x, 2.0)              # numpy in -> "cuda" by default
+    y = pv.pitch_shift(x, semitones=7)
+    y = pv.time_stretch(x, 2.0, device="cpu")
+"""
+
+from .config import PvocConfig
+from .models import PhaseVocoder
+from .pipeline import pitch_shift, stretch_output_length, time_stretch
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "PvocConfig",
+    "PhaseVocoder",
+    "time_stretch",
+    "pitch_shift",
+    "stretch_output_length",
+    "__version__",
+]

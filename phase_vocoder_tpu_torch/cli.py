@@ -1,0 +1,99 @@
+"""Command-line front-end (counterpart of phase_vocoder_tpu/cli.py).
+
+Usage:
+  pvoc-torch stretch in.wav out.wav --ratio 2.0 [--n-fft 1024 --hop 256]
+  pvoc-torch pitch   in.wav out.wav --semitones -5
+  (add --device cpu to run the plain torch versions on the host)
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+from .config import PvocConfig
+from .io.wav import read_wav, write_wav
+from .utils.metrics import audio_seconds_per_second, emit_metric
+
+
+def _add_dsp_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--n-fft", type=int, default=1024, help="FFT size N")
+    p.add_argument("--hop", type=int, default=256, help="analysis hop Ra")
+    p.add_argument(
+        "--float32", action="store_true",
+        help="write float32 WAV instead of PCM16 (PCM16 clips stretched "
+        "samples that overshoot +-1.0)",
+    )
+    p.add_argument(
+        "--branch-policy", choices=["auto", "fast", "faithful"], default="auto",
+        help="non-integer hop ratios only: 'auto' (default) and 'faithful' "
+        "route long or all inputs to the branch-faithful executor (not "
+        "ported yet: raises); 'fast' always uses the fused kernel",
+    )
+    p.add_argument(
+        "--device", default="cuda",
+        help="torch device to run on (default cuda; cpu runs the plain "
+        "torch versions of the kernels)",
+    )
+
+
+def _cfg(args) -> PvocConfig:
+    return PvocConfig(n_fft=args.n_fft, hop=args.hop)
+
+
+def _run_stretch(args) -> int:
+    from .pipeline import time_stretch
+
+    x, sr = read_wav(args.input)
+    t0 = time.perf_counter()
+    y = time_stretch(
+        x, args.ratio, _cfg(args), branch_policy=args.branch_policy,
+        device=args.device,
+    ).cpu().numpy()
+    dt = time.perf_counter() - t0
+    write_wav(args.output, y, sr, pcm16=not args.float32)
+    emit_metric("audio_seconds_per_second", audio_seconds_per_second(len(x), sr, dt),
+                "audio-s/s", stretch=args.ratio, samples=len(x), device=args.device)
+    return 0
+
+
+def _run_pitch(args) -> int:
+    from .pipeline import pitch_shift
+
+    x, sr = read_wav(args.input)
+    y = pitch_shift(
+        x, args.semitones, _cfg(args), branch_policy=args.branch_policy,
+        device=args.device,
+    ).cpu().numpy()
+    write_wav(args.output, y, sr, pcm16=not args.float32)
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="pvoc-torch", description=__doc__)
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("stretch", help="time-stretch a WAV (pitch preserved)")
+    p.add_argument("input")
+    p.add_argument("output")
+    p.add_argument("--ratio", type=float, required=True, help="duration multiplier")
+    _add_dsp_args(p)
+    p.set_defaults(fn=_run_stretch)
+
+    p = sub.add_parser("pitch", help="pitch-shift a WAV (duration preserved)")
+    p.add_argument("input")
+    p.add_argument("output")
+    p.add_argument("--semitones", type=float, required=True)
+    _add_dsp_args(p)
+    p.set_defaults(fn=_run_pitch)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

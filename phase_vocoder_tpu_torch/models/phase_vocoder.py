@@ -1,0 +1,43 @@
+"""PhaseVocoder — the model facade (counterpart of
+phase_vocoder_tpu/models/phase_vocoder.py).
+
+The phase vocoder has no learned weights; its "parameters" are static
+tables (window, DFT matrices, phasor constants, normalization rows) that
+ops/fused.py builds per geometry and device. The module is therefore a
+stateless nn.Module whose forward step is the time stretch.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .. import pipeline
+from ..config import PvocConfig
+
+
+class PhaseVocoder(nn.Module):
+    """Configured phase vocoder.
+
+    Example:
+        pv = PhaseVocoder(PvocConfig(n_fft=1024, hop=256))
+        y = pv(torch.as_tensor(x, device="cuda"), 2.0)
+        y = pv.pitch_shift(x, semitones=-5)
+    """
+
+    def __init__(self, config: PvocConfig = PvocConfig(), device="cuda"):
+        super().__init__()
+        self.config = config
+        self.device = device  # where non-tensor input goes
+
+    def forward(self, x, stretch: float = 1.0) -> torch.Tensor:
+        return self.time_stretch(x, stretch)
+
+    def time_stretch(self, x, stretch: float) -> torch.Tensor:
+        return pipeline.time_stretch(x, stretch, self.config, device=self.device)
+
+    def pitch_shift(self, x, semitones: float) -> torch.Tensor:
+        return pipeline.pitch_shift(x, semitones, self.config, device=self.device)
+
+    def output_length(self, in_len: int, stretch: float) -> int:
+        return pipeline.stretch_output_length(in_len, self.config, stretch)

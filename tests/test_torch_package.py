@@ -1,0 +1,115 @@
+"""Packaging of the PyTorch/CUDA port: no jax at import, the CLI, the
+kernel sources and their build."""
+
+from __future__ import annotations
+
+import pathlib
+import subprocess
+import sys
+import tomllib
+
+import numpy as np
+import pytest
+from scipy.io import wavfile
+
+from golden import pv_ref
+from tests.conftest import make_test_signal
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PKG = REPO / "phase_vocoder_tpu_torch"
+
+
+def _run(*args, timeout=120):
+    return subprocess.run(
+        [sys.executable, *args], capture_output=True, text=True, timeout=timeout, cwd=REPO
+    )
+
+
+def test_import_does_not_pull_in_jax():
+    code = (
+        "import sys, phase_vocoder_tpu_torch, phase_vocoder_tpu_torch.cli; "
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'phase_vocoder_tpu.'))"
+        " or m == 'phase_vocoder_tpu']; print(bad); sys.exit(1 if bad else 0)"
+    )
+    proc = _run("-c", code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_cli_help_lists_subcommands():
+    proc = _run("-m", "phase_vocoder_tpu_torch.cli", "--help")
+    assert proc.returncode == 0, proc.stderr
+    assert "stretch" in proc.stdout and "pitch" in proc.stdout
+
+
+@pytest.fixture(scope="module")
+def in_wav(tmp_path_factory):
+    x = make_test_signal(1.0).astype(np.float32)
+    path = tmp_path_factory.mktemp("wav") / "in.wav"
+    wavfile.write(path, 16000, x)
+    return path, x
+
+
+def test_cli_stretch_matches_golden(in_wav, tmp_path):
+    path, x = in_wav
+    out = tmp_path / "out.wav"
+    proc = _run(
+        "-m", "phase_vocoder_tpu_torch.cli", "stretch", str(path), str(out),
+        "--ratio", "2", "--float32", "--device", "cpu",
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert '"audio_seconds_per_second"' in proc.stdout
+    sr, y = wavfile.read(out)
+    ref = pv_ref.phase_vocoder(x.astype(np.float64), 2.0)
+    assert sr == 16000 and y.dtype == np.float32 and len(y) == len(ref)
+    sl = slice(1024, len(ref) - 1024)
+    assert np.max(np.abs(y[sl] - ref[sl])) / np.max(np.abs(ref[sl])) < 1e-4
+
+
+def test_cli_pitch_matches_golden(in_wav, tmp_path):
+    path, x = in_wav
+    out = tmp_path / "out.wav"
+    proc = _run(
+        "-m", "phase_vocoder_tpu_torch.cli", "pitch", str(path), str(out),
+        "--semitones", "-5", "--float32", "--device", "cpu",
+    )
+    assert proc.returncode == 0, proc.stderr
+    _, y = wavfile.read(out)
+    ref = pv_ref.pitch_shift(x.astype(np.float64), -5.0)
+    n = min(len(y), len(ref))
+    sl = slice(1024, n - 1024)
+    assert abs(len(y) - len(ref)) <= 1
+    assert np.max(np.abs(y[sl] - ref[sl])) / np.max(np.abs(ref[sl])) < 1e-3
+
+
+def test_pyproject_ships_the_port():
+    with open(REPO / "pyproject.toml", "rb") as f:
+        meta = tomllib.load(f)
+    assert any(
+        "phase_vocoder_tpu_torch".startswith(p.rstrip("*"))
+        for p in meta["tool"]["setuptools"]["packages"]["find"]["include"]
+    )
+    assert "csrc/*.cu" in meta["tool"]["setuptools"]["package-data"]["phase_vocoder_tpu_torch"]
+    assert meta["project"]["scripts"]["pvoc-torch"] == "phase_vocoder_tpu_torch.cli:main"
+
+
+@pytest.mark.parametrize("name", ["pvoc_fused.cu", "resample.cu"])
+def test_kernel_sources_use_no_kernel_library(name):
+    """The kernels are written by hand: they include only the CUDA runtime
+    (no cuFFT, cuBLAS or PyTorch headers) and start with their note."""
+    src = (PKG / "csrc" / name).read_text()
+    assert src.startswith("//") and "Replaces:" in src
+    includes = {ln.split()[1] for ln in src.splitlines() if ln.startswith("#include")}
+    assert includes == {"<cuda_runtime.h>", "<stdint.h>"}, includes
+    assert "cufft" not in src.lower() and "cublas" not in src.lower()
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """No compiler: the build raises, naming nvcc, instead of falling back."""
+    from phase_vocoder_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "LIB_PATH", tmp_path / "build" / "libpvoc_kernels.so")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build()
