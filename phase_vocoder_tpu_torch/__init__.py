@@ -1,8 +1,9 @@
 """PyTorch/CUDA phase vocoder: the port of phase_vocoder_tpu to an H100.
 
 time_stretch and pitch_shift run on hand-written CUDA kernels
-(csrc/pvoc_fused.cu, csrc/resample.cu) for CUDA tensors, and on their
-plain torch versions for CPU tensors. This package never imports jax.
+(csrc/pvoc_fused.cu, csrc/resample.cu, and csrc/stft.cu on the
+branch-faithful polar route) for CUDA tensors, and on their plain torch
+versions for CPU tensors. This package never imports jax.
 
 Quick start:
     import phase_vocoder_tpu_torch as pv
@@ -14,6 +15,7 @@ Quick start:
 from .config import PvocConfig
 from .models import PhaseVocoder
 from .pipeline import pitch_shift, stretch_output_length, time_stretch
+from .streaming import stream_time_stretch
 
 __version__ = "0.1.0"
 
@@ -23,5 +25,6 @@ __all__ = [
     "time_stretch",
     "pitch_shift",
     "stretch_output_length",
+    "stream_time_stretch",
     "__version__",
 ]

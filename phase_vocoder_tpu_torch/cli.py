@@ -2,7 +2,8 @@
 
 Usage:
   pvoc-torch stretch in.wav out.wav --ratio 2.0 [--n-fft 1024 --hop 256]
-  pvoc-torch pitch   in.wav out.wav --semitones -5
+  pvoc-torch stretch in.wav out.wav --ratio 0.5 --segment-frames 1024
+  pvoc-torch pitch   in.wav out.wav --semitones -5 [--branch-policy faithful]
   (add --device cpu to run the plain torch versions on the host)
 """
 
@@ -26,10 +27,23 @@ def _add_dsp_args(p: argparse.ArgumentParser) -> None:
         "samples that overshoot +-1.0)",
     )
     p.add_argument(
+        "--fft-backend", choices=["fused", "matmul", "xla"], default="fused",
+        help="'fused' (default): the CUDA kernels; 'matmul': the polar path "
+        "with the DFT as FP32 matrix products; 'xla': the polar path with "
+        "torch.fft",
+    )
+    p.add_argument(
+        "--phase-method", choices=["wrapped_scan", "cumsum"], default="wrapped_scan",
+        help="polar path: drift-free compensated wrapped scan (default) or "
+        "the literal cumsum",
+    )
+    p.add_argument(
         "--branch-policy", choices=["auto", "fast", "faithful"], default="auto",
-        help="non-integer hop ratios only: 'auto' (default) and 'faithful' "
-        "route long or all inputs to the branch-faithful executor (not "
-        "ported yet: raises); 'fast' always uses the fused kernel",
+        help="non-integer hop ratios only: 'auto' (default) routes "
+        "recordings past ~10 min to the branch-faithful polar streaming "
+        "executor, which follows the float64 golden model's princarg branch "
+        "choices; 'faithful' routes every such input there; 'fast' always "
+        "uses the fused phasor kernel",
     )
     p.add_argument(
         "--device", default="cuda",
@@ -39,18 +53,31 @@ def _add_dsp_args(p: argparse.ArgumentParser) -> None:
 
 
 def _cfg(args) -> PvocConfig:
-    return PvocConfig(n_fft=args.n_fft, hop=args.hop)
+    return PvocConfig(
+        n_fft=args.n_fft,
+        hop=args.hop,
+        fft_backend=args.fft_backend,
+        phase_method=args.phase_method,
+    )
 
 
 def _run_stretch(args) -> int:
     from .pipeline import time_stretch
+    from .streaming import stream_time_stretch
 
     x, sr = read_wav(args.input)
     t0 = time.perf_counter()
-    y = time_stretch(
-        x, args.ratio, _cfg(args), branch_policy=args.branch_policy,
-        device=args.device,
-    ).cpu().numpy()
+    if args.segment_frames:
+        y = stream_time_stretch(
+            x, args.ratio, _cfg(args), segment_frames=args.segment_frames,
+            device=args.device,
+        )
+    else:
+        y = time_stretch(
+            x, args.ratio, _cfg(args), branch_policy=args.branch_policy,
+            device=args.device,
+        )
+    y = y.cpu().numpy()
     dt = time.perf_counter() - t0
     write_wav(args.output, y, sr, pcm16=not args.float32)
     emit_metric("audio_seconds_per_second", audio_seconds_per_second(len(x), sr, dt),
@@ -78,6 +105,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("input")
     p.add_argument("output")
     p.add_argument("--ratio", type=float, required=True, help="duration multiplier")
+    p.add_argument(
+        "--segment-frames", type=int, default=None,
+        help="run the polar streaming executor with this many frames per "
+        "segment (default: time_stretch's own routing)",
+    )
     _add_dsp_args(p)
     p.set_defaults(fn=_run_stretch)
 

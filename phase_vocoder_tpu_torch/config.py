@@ -1,23 +1,20 @@
 """Frozen configuration for the PyTorch/CUDA phase vocoder.
 
 Mirrors phase_vocoder_tpu/config.py field for field, so a configuration
-reads the same in both packages. The one difference is `fft_backend`: the
-port has a single route, "fused" (the hand-written CUDA kernel of
-ops/fused.py, the counterpart of the JAX "pallas" route), and it is the
-default.
+reads the same in both packages. The one difference is `fft_backend`:
+"fused" (the hand-written CUDA kernels, the counterpart of the JAX
+"pallas" backend) is the default, beside the JAX package's polar backends
+"matmul" and "xla".
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal
+from typing import Literal, get_args
 
-FFTBackend = Literal["fused"]
+FFTBackend = Literal["fused", "matmul", "xla"]
 PhaseMethod = Literal["wrapped_scan", "cumsum"]
 OLAMethod = Literal["auto", "fold", "scatter"]
-
-# JAX backends whose polar-path executors the port does not have yet.
-_UNPORTED_BACKENDS = ("matmul", "xla")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,11 +25,14 @@ class PvocConfig:
       n_fft: FFT size N (frame length). Canonical: 1024.
       hop: analysis hop Ra in samples. Canonical: 256.
       sample_rate: audio sample rate in Hz (metadata only).
-      fft_backend: "fused" — the whole TSM in the fused CUDA kernel
-        (ops/fused.py). "matmul" and "xla" name the JAX package's polar
-        path and raise NotImplementedError until it is ported.
-      phase_method, ola_method: the JAX package's polar-path options, kept
-        so configurations carry across; the fused route does not read them.
+      fft_backend: "fused" — the CUDA kernels: the fused TSM kernel
+        (ops/fused.py) where it covers the geometry, and the stft_polar /
+        istft_ola kernels (ops/stft.py) on the branch-faithful polar route.
+        "matmul" — the polar path with the DFT as FP32 matrix products;
+        "xla" — the polar path with torch.fft (the JAX backend's name).
+      phase_method: "wrapped_scan" (compensated wrapped scan, exact at any
+        length) or "cumsum" (the literal prefix sum); the polar path reads it.
+      ola_method: "auto"/"fold" or "scatter" overlap-add on the polar path.
       dtype: compute dtype; the kernels take float32 only.
     """
 
@@ -49,12 +49,7 @@ class PvocConfig:
             raise ValueError(f"n_fft must be positive and even, got {self.n_fft}")
         if not (0 < self.hop <= self.n_fft):
             raise ValueError(f"hop must be in (0, n_fft], got {self.hop}")
-        if self.fft_backend in _UNPORTED_BACKENDS:
-            raise NotImplementedError(
-                f"fft_backend={self.fft_backend!r} is the polar path, not "
-                "ported yet (ROADMAP queue 1 item 6); use 'fused'"
-            )
-        if self.fft_backend != "fused":
+        if self.fft_backend not in get_args(FFTBackend):
             raise ValueError(f"unknown fft_backend {self.fft_backend!r}")
         if self.dtype != "float32":
             raise NotImplementedError(

@@ -21,8 +21,9 @@
 // and carries state from tile to tile in VMEM scratch; CUDA blocks run in
 // no order, so the work is split into launches that need no carried state:
 //   (a) analysis: one block per frame loads x[i*Ra : i*Ra+N] (framing is
-//       the load), multiplies by the Hann window and runs the FFT with
-//       f64-built twiddles; bins 0..N/2 go to the spectrum row;
+//       the load), multiplies by the Hann window and runs the FFT of
+//       fft_common.cuh with f64-built twiddles; bins 0..N/2 go to the
+//       spectrum row;
 //   (b) phase: elementwise per (frame, bin). Integer k = Rs/Ra uses the
 //       closed form P_i = u_0 (u_i conj u_0)^k, which needs only frame 0.
 //       q >= 2 builds the step terms, then a three-pass chunked prefix
@@ -40,6 +41,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fft_common.cuh"
 
 namespace {
 
@@ -59,39 +62,6 @@ struct Geo {
   int chunk;  // frames per scan chunk (q >= 2)
 };
 
-// ------------------------------------------------------------------ FFT
-// In-place radix-2 decimation-in-time FFT of n complex values held in
-// shared memory in bit-reversed order. sign -1: forward, +1: inverse
-// (unscaled). twc/tws hold cos and sin of 2 pi k / n for k < n/2.
-__device__ void fft_shared(float* sr, float* si, const Geo& g,
-                           const float* __restrict__ twc,
-                           const float* __restrict__ tws, float sign) {
-  const int n = g.n_fft;
-  for (int len = 2; len <= n; len <<= 1) {
-    const int half = len >> 1;
-    const int step = n / len;
-    for (int j = threadIdx.x; j < n / 2; j += blockDim.x) {
-      const int pos = j & (half - 1);
-      const int a = (j - pos) * 2 + pos;
-      const int b = a + half;
-      const float wr = twc[pos * step];
-      const float wi = sign * tws[pos * step];
-      const float vr = sr[b] * wr - si[b] * wi;
-      const float vi = sr[b] * wi + si[b] * wr;
-      const float ur = sr[a], ui = si[a];
-      sr[a] = ur + vr;
-      si[a] = ui + vi;
-      sr[b] = ur - vr;
-      si[b] = ui - vi;
-    }
-    __syncthreads();
-  }
-}
-
-__device__ __forceinline__ int bitrev(int t, int log2n) {
-  return (int)(__brev((unsigned)t) >> (32 - log2n));
-}
-
 // (a) One block per frame: spec[i] = rfft(x[i*Ra : i*Ra+N] * w).
 __global__ void __launch_bounds__(kThreads)
 fft_analysis(const float* __restrict__ x, const float* __restrict__ win,
@@ -108,7 +78,7 @@ fft_analysis(const float* __restrict__ x, const float* __restrict__ win,
     si[r] = 0.f;
   }
   __syncthreads();
-  fft_shared(sr, si, g, twc, tws, -1.f);
+  fft_shared(sr, si, g.n_fft, twc, tws, -1.f);
   float* row = spec + i * 2 * g.nb;
   for (int k = threadIdx.x; k < g.nb; k += blockDim.x) {
     row[k] = sr[k];
@@ -138,7 +108,7 @@ fft_synthesis(const float* __restrict__ y, const float* __restrict__ win,
     }
   }
   __syncthreads();
-  fft_shared(sr, si, g, twc, tws, 1.f);
+  fft_shared(sr, si, g.n_fft, twc, tws, 1.f);
   const float scale = 1.f / g.n_fft;
   float* out = frames + i * g.n_fft;
   for (int t = threadIdx.x; t < g.n_fft; t += blockDim.x) {
@@ -418,8 +388,7 @@ extern "C" int pvoc_fused(const float* x, float* out, float* spec, float* y,
   Geo g;
   g.nf = nf;
   g.n_fft = n_fft;
-  g.log2n = 0;
-  while ((1 << g.log2n) < n_fft) ++g.log2n;
+  g.log2n = log2_int(n_fft);
   g.nh = n_fft / 2;
   g.nb = g.nh + 1;
   g.ra = ra;

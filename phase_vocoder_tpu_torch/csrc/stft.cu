@@ -1,0 +1,179 @@
+// stft — the polar analysis and the polar synthesis + overlap-add of the
+// branch-faithful phase-vocoder route on an H100.
+//
+// Replaces: phase_vocoder_tpu/ops/pallas/stft.py
+//   * _stft_kernel (framing + Hann window + forward DFT, as wrapped by
+//     stft_fused/stft_polar, with the polar conversion that stft_polar
+//     leaves to XLA) -> stft_polar below;
+//   * _istft_kernel (polar -> cartesian, inverse DFT, synthesis window,
+//     fold overlap-add carried across the in-order grid, un-normalized, as
+//     wrapped by istft_ola) -> istft_ola below.
+//
+// What bounds them here: device memory traffic. Each frame's DFT is the
+// radix-2 FFT of fft_common.cuh in shared memory (~5 N log2 N FLOP, a
+// hundredth of the TPU kernels' matrix DFTs), so the time goes to reading
+// the signal or the (nf, N/2+1) magnitude and phase tensors and writing
+// their counterparts. FP32 FMA, no tensor cores: the phases feed the
+// branch-faithful phase scan, whose point is to follow the float64 golden
+// model's princarg choices.
+//
+// What the design does about it:
+//   stft_polar: one block per frame loads x[i*hop : i*hop+N] (framing is
+//     the load), multiplies by the window, transforms, and writes
+//     mag = sqrt(re^2+im^2) and phi = atan2(im, re) straight into two
+//     (nf, N/2+1) tensors, the JAX layout: the spectrum never reaches
+//     device memory as (re, im).
+//   istft_ola, pass 1: one block per frame turns mask*mag*(cos psi,
+//     sin psi) into the Hermitian spectrum in shared memory (imaginary
+//     parts of DC and Nyquist forced to zero, as a real inverse transform
+//     drops them: psi there is 0 or +-pi plus a multiple of pi, whose f32
+//     sine is not zero), runs the inverse FFT, and writes w * x / N to an
+//     (nf, N) frames tensor.
+//   istft_ola, pass 2: the overlap-add in gather form, a thread per output
+//     sample summing the <= m frames that cover it in increasing frame
+//     order, without normalization. The TPU kernel carries the OLA tail in
+//     VMEM from one grid step to the next; CUDA blocks run in no order, so
+//     the gather takes its place. No atomics: reruns are bitwise equal.
+// Offsets into the signal, spectra and frames are 64-bit. Build without
+// fast math: sqrtf, atan2f and sincosf are the IEEE-accurate versions.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "fft_common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// One block per frame: (mag, phi)[i] = polar(rfft(x[i*hop : i*hop+N] * w)).
+__global__ void __launch_bounds__(kThreads)
+stft_polar_kernel(const float* __restrict__ x, const float* __restrict__ win,
+                  const float* __restrict__ twc,
+                  const float* __restrict__ tws, float* __restrict__ mag,
+                  float* __restrict__ phi, int n_fft, int log2n, int hop) {
+  extern __shared__ float sm[];
+  float* sr = sm;
+  float* si = sm + n_fft;
+  const int64_t i = blockIdx.x;
+  const float* xf = x + i * hop;
+  for (int t = threadIdx.x; t < n_fft; t += blockDim.x) {
+    const int r = bitrev(t, log2n);
+    sr[r] = xf[t] * win[t];
+    si[r] = 0.f;
+  }
+  __syncthreads();
+  fft_shared(sr, si, n_fft, twc, tws, -1.f);
+  const int nb = n_fft / 2 + 1;
+  float* mrow = mag + i * nb;
+  float* prow = phi + i * nb;
+  for (int k = threadIdx.x; k < nb; k += blockDim.x) {
+    const float re = sr[k], im = si[k];
+    mrow[k] = sqrtf(re * re + im * im);
+    prow[k] = atan2f(im, re);
+  }
+}
+
+// istft_ola pass 1, one block per frame:
+// frames[i] = w * irfft(mask_i * mag_i * e^{i psi_i}) with the imaginary
+// parts of DC and Nyquist dropped.
+__global__ void __launch_bounds__(kThreads)
+istft_frames_kernel(const float* __restrict__ mag,
+                    const float* __restrict__ psi,
+                    const float* __restrict__ mask,
+                    const float* __restrict__ win,
+                    const float* __restrict__ twc,
+                    const float* __restrict__ tws,
+                    float* __restrict__ frames, int n_fft, int log2n) {
+  extern __shared__ float sm[];
+  float* sr = sm;
+  float* si = sm + n_fft;
+  const int64_t i = blockIdx.x;
+  const int nh = n_fft / 2;
+  const int nb = nh + 1;
+  const float mk = mask[i];
+  const float* mrow = mag + i * nb;
+  const float* prow = psi + i * nb;
+  for (int k = threadIdx.x; k < nb; k += blockDim.x) {
+    const float m = mrow[k] * mk;
+    float s, c;
+    sincosf(prow[k], &s, &c);
+    const float re = m * c;
+    const int r = bitrev(k, log2n);
+    sr[r] = re;
+    if (k == 0 || k == nh) {
+      si[r] = 0.f;
+    } else {
+      const float im = m * s;
+      si[r] = im;
+      const int rm = bitrev(n_fft - k, log2n);  // Hermitian half: conj(Y[k])
+      sr[rm] = re;
+      si[rm] = -im;
+    }
+  }
+  __syncthreads();
+  fft_shared(sr, si, n_fft, twc, tws, 1.f);
+  const float scale = 1.f / n_fft;
+  float* out = frames + i * n_fft;
+  for (int t = threadIdx.x; t < n_fft; t += blockDim.x) {
+    out[t] = sr[t] * scale * win[t];
+  }
+}
+
+// istft_ola pass 2: out[n] = sum over the frames j covering n, in
+// increasing j, of frames[j][n - j*rs]; no normalization.
+__global__ void ola_sum_kernel(const float* __restrict__ frames,
+                               float* __restrict__ out, int64_t out_len,
+                               int64_t nf, int n_fft, int rs, int m) {
+  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= out_len) return;
+  const int64_t r = n / rs;
+  const int t = (int)(n % rs);
+  const int64_t jlo = r - m + 1 > 0 ? r - m + 1 : 0;
+  const int64_t jhi = r < nf - 1 ? r : nf - 1;
+  float acc = 0.f;
+  for (int64_t j = jlo; j <= jhi; ++j) {
+    const int off = (int)(r - j) * rs + t;
+    if (off < n_fft) acc += frames[j * n_fft + off];
+  }
+  out[n] = acc;
+}
+
+unsigned blocks_for(int64_t n, int threads) {
+  return (unsigned)((n + threads - 1) / threads);
+}
+
+}  // namespace
+
+// x holds >= (nf-1)*hop + n_fft float32 samples; fft (2*n_fft) =
+// [Hann window (n_fft) | cos (n_fft/2) | sin (n_fft/2)]; mag and phi are
+// (nf, n_fft/2+1). n_fft a power of two up to 4096.
+extern "C" int stft_polar(const float* x, const float* fft, float* mag,
+                          float* phi, long long nf, int n_fft, int hop,
+                          cudaStream_t stream) {
+  const size_t smem = 2 * n_fft * sizeof(float);
+  stft_polar_kernel<<<(unsigned)nf, kThreads, smem, stream>>>(
+      x, fft, fft + n_fft, fft + n_fft + n_fft / 2, mag, phi, n_fft,
+      log2_int(n_fft), hop);
+  return cudaGetLastError();
+}
+
+// mag and psi (nf, n_fft/2+1), mask (nf,), fft as above; frames (nf,
+// n_fft) is scratch; out ((nf-1)*rs + n_fft) receives the un-normalized
+// overlap-add.
+extern "C" int istft_ola(const float* mag, const float* psi,
+                         const float* mask, const float* fft, float* frames,
+                         float* out, long long nf, int n_fft, int rs,
+                         cudaStream_t stream) {
+  const size_t smem = 2 * n_fft * sizeof(float);
+  istft_frames_kernel<<<(unsigned)nf, kThreads, smem, stream>>>(
+      mag, psi, mask, fft, fft + n_fft, fft + n_fft + n_fft / 2, frames,
+      n_fft, log2_int(n_fft));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t out_len = (nf - 1) * (int64_t)rs + n_fft;
+  const int m = (n_fft + rs - 1) / rs;
+  ola_sum_kernel<<<blocks_for(out_len, kThreads), kThreads, 0, stream>>>(
+      frames, out, out_len, nf, n_fft, rs, m);
+  return cudaGetLastError();
+}

@@ -3,7 +3,7 @@ phase_vocoder_tpu/models/phase_vocoder.py).
 
 The phase vocoder has no learned weights; its "parameters" are static
 tables (window, DFT matrices, phasor constants, normalization rows) that
-ops/fused.py builds per geometry and device. The module is therefore a
+the ops build per geometry and device. The module is therefore a
 stateless nn.Module whose forward step is the time stretch.
 """
 
@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .. import pipeline
+from .. import pipeline, streaming
 from ..config import PvocConfig
 
 
@@ -38,6 +38,11 @@ class PhaseVocoder(nn.Module):
 
     def pitch_shift(self, x, semitones: float) -> torch.Tensor:
         return pipeline.pitch_shift(x, semitones, self.config, device=self.device)
+
+    def stream_time_stretch(self, x, stretch: float, **kw) -> torch.Tensor:
+        """Segmented polar TSM for recordings of any length
+        (streaming.stream_time_stretch; kw: segment_frames)."""
+        return streaming.stream_time_stretch(x, stretch, self.config, device=self.device, **kw)
 
     def output_length(self, in_len: int, stretch: float) -> int:
         return pipeline.stretch_output_length(in_len, self.config, stretch)

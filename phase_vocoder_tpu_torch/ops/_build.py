@@ -1,10 +1,12 @@
 """Build the CUDA kernels of csrc/ with nvcc and load them with ctypes.
 
-The sources have a plain C interface and need only the CUDA toolkit, so
-one nvcc call builds them in seconds. The library goes to
-phase_vocoder_tpu_torch/build/libpvoc_kernels.so at first use and is
-rebuilt when a source, or the command, changes (a sha256 stamp beside it).
-A missing nvcc or a failed build raises with the compiler's output.
+The sources have a plain C interface and need only the CUDA toolkit. Each
+csrc/*.cu compiles to an object file in its own nvcc process, all started
+together, and one more nvcc call links them into
+phase_vocoder_tpu_torch/build/libpvoc_kernels.so at first use. The library
+is rebuilt when any file under csrc/ (sources and shared headers) or the
+command changes (a sha256 stamp beside it). A missing nvcc or a failed
+build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ BUILD_DIR = _PKG / "build"
 LIB_PATH = BUILD_DIR / "libpvoc_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -37,6 +39,10 @@ _SIGNATURES = {
         _P,  # stream
     ],
     "resample_lerp": [_P, _P, _LL, _LL, ctypes.c_double, _P],
+    # x, fft table, mag, phi, nf, n_fft, hop, stream
+    "stft_polar": [_P, _P, _P, _P, _LL, _I, _I, _P],
+    # mag, psi, mask, fft table, frames, out, nf, n_fft, rs, stream
+    "istft_ola": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
 }
 
 
@@ -54,31 +60,59 @@ def _nvcc() -> str:
     return path
 
 
-def _digest(sources: list[Path]) -> str:
+def _csrc_files(csrc: Path) -> list[Path]:
+    """Every file under csrc/, sorted: the .cu sources and their headers."""
+    return sorted(p for p in csrc.rglob("*") if p.is_file())
+
+
+def _digest(csrc: Path) -> str:
+    """sha256 of the nvcc flags and of every file under csrc/ (path and
+    bytes), so that editing a shared header also triggers a rebuild."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    for f in _csrc_files(csrc):
+        h.update(f.relative_to(csrc).as_posix().encode())
+        h.update(f.read_bytes())
     return h.hexdigest()
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands as parallel processes; raise on the first failure."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for c in cmds
+    ]
+    failures = []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+    if failures:
+        raise RuntimeError("\n".join(failures))
 
 
 def build() -> Path:
     """Compile csrc/*.cu into LIB_PATH unless the stamp says it is current."""
-    sources = sorted(CSRC.glob("*.cu"))
-    digest = _digest(sources)
+    digest = _digest(CSRC)
     stamp = LIB_PATH.with_suffix(".so.sha256")
     if LIB_PATH.exists() and stamp.exists() and stamp.read_text() == digest:
         return LIB_PATH
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_suffix(f".so.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, LIB_PATH)
+    pid = os.getpid()
+    sources = [f for f in _csrc_files(CSRC) if f.suffix == ".cu"]
+    # nvcc tells inputs apart by their extension: objects end in .o.
+    objects = [BUILD_DIR / f"{src.stem}.{pid}.tmp.o" for src in sources]
+    tmp = LIB_PATH.with_suffix(f".so.{pid}.tmp")
+    try:
+        _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objects)
+        ])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]])
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     stamp.write_text(digest)
     return LIB_PATH
 

@@ -45,11 +45,16 @@ SCAN_CHUNK = 64
 MAX_N_FFT = 4096
 
 
+def fft_size_supported(n_fft: int) -> bool:
+    """True when the kernels' radix-2 FFT (csrc/fft_common.cuh) takes
+    n_fft: a power of two up to MAX_N_FFT."""
+    return 2 <= n_fft <= MAX_N_FFT and n_fft & (n_fft - 1) == 0
+
+
 def phasor_supported(n_fft: int, ra: int, rs: int) -> bool:
-    """True when the fused kernel covers this geometry: N a power of two
-    (radix-2 FFT) up to MAX_N_FFT, Ra | N and overlap >= 2 (0 < Rs <= N/2)."""
-    pow2 = n_fft >= 2 and n_fft & (n_fft - 1) == 0
-    return pow2 and n_fft <= MAX_N_FFT and n_fft % ra == 0 and 0 < rs and 2 * rs <= n_fft
+    """True when the fused kernel covers this geometry: fft_size_supported,
+    Ra | N and overlap >= 2 (0 < Rs <= N/2)."""
+    return fft_size_supported(n_fft) and n_fft % ra == 0 and 0 < rs and 2 * rs <= n_fft
 
 
 def _rational_k(rs: int, ra: int) -> tuple[int, int]:

@@ -1,0 +1,182 @@
+"""Polar STFT analysis and polar iSTFT + overlap-add (counterpart of
+phase_vocoder_tpu/ops/pallas/stft.py: stft_polar and istft_ola).
+
+`stft_polar` and `istft_ola` run the CUDA kernels of csrc/stft.cu for a
+CUDA tensor, counting one launch each in `.launches`, and their plain torch
+versions (`*_reference`) for a CPU tensor. A CUDA tensor launches the
+kernel or raises; nothing falls back.
+
+The kernels take a power-of-two n_fft up to 4096 (the radix-2 FFT of
+csrc/fft_common.cuh); istft_ola keeps the JAX contract rs | n_fft with
+overlap n_fft/rs >= 2.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from . import _build
+from .framing import frame_signal, num_frames, overlap_add
+from .fused import MAX_N_FFT, _fft_tables, fft_size_supported
+from .window import hann_window
+
+__all__ = [
+    "stft_supported",
+    "istft_ola_supported",
+    "stft_polar",
+    "stft_polar_reference",
+    "istft_ola",
+    "istft_ola_reference",
+]
+
+
+def stft_supported(n_fft: int, hop: int) -> bool:
+    """True when the stft_polar kernel covers (n_fft, hop): the FFT's
+    n_fft and hop | n_fft, the JAX kernel's framing."""
+    return fft_size_supported(n_fft) and 0 < hop <= n_fft and n_fft % hop == 0
+
+
+def istft_ola_supported(n_fft: int, rs: int) -> bool:
+    """True when the istft_ola kernel covers (n_fft, rs): the FFT's n_fft,
+    and rs | n_fft with overlap >= 2, as the JAX kernel requires."""
+    return fft_size_supported(n_fft) and 0 < rs and n_fft % rs == 0 and n_fft // rs >= 2
+
+
+@functools.lru_cache(maxsize=16)
+def _device_fft_table(n_fft: int, device: str) -> torch.Tensor:
+    """[Hann window | cos | sin] of ops/fused.py, float32 on `device`."""
+    return torch.as_tensor(_fft_tables(n_fft), device=device)
+
+
+def _check_cuda(t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    if t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"{what}: needs contiguous float32 tensors, got {t.dtype}")
+
+
+# ---------------------------------------------------------------- analysis
+
+
+def stft_polar_reference(x: torch.Tensor, n_fft: int, hop: int):
+    """Plain torch windowed STFT -> (mag, phi), each (nf, n_fft//2+1), on
+    x's device: torch.fft.rfft of the Hann-windowed frames, then
+    sqrt(re^2+im^2) and atan2(im, re)."""
+    spec = torch.fft.rfft(frame_signal(x, n_fft, hop) * hann_window(n_fft, x.device), dim=-1)
+    re, im = spec.real, spec.imag
+    return torch.sqrt(re * re + im * im), torch.atan2(im, re)
+
+
+def stft_polar(x: torch.Tensor, n_fft: int, hop: int):
+    """Windowed STFT of 1-D float32 x -> (mag, phi), each (nf, n_fft//2+1).
+
+    A CUDA tensor goes through the stft_polar kernel (csrc/stft.cu) and
+    counts one launch in `stft_polar.launches`; a CPU tensor goes through
+    stft_polar_reference.
+    """
+    if x.dtype != torch.float32 or x.dim() != 1:
+        raise ValueError(f"expected a 1-D float32 tensor, got {x.dtype} {tuple(x.shape)}")
+    if not stft_supported(n_fft, hop):
+        raise ValueError(
+            f"stft_polar requires n_fft a power of two <= {MAX_N_FFT} and "
+            f"hop | n_fft (got n_fft={n_fft}, hop={hop})"
+        )
+    nf = num_frames(x.shape[-1], n_fft, hop)
+    nb = n_fft // 2 + 1
+    if nf <= 0:
+        return x.new_zeros((0, nb)), x.new_zeros((0, nb))
+    if x.device.type == "cpu":
+        return stft_polar_reference(x, n_fft, hop)
+    _check_cuda(x, "stft_polar")
+    mag = torch.empty((nf, nb), dtype=torch.float32, device=x.device)
+    phi = torch.empty_like(mag)
+    table = _device_fft_table(n_fft, str(x.device))
+    lib = _build.kernels()
+    with torch.cuda.device(x.device):
+        rc = lib.stft_polar(
+            x.data_ptr(), table.data_ptr(), mag.data_ptr(), phi.data_ptr(),
+            nf, n_fft, hop, torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(rc, "stft_polar")
+    stft_polar.launches += 1
+    return mag, phi
+
+
+stft_polar.launches = 0
+
+
+# --------------------------------------------------------------- synthesis
+
+
+def _mask(frame_mask, nf: int, like: torch.Tensor) -> torch.Tensor:
+    if frame_mask is None:
+        return like.new_ones((nf,))
+    if frame_mask.shape != (nf,):
+        raise ValueError(f"frame_mask must be ({nf},), got {tuple(frame_mask.shape)}")
+    return frame_mask.to(device=like.device, dtype=like.dtype).contiguous()
+
+
+def istft_ola_reference(
+    mag: torch.Tensor, psi: torch.Tensor, n_fft: int, rs: int,
+    frame_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain torch polar synthesis: Y = mask*mag*e^{i psi} with the
+    imaginary parts of DC and Nyquist set to zero, torch.fft.irfft, Hann
+    window, fold overlap-add. Un-normalized, (nf-1)*rs + n_fft samples."""
+    nf = mag.shape[0]
+    m = mag * _mask(frame_mask, nf, mag)[:, None]
+    re = m * torch.cos(psi)
+    im = m * torch.sin(psi)
+    im[:, 0] = 0.0
+    im[:, -1] = 0.0
+    frames = torch.fft.irfft(torch.complex(re, im), n=n_fft, dim=-1)
+    return overlap_add(frames * hann_window(n_fft, mag.device), rs)
+
+
+def istft_ola(
+    mag: torch.Tensor, psi: torch.Tensor, n_fft: int, rs: int,
+    frame_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Polar -> waveform: Y = mag*e^{i psi} -> irfft -> window -> OLA.
+
+    mag, psi: (nf, n_fft//2+1) float32; frame_mask: optional (nf,) 0/1
+    weights (masked frames contribute nothing). Returns the un-normalized
+    overlap-add of length (nf-1)*rs + n_fft (divide by ola_window_norm).
+    A CUDA tensor goes through the istft_ola kernel (csrc/stft.cu) and
+    counts one launch in `istft_ola.launches`; a CPU tensor goes through
+    istft_ola_reference.
+    """
+    if not istft_ola_supported(n_fft, rs):
+        raise ValueError(
+            f"istft_ola requires n_fft a power of two <= {MAX_N_FFT}, rs | n_fft "
+            f"and n_fft // rs >= 2 (got n_fft={n_fft}, rs={rs})"
+        )
+    nb = n_fft // 2 + 1
+    if mag.dim() != 2 or mag.shape[1] != nb or psi.shape != mag.shape:
+        raise ValueError(f"mag and psi must be (nf, {nb}), got {tuple(mag.shape)} {tuple(psi.shape)}")
+    nf = mag.shape[0]
+    if nf == 0:
+        return mag.new_zeros((0,))
+    if mag.device.type == "cpu":
+        return istft_ola_reference(mag, psi, n_fft, rs, frame_mask)
+    _check_cuda(mag, "istft_ola")
+    _check_cuda(psi, "istft_ola")
+    mask = _mask(frame_mask, nf, mag)
+    frames = torch.empty((nf, n_fft), dtype=torch.float32, device=mag.device)
+    out = torch.empty((nf - 1) * rs + n_fft, dtype=torch.float32, device=mag.device)
+    table = _device_fft_table(n_fft, str(mag.device))
+    lib = _build.kernels()
+    with torch.cuda.device(mag.device):
+        rc = lib.istft_ola(
+            mag.data_ptr(), psi.data_ptr(), mask.data_ptr(), table.data_ptr(),
+            frames.data_ptr(), out.data_ptr(), nf, n_fft, rs,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(rc, "istft_ola")
+    istft_ola.launches += 1
+    return out
+
+
+istft_ola.launches = 0

@@ -1,9 +1,17 @@
 """Single-device phase-vocoder pipeline (counterpart of phase_vocoder_tpu/pipeline.py).
 
-time_stretch runs the fused TSM kernel (ops/fused.py); pitch_shift runs it
-and then the linear resampler (ops/resample.py). Routing follows the JAX
-package: the routes that land on executors this package does not have yet
-raise NotImplementedError, naming the ROADMAP item, before any compute.
+Routes of time_stretch, in the JAX package's order:
+  1. a q >= 2 hop ratio with branch_policy "faithful", or "auto" past
+     BRANCH_FAITHFUL_FRAMES frames: the branch-faithful polar streaming
+     executor (streaming.py; kernels of ops/stft.py on the "fused" backend);
+  2. the fused TSM kernel (ops/fused.py) where it covers the geometry;
+  3. on the "matmul"/"xla" backends, the monolithic polar path (analyze ->
+     stretch_polar -> synthesize_polar) up to max_monolithic_frames, the
+     streaming executor beyond.
+pitch_shift takes the same stretch routes (no length cut-over on the polar
+backends, as in the JAX package) and then the linear resampler
+(ops/resample.py). What this package does not have yet raises
+NotImplementedError, naming the ROADMAP item, before any compute.
 
 Tensors stay on the device they came on. Anything else (numpy arrays,
 lists) is converted to float32 on `device`, which defaults to "cuda" and
@@ -16,21 +24,34 @@ import numpy as np
 import torch
 
 from .config import PvocConfig
-from .ops import framing
+from .ops import fft as fft_ops
+from .ops import framing, phase
 from .ops.fused import _rational_k, fused_time_stretch, phasor_supported
 from .ops.resample import resample_linear
+from .ops.stft import istft_ola, istft_ola_supported, stft_polar, stft_supported
+from .ops.window import hann_window
 
 __all__ = [
+    "analyze",
+    "synthesize",
+    "synthesize_polar",
+    "stretch_frames",
+    "stretch_polar",
     "time_stretch",
     "pitch_shift",
     "stretch_output_length",
     "fused_ok",
+    "fused_analysis_ok",
+    "fused_synthesis_ok",
     "BRANCH_FAITHFUL_FRAMES",
 ]
 
 # Frame count above which branch_policy="auto" sends q >= 2 hop ratios to
-# the JAX package's branch-faithful polar streaming executor (~600 s at
-# 16 kHz / 256 hop; pipeline.py there records why).
+# the branch-faithful polar streaming executor (~600 s at 16 kHz / 256
+# hop): the phasor-form kernels resolve princarg branches in another
+# rounding pattern than the float64 golden model, which on branch-dense
+# content drifts past the 1e-4 gate beyond ~10 min, while the polar
+# formula follows the golden model's branch choices op for op.
 BRANCH_FAITHFUL_FRAMES = 37_500
 
 _BRANCH_POLICIES = ("auto", "fast", "faithful")
@@ -46,6 +67,17 @@ def fused_ok(cfg: PvocConfig, rs: int) -> bool:
     return cfg.fft_backend == "fused" and phasor_supported(cfg.n_fft, cfg.hop, rs)
 
 
+def fused_analysis_ok(cfg: PvocConfig) -> bool:
+    """True when analyze() runs the stft_polar kernel."""
+    return cfg.fft_backend == "fused" and stft_supported(cfg.n_fft, cfg.hop)
+
+
+def fused_synthesis_ok(cfg: PvocConfig, rs: int) -> bool:
+    """True when polar synthesis runs the istft_ola kernel (rs | n_fft,
+    overlap >= 2)."""
+    return cfg.fft_backend == "fused" and istft_ola_supported(cfg.n_fft, rs)
+
+
 def _reduced_q(cfg: PvocConfig, rs: int) -> int:
     return _rational_k(rs, cfg.hop)[1]
 
@@ -56,51 +88,180 @@ def _as_signal(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
 
 
-def _check_route(cfg: PvocConfig, rs: int, nf: int, branch_policy: str) -> None:
-    """Raise for every route whose executor is not ported yet."""
+# ------------------------------------------------------------ polar stages
+
+
+def analyze(x: torch.Tensor, cfg: PvocConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Windowed STFT -> (mag, phi), each (nf, n_bins)."""
+    if fused_analysis_ok(cfg):
+        return stft_polar(x, cfg.n_fft, cfg.hop)
+    frames = framing.frame_signal(x, cfg.n_fft, cfg.hop)
+    if cfg.fft_backend == "xla":
+        re, im = fft_ops.rfft(frames * hann_window(cfg.n_fft, x.device), backend="xla")
+    else:  # "matmul", and geometries the stft_polar kernel does not take
+        re, im = fft_ops.rfft(frames, backend="matmul", fused_window=True)
+    return torch.sqrt(re * re + im * im), torch.atan2(im, re)
+
+
+def stretch_polar(
+    mag: torch.Tensor, phi: torch.Tensor, cfg: PvocConfig, rs: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Frequency-domain TSM in polar form: (mag, accumulated synthesis phase)."""
+    dphi = phase.heterodyne_increment(phi, cfg.hop, cfg.n_fft)
+    psi = phase.accumulate_phase(phi, dphi, cfg.hop, rs, cfg.n_fft, method=cfg.phase_method)
+    return mag, psi
+
+
+def stretch_frames(
+    mag: torch.Tensor, phi: torch.Tensor, cfg: PvocConfig, rs: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Frequency-domain TSM: (re, im) with the accumulated synthesis phase."""
+    mag, psi = stretch_polar(mag, phi, cfg, rs)
+    return mag * torch.cos(psi), mag * torch.sin(psi)
+
+
+def synthesize_polar(
+    mag: torch.Tensor,
+    psi: torch.Tensor,
+    cfg: PvocConfig,
+    rs: int,
+    frame_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Polar-form synthesis: the istft_ola kernel plus the window-energy
+    normalization where it applies, else the (re, im) path of synthesize."""
+    if fused_synthesis_ok(cfg, rs):
+        out = istft_ola(mag, psi, cfg.n_fft, rs, frame_mask=frame_mask)
+        w = hann_window(cfg.n_fft, mag.device)
+        norm = framing.ola_window_norm(
+            w, mag.shape[0], rs, method="fold", frame_mask=frame_mask
+        )
+        return out / norm
+    if cfg.fft_backend == "fused":
+        raise NotImplementedError(
+            f"polar synthesis at Rs={rs} (Rs does not divide n_fft={cfg.n_fft} "
+            "with overlap >= 2) on the fused backend is the JAX package's "
+            "istft_frames kernel, not ported yet (ROADMAP queue 2 row 12)"
+        )
+    return synthesize(
+        mag * torch.cos(psi), mag * torch.sin(psi), cfg, rs, frame_mask=frame_mask
+    )
+
+
+def synthesize(
+    re: torch.Tensor,
+    im: torch.Tensor,
+    cfg: PvocConfig,
+    rs: int,
+    frame_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Inverse FFT, synthesis window, overlap-add, COLA normalization.
+
+    frame_mask: optional (nf,) 0/1 weights marking valid frames; masked
+    frames are zeroed in both the signal and the normalization.
+    """
+    w = hann_window(cfg.n_fft, re.device)
+    if cfg.fft_backend == "xla":
+        y_frames = fft_ops.irfft(re, im, cfg.n_fft, backend="xla") * w
+    else:  # "matmul", and the fused backend's cartesian fallback
+        y_frames = fft_ops.irfft(re, im, cfg.n_fft, backend="matmul", fused_window=True)
+    if frame_mask is not None:
+        y_frames = y_frames * frame_mask[:, None].to(y_frames.dtype)
+    out = framing.overlap_add(y_frames, rs, method=cfg.ola_method)
+    norm = framing.ola_window_norm(
+        w, y_frames.shape[0], rs, method=cfg.ola_method, frame_mask=frame_mask
+    )
+    return out / norm
+
+
+def _polar_stretch(x: torch.Tensor, cfg: PvocConfig, rs: int) -> torch.Tensor:
+    mag, phi = analyze(x, cfg)
+    mag, psi = stretch_polar(mag, phi, cfg, rs)
+    return synthesize_polar(mag, psi, cfg, rs)
+
+
+# ----------------------------------------------------------------- routing
+
+
+def _route(
+    cfg: PvocConfig,
+    rs: int,
+    nf: int,
+    branch_policy: str,
+    max_monolithic_frames: int | None = None,
+    max_phasor_general_frames: int | None = None,
+) -> str:
+    """"stream", "fused" or "polar", in the JAX package's order; raises for
+    what is not ported. The max_* limits are time_stretch's (None: no
+    length cut-over, as pitch_shift)."""
     if branch_policy not in _BRANCH_POLICIES:
         raise ValueError(f"unknown branch_policy {branch_policy!r}")
+    if cfg.fft_backend == "fused" and not stft_supported(cfg.n_fft, cfg.hop):
+        raise NotImplementedError(
+            f"n_fft={cfg.n_fft}, hop={cfg.hop} is outside the fused backend's "
+            "kernels (they need n_fft a power of two <= 4096 and hop | n_fft); "
+            "the JAX package falls back to its matmul DFT there "
+            "(ROADMAP queue 1 item 4); fft_backend='matmul' serves it"
+        )
     if _reduced_q(cfg, rs) > 1 and (
         branch_policy == "faithful"
         or (branch_policy == "auto" and nf > BRANCH_FAITHFUL_FRAMES)
     ):
+        return "stream"
+    if fused_ok(cfg, rs):
+        return "fused"
+    if cfg.fft_backend == "fused":
+        # The JAX package runs phasor_general_stretch here, and the
+        # streaming executor past both frame limits.
+        if max_monolithic_frames is not None and nf > max(
+            max_monolithic_frames, max_phasor_general_frames
+        ):
+            return "stream"
         raise NotImplementedError(
-            f"branch_policy={branch_policy!r} with a q >= 2 hop ratio over "
-            f"{nf} frames routes to the branch-faithful polar streaming "
-            "executor, not ported yet (ROADMAP queue 1 items 6-7); "
-            "branch_policy='fast' keeps the fused kernel"
+            f"Rs={rs} > n_fft/2={cfg.n_fft // 2} on the fused backend routes "
+            "to phasor_general_stretch, not ported yet (ROADMAP queue 2 rows "
+            "6 and 13); branch_policy='faithful' (q >= 2) or "
+            "fft_backend='matmul' serve it"
         )
-    if not fused_ok(cfg, rs):
-        raise NotImplementedError(
-            f"n_fft={cfg.n_fft}, hop={cfg.hop}, Rs={rs} is outside the fused "
-            "kernel (needs n_fft a power of two, hop | n_fft and Rs <= "
-            "n_fft/2); the JAX package "
-            "routes it to phasor_general_stretch or the streaming executor, "
-            "not ported yet (ROADMAP queue 1 items 4 and 7)"
-        )
+    if max_monolithic_frames is not None and nf > max_monolithic_frames:
+        return "stream"
+    return "polar"
 
 
 def time_stretch(
     x,
     stretch: float,
     cfg: PvocConfig = PvocConfig(),
+    max_monolithic_frames: int = 4096,
+    max_phasor_general_frames: int = 1 << 18,
     branch_policy: str = "auto",
     device="cuda",
 ) -> torch.Tensor:
     """Time-scale-modify a 1-D waveform by `stretch` (duration multiplier).
 
     Pitch is preserved; output length (nf-1)*Rs + n_fft with Rs =
-    round(hop * stretch). branch_policy as in the JAX package: "auto"
-    routes q >= 2 inputs longer than BRANCH_FAITHFUL_FRAMES to the
-    branch-faithful executor, "faithful" always, "fast" never.
+    round(hop * stretch). branch_policy governs q >= 2 hop ratios (stretch
+    0.5, 1.5, every non-octave pitch hop): "auto" routes inputs longer than
+    BRANCH_FAITHFUL_FRAMES to the branch-faithful polar streaming executor,
+    "faithful" routes every such input there, "fast" never reroutes (the
+    phasor kernel at full speed). Integer k never reroutes: its closed form
+    has no branch cuts. The max_* limits select the streaming executor for
+    long inputs on the routes without a fused kernel, as in the JAX package.
     """
     x = _as_signal(x, device)
     rs = cfg.synthesis_hop(stretch)
     nf = framing.num_frames(x.shape[-1], cfg.n_fft, cfg.hop)
     if nf <= 0:
         return x.new_zeros((0,))
-    _check_route(cfg, rs, nf, branch_policy)
-    return fused_time_stretch(x, cfg.n_fft, cfg.hop, rs)
+    route = _route(
+        cfg, rs, nf, branch_policy, max_monolithic_frames, max_phasor_general_frames
+    )
+    if route == "stream":
+        from . import streaming
+
+        return streaming.stream_time_stretch(x, stretch, cfg)
+    if route == "fused":
+        return fused_time_stretch(x, cfg.n_fft, cfg.hop, rs)
+    return _polar_stretch(x, cfg, rs)
 
 
 def pitch_shift(
@@ -111,7 +272,9 @@ def pitch_shift(
     device="cuda",
 ) -> torch.Tensor:
     """Pitch-shift by `semitones`: time-stretch by 2^(semitones/12), then
-    resample by the inverse factor. Duration is preserved."""
+    resample by the inverse factor. Duration is preserved. branch_policy as
+    in time_stretch: long q >= 2 inputs run the stretch stage on the
+    branch-faithful polar streaming executor."""
     x = _as_signal(x, device)
     factor = 2.0 ** (semitones / 12.0)
     rs = cfg.synthesis_hop(factor)
@@ -120,6 +283,13 @@ def pitch_shift(
         return x.new_zeros((0,))
     out_len = int(round(stretched_len / factor))
     nf = framing.num_frames(x.shape[-1], cfg.n_fft, cfg.hop)
-    _check_route(cfg, rs, nf, branch_policy)
-    y = fused_time_stretch(x, cfg.n_fft, cfg.hop, rs)
+    route = _route(cfg, rs, nf, branch_policy)
+    if route == "stream":
+        from . import streaming
+
+        y = streaming.stream_time_stretch(x, factor, cfg)
+    elif route == "fused":
+        y = fused_time_stretch(x, cfg.n_fft, cfg.hop, rs)
+    else:
+        y = _polar_stretch(x, cfg, rs)
     return resample_linear(y, 1.0 / factor, out_len)

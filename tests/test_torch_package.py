@@ -92,15 +92,46 @@ def test_pyproject_ships_the_port():
     assert meta["project"]["scripts"]["pvoc-torch"] == "phase_vocoder_tpu_torch.cli:main"
 
 
-@pytest.mark.parametrize("name", ["pvoc_fused.cu", "resample.cu"])
+@pytest.mark.parametrize("name", ["pvoc_fused.cu", "resample.cu", "stft.cu"])
 def test_kernel_sources_use_no_kernel_library(name):
     """The kernels are written by hand: they include only the CUDA runtime
-    (no cuFFT, cuBLAS or PyTorch headers) and start with their note."""
+    and the package's shared FFT header (no cuFFT, cuBLAS or PyTorch
+    headers) and start with their note."""
     src = (PKG / "csrc" / name).read_text()
     assert src.startswith("//") and "Replaces:" in src
     includes = {ln.split()[1] for ln in src.splitlines() if ln.startswith("#include")}
-    assert includes == {"<cuda_runtime.h>", "<stdint.h>"}, includes
+    assert "<cuda_runtime.h>" in includes
+    assert includes <= {"<cuda_runtime.h>", "<stdint.h>", '"fft_common.cuh"'}, includes
     assert "cufft" not in src.lower() and "cublas" not in src.lower()
+
+
+def test_shared_fft_header_is_plain_cuda():
+    """fft_common.cuh holds the radix-2 FFT both per-frame kernel files
+    include, and includes nothing but the CUDA runtime."""
+    src = (PKG / "csrc" / "fft_common.cuh").read_text()
+    includes = {ln.split()[1] for ln in src.splitlines() if ln.startswith("#include")}
+    assert includes == {"<cuda_runtime.h>"}
+    assert "fft_shared" in src
+    for name in ("pvoc_fused.cu", "stft.cu"):
+        cu = (PKG / "csrc" / name).read_text()
+        assert '#include "fft_common.cuh"' in cu and "void fft_shared" not in cu
+
+
+def test_build_stamp_covers_headers(tmp_path):
+    """The rebuild stamp hashes every file under csrc/, so editing the
+    shared header alone triggers a rebuild."""
+    import shutil
+
+    from phase_vocoder_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(PKG / "csrc", csrc)
+    before = _build._digest(csrc)
+    assert _build._digest(csrc) == before
+    header = csrc / "fft_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build._digest(csrc) != before
+    assert {f.name for f in _build._csrc_files(csrc)} >= {"fft_common.cuh", "stft.cu"}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

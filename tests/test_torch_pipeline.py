@@ -14,7 +14,7 @@ import torch
 from golden import pv_ref
 import phase_vocoder_tpu as jpv
 import phase_vocoder_tpu_torch as tpv
-from phase_vocoder_tpu_torch import pipeline
+from phase_vocoder_tpu_torch import pipeline, streaming
 from tests.conftest import make_test_signal
 
 N, RA = 1024, 256
@@ -93,7 +93,7 @@ def test_short_input_gives_empty_output():
 
 @pytest.fixture
 def no_compute(monkeypatch):
-    """Fail the test if a route reaches the kernel wrapper."""
+    """Fail the test if a route reaches the fused kernel wrapper."""
 
     def boom(*a, **k):
         raise AssertionError("reached fused_time_stretch")
@@ -101,16 +101,35 @@ def no_compute(monkeypatch):
     monkeypatch.setattr(pipeline, "fused_time_stretch", boom)
 
 
+@pytest.fixture
+def stream_calls(monkeypatch):
+    """Replace the streaming executor with a recorder that returns a zero
+    waveform of the right length; returns the list of its calls."""
+    calls = []
+
+    def fake(x, stretch, cfg=tpv.PvocConfig(), **kw):
+        calls.append((stretch, cfg))
+        return torch.zeros(tpv.stretch_output_length(x.shape[-1], cfg, stretch))
+
+    monkeypatch.setattr(streaming, "stream_time_stretch", fake)
+    return calls
+
+
 def _frames_to_samples(nf):
     return (nf - 1) * RA + N
 
 
-def test_auto_reroutes_long_q2_inputs(no_compute):
+def test_auto_reroutes_long_q2_inputs(no_compute, stream_calls):
+    """Past BRANCH_FAITHFUL_FRAMES a q >= 2 ratio takes the branch-faithful
+    streaming executor, and its result is what time_stretch returns (and
+    what pitch_shift resamples)."""
     x = torch.zeros(_frames_to_samples(pipeline.BRANCH_FAITHFUL_FRAMES + 1))
-    with pytest.raises(NotImplementedError, match="branch-faithful"):
-        tpv.time_stretch(x, 0.5)
-    with pytest.raises(NotImplementedError, match="branch-faithful"):
-        tpv.pitch_shift(x, -7.0)
+    y = tpv.time_stretch(x, 0.5)
+    assert torch.equal(y, torch.zeros(tpv.stretch_output_length(len(x), tpv.PvocConfig(), 0.5)))
+    p = tpv.pitch_shift(x, -7.0)
+    f = 2.0 ** (-7 / 12)
+    assert len(p) == round(tpv.stretch_output_length(len(x), tpv.PvocConfig(), f) / f)
+    assert [c[0] for c in stream_calls] == [0.5, f]
 
 
 def test_auto_keeps_short_and_integer_k_inputs(monkeypatch):
@@ -124,11 +143,11 @@ def test_auto_keeps_short_and_integer_k_inputs(monkeypatch):
     assert calls == [(N, RA, 128), (N, RA, 512), (N, RA, 128)]
 
 
-def test_faithful_reroutes_every_q2_input(no_compute, x1):
-    with pytest.raises(NotImplementedError, match="branch-faithful"):
-        tpv.time_stretch(x1, 0.5, branch_policy="faithful", device="cpu")
-    with pytest.raises(NotImplementedError, match="branch-faithful"):
-        tpv.pitch_shift(x1, -7.0, branch_policy="faithful", device="cpu")
+def test_faithful_reroutes_every_q2_input(no_compute, stream_calls, x1):
+    y = tpv.time_stretch(x1, 0.5, branch_policy="faithful", device="cpu")
+    assert torch.equal(y, torch.zeros(tpv.stretch_output_length(len(x1), tpv.PvocConfig(), 0.5)))
+    tpv.pitch_shift(x1, -7.0, branch_policy="faithful", device="cpu")
+    assert [c[0] for c in stream_calls] == [0.5, 2.0 ** (-7 / 12)]
 
 
 def test_rs_above_half_n_raises(no_compute, x1):
@@ -136,16 +155,33 @@ def test_rs_above_half_n_raises(no_compute, x1):
         tpv.time_stretch(x1, 2.5, device="cpu")  # Rs = 640 > N/2
 
 
+def test_rs_above_half_n_streams_past_both_limits(no_compute, stream_calls):
+    """The JAX package streams Rs > N/2 inputs longer than both
+    max_monolithic_frames and max_phasor_general_frames."""
+    x = torch.zeros(_frames_to_samples(300))
+    tpv.time_stretch(x, 2.5, max_monolithic_frames=100, max_phasor_general_frames=200)
+    assert [c[0] for c in stream_calls] == [2.5]
+
+
 def test_unported_geometry_raises(no_compute, x1):
     cfg = tpv.PvocConfig(n_fft=1536, hop=256)  # N not a power of two
     with pytest.raises(NotImplementedError):
         tpv.time_stretch(x1, 2.0, cfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        tpv.time_stretch(x1, 0.5, cfg, branch_policy="faithful", device="cpu")
 
 
 @pytest.mark.parametrize("backend", ["matmul", "xla"])
-def test_polar_backends_raise(backend):
-    with pytest.raises(NotImplementedError, match="polar path"):
-        tpv.PvocConfig(fft_backend=backend)
+def test_polar_backends_raise(backend, monkeypatch, no_compute, stream_calls, x1):
+    """The polar backends route as in the JAX package: short inputs to the
+    monolithic polar path, inputs past max_monolithic_frames to the
+    streaming executor, neither to the fused kernel."""
+    cfg = tpv.PvocConfig(fft_backend=backend)
+    polar = []
+    monkeypatch.setattr(pipeline, "_polar_stretch", lambda x, c, rs: polar.append(rs) or x)
+    tpv.time_stretch(x1, 2.0, cfg, device="cpu")
+    tpv.time_stretch(x1, 2.0, cfg, max_monolithic_frames=10, device="cpu")
+    assert polar == [512] and [c[0] for c in stream_calls] == [2.0]
 
 
 def test_unknown_backend_and_dtype():
