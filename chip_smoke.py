@@ -12,11 +12,23 @@ each; any failure raises and the script exits non-zero:
      2a. pvoc_fused and resample_lerp;
      2b. stft_polar, and istft_ola at Rs 128/256/512 with a frame mask
          whose last 100 frames are 0;
+     2c. pvoc_fused_segment against fused_stream_segment_reference (one
+         segment from a mid-stream state, and whole streams) at 2.0x, 0.5x
+         and Rs = 171; the kernel stream against the kernel monolithic
+         fused_time_stretch bit for bit at segment_frames 256 and 8192 and
+         on an input shorter than the overlap (nf < m-1);
+     2d. pvoc_terms (stft_phasor_terms: |X| and P, scan on and off) at
+         Rs = 640/768/767, and istft_frames / istft_frames_cart with a
+         frame mask whose last 100 frames are 0;
   3. the golden gate through the public API (60 s input):
      3a. the fused route; 3b. the branch-faithful route
          (branch_policy="faithful": stretch 0.5/1.5, pitch -7/-5 st);
-  4. the main paths at real size, each timed with CUDA events, with the
-     launch counts set to 0 just before it and read just after:
+     3c. fused_stream_time_stretch 2.0x/0.5x, the general-hop route
+         (time_stretch 2.5x/3.0x, pitch_shift +19 st) and the polar stages
+         (analyze, stretch_polar, synthesize_polar) at Rs = 171;
+  4. the main paths at real size, each timed with CUDA events, with every
+     kernel's launch count set to 0 just before the path and read just
+     after, and held to exactly the launches that path makes:
      4a. the fused route: time_stretch 2.0x on 3600 s and pitch_shift
          -7 st on 300 s of 16 kHz audio;
      4b. the kernels of 4a against their plain versions at those shapes;
@@ -28,8 +40,19 @@ each; any failure raises and the script exits non-zero:
          signal recorded and the golden gate run at 660 s on stationary
          tones; then stft_polar and istft_ola against their plain versions
          at those shapes;
-  5. determinism: two 2.0x runs, and two faithful 0.5x runs, are bitwise
-     equal.
+     4d. the fused stream executor at 2.0x on 3600 s (28 segments of 8192
+         frames): timed, bitwise equal to the monolithic kernel, host-device
+         syncs per call, peak device memory beside the monolithic one's;
+         the checkpointed fused stream at that shape, uninterrupted and
+         killed after 2 batches then resumed, bitwise equal, wall split
+         into device, host fetch, save and load; the checkpointed polar
+         stream at 0.5x on 660 s resumed the same way; the general-hop
+         route (time_stretch
+         3.0x on 3600 s, pitch_shift +19 st on 300 s) and the polar stages
+         at Rs = 171 on 300 s, timed, with their kernels against the plain
+         versions at those shapes;
+  5. determinism: two 2.0x runs, two faithful 0.5x runs and two 3.0x
+     general-hop runs are bitwise equal.
 
 The line before the last holds the per-kernel JSON record; the last line
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -173,6 +196,99 @@ def _spec_errors(kernel, plain) -> dict:
             "spec_rel": float(spec.abs().max()) / top}
 
 
+def _peak_gb(fn) -> float:
+    """Peak device memory (GB, all live tensors) while fn() runs."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _plain_stream(x, nf: int, rs: int, F: int, S: int):
+    """The fused stream through fused_stream_segment_reference, segment by
+    segment, on x's device."""
+    from phase_vocoder_tpu_torch import streaming
+    from phase_vocoder_tpu_torch.ops.fused import fused_stream_segment_reference
+
+    st = streaming.fused_init_state(N_FFT, rs, x.device)
+    carry, tail, outs = st.carry, st.tail, []
+    for j in range(S):
+        o, carry, tail = fused_stream_segment_reference(
+            x, carry, tail, j > 0, j * F, nf, N_FFT, HOP, rs, F)
+        outs.append(o)
+    return torch.cat(outs)[: (nf - 1) * rs + N_FFT]
+
+
+def _weighted_phasor_err(k, p) -> dict:
+    """stft_phasor_terms against its plain version: |X| relative to max |X|,
+    and the phasors P weighted by |X|/max |X| (near-silent bins have an
+    ill-conditioned phase in any f32 analysis; the synthesis sees |X| P)."""
+    top = float(p[0].abs().max())
+    dp = (torch.complex(k[1], k[2]) - torch.complex(p[1], p[2])).abs()
+    y_abs = float((torch.complex(k[0] * k[1], k[0] * k[2])
+                   - torch.complex(p[0] * p[1], p[0] * p[2])).abs().max())
+    return {"mag_rel": float((k[0] - p[0]).abs().max()) / top,
+            "p_weighted": float((dp * (p[0] / top)).max()), "y_max_abs": y_abs}
+
+
+def _counted(counters: dict, fn, expect: dict, what: str) -> dict:
+    """Set every kernel's launch count to 0, run fn(), read the counts just
+    after, and check them: exactly `expect` for the kernels it names, 0 for
+    the others. Returns the counts."""
+    torch.cuda.synchronize()
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    fn()
+    got = {name: wrapper.launches for name, wrapper in counters.items()}
+    want = {name: expect.get(name, 0) for name in counters}
+    _check(got == want, f"{what}: kernel launches {got}, expected {want}")
+    return got
+
+
+class _Clock:
+    """Accumulates the host seconds spent in wrapped functions, and the
+    device seconds between CUDA events recorded around others."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.seconds, self.events = {}, []
+
+    def wrap(self, name, fn):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+        return timed
+
+    def wrap_device(self, fn):
+        def timed(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            try:
+                return fn(*a, **k)
+            finally:
+                end.record()
+                self.events.append((start, end))
+        return timed
+
+    def read(self) -> dict:
+        torch.cuda.synchronize()
+        return {**self.seconds,
+                "device_s": sum(s.elapsed_time(e) for s, e in self.events) / 1e3}
+
+
+def _dir_bytes(path) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
 def _emit(phase: str, **rec) -> None:
     print(json.dumps({"phase": phase, **rec}), flush=True)
 
@@ -185,23 +301,38 @@ def main() -> int:
     import phase_vocoder_tpu_torch as pv
     from phase_vocoder_tpu_torch.ops import _build
     from phase_vocoder_tpu_torch.ops.fused import (
+        fused_stream_segment,
+        fused_stream_segment_reference,
         fused_time_stretch,
         fused_time_stretch_reference,
+        stft_phasor_terms,
+        stft_phasor_terms_reference,
     )
     from phase_vocoder_tpu_torch.ops.resample import (
         resample_linear,
         resample_linear_reference,
     )
     from phase_vocoder_tpu_torch.ops.stft import (
+        istft_frames,
+        istft_frames_cart,
+        istft_frames_cart_reference,
+        istft_frames_reference,
         istft_ola,
         istft_ola_reference,
         stft_polar,
         stft_polar_reference,
     )
     from phase_vocoder_tpu_torch import streaming
+    from phase_vocoder_tpu_torch.utils import checkpoint as ckpt
 
     dev = torch.device("cuda")
     cfg = pv.PvocConfig()
+    counters = {
+        "pvoc_fused": fused_time_stretch, "resample_lerp": resample_linear,
+        "stft_polar": stft_polar, "istft_ola": istft_ola,
+        "pvoc_fused_segment": fused_stream_segment, "pvoc_terms": stft_phasor_terms,
+        "istft_frames": istft_frames, "istft_frames_cart": istft_frames_cart,
+    }
 
     # ---- 1. card, versions, build
     smi = subprocess.run(
@@ -270,6 +401,76 @@ def main() -> int:
     _emit("2b_stft_kernels_vs_plain", seconds=60, stft_polar=stft_err,
           istft_ola_rel=istft_rel, masked_frames=100, bound=1e-5)
 
+    # ---- 2c. pvoc_fused_segment vs its plain version; stream vs monolithic
+    nf60 = (len(x60) - N_FFT) // HOP + 1
+    seg = {}
+    for rs in (512, 128, 171):
+        bound = 1e-5 if rs % HOP == 0 else 5e-5
+        F, S = streaming.fused_plan_segments(nf60, N_FFT, rs, 1024)
+        # One segment from the state after two, kernel and plain.
+        _, mid = streaming._fused_scan_from(
+            x60, streaming.fused_init_state(N_FFT, rs, dev), nf60, N_FFT, HOP, rs, F, 2)
+        ka, kc, kt = fused_stream_segment(x60, mid.carry, mid.tail, 1, 2 * F, nf60, N_FFT, HOP, rs, F)
+        pa, pc, pt = fused_stream_segment_reference(
+            x60, mid.carry, mid.tail, 1, 2 * F, nf60, N_FFT, HOP, rs, F)
+        rec = {"segment_out_rel": _rel(ka, pa, 0), "tail_rel": _rel(kt.reshape(-1), pt.reshape(-1), 0),
+               "carry_max_abs": float((kc - pc).abs().max())}
+        _check(max(rec["segment_out_rel"], rec["tail_rel"]) < bound,
+               f"pvoc_fused_segment vs plain at Rs={rs}: {rec}")
+        # The whole stream, kernel and plain, each from its own state. The
+        # plain stream runs cuFFT per segment, where the plain monolithic
+        # version runs it once over the recording; its distance from that
+        # (recorded) is the plain side's own, and bounds what the kernel
+        # stream can be held to. Readings on an H100: 1.04e-5 at 2.0x and
+        # 3.0e-6 to 5.5e-6 elsewhere, so 3e-5.
+        k = streaming.fused_stream_time_stretch(x60, rs / HOP, cfg, segment_frames=F)
+        plain = _plain_stream(x60, nf60, rs, F, S)
+        rec["stream_rel"] = _rel(k, plain)
+        _check(rec["stream_rel"] < 3e-5, f"fused stream vs plain stream at Rs={rs}: {rec}")
+        mono = fused_time_stretch(x60, N_FFT, HOP, rs)
+        rec["plain_stream_vs_plain_monolithic_rel"] = _rel(
+            plain, fused_time_stretch_reference(x60, N_FFT, HOP, rs))
+        rec["kernel_vs_plain_monolithic_rel"] = _rel(
+            mono, fused_time_stretch_reference(x60, N_FFT, HOP, rs))
+        for sf in (256, 8192):
+            same = torch.equal(streaming.fused_stream_time_stretch(x60, rs / HOP, cfg, segment_frames=sf), mono)
+            _check(same, f"kernel stream (segment_frames={sf}) differs from the monolithic kernel at Rs={rs}")
+            rec[f"bitwise_vs_monolithic_{sf}"] = same
+        seg[rs] = rec
+    for rs in (171, 128):  # 1600 samples: nf = 3 < m-1
+        xs = x60[:1600]
+        same = torch.equal(streaming.fused_stream_time_stretch(xs, rs / HOP, cfg, segment_frames=64),
+                           fused_time_stretch(xs, N_FFT, HOP, rs))
+        _check(same, f"short-input kernel stream differs from the monolithic kernel at Rs={rs}")
+        seg[f"short_{rs}_bitwise"] = same
+    _emit("2c_fused_segment_vs_plain", seconds=60, pvoc_fused_segment=seg,
+          bounds={"segment_integer_k": 1e-5, "segment_q_ge_2": 5e-5, "stream": 3e-5})
+
+    # ---- 2d. pvoc_terms, istft_frames and istft_frames_cart vs plain, 60 s
+    terms = {}
+    for rs in (640, 768, 767):
+        for scan in (True, False):
+            rec = _weighted_phasor_err(stft_phasor_terms(x60, N_FFT, HOP, rs, scan=scan),
+                                       stft_phasor_terms_reference(x60, N_FFT, HOP, rs, scan=scan))
+            _check(rec["mag_rel"] < 1e-5 and rec["p_weighted"] < 1e-4,
+                   f"pvoc_terms vs plain at Rs={rs}, scan={scan}: {rec}")
+            terms[f"{rs}/{'scan' if scan else 'terms'}"] = rec
+    frames = {}
+    re_p, im_p = mag_p * torch.cos(phi_p), mag_p * torch.sin(phi_p)
+    for name, a, b in (
+        ("istft_frames", istft_frames(mag_p, phi_p, N_FFT, mask),
+         istft_frames_reference(mag_p, phi_p, N_FFT, mask)),
+        ("istft_frames_cart", istft_frames_cart(re_p, im_p, N_FFT, mask),
+         istft_frames_cart_reference(re_p, im_p, N_FFT, mask)),
+    ):
+        frames[name] = float((a - b).abs().max() / b.abs().max())
+        _check(frames[name] < 1e-5, f"{name} vs plain: {frames[name]:.3e}")
+        _check(not bool(a[-100:].any()), f"{name}: masked frames are not zero")
+    _emit("2d_general_hop_kernels_vs_plain", seconds=60, pvoc_terms=terms,
+          frames_rel_to_max=frames, masked_frames=100,
+          bounds={"mag_rel": 1e-5, "p_weighted": 1e-4, "frames": 1e-5})
+    del re_p, im_p
+
     # ---- 3. golden gate through the public API, 60 s
     gate = {}
     for s in (0.5, 1.0, 2.0):
@@ -304,19 +505,45 @@ def main() -> int:
     _emit("3b_faithful_golden_gate", seconds=60, rel_err=fgate,
           bounds={"stretch": 1e-4, "pitch": 1e-3})
 
+    # ---- 3c. golden gate of the fused stream, the general-hop route and
+    # the polar stages at Rs = 171, 60 s
+    ggate = {}
+    for s in (2.0, 0.5):
+        y = streaming.fused_stream_time_stretch(x60_np, s, cfg)
+        ggate[f"fused_stream_{s}"] = _rel(y, pv_ref.phase_vocoder(x60_np, s, N_FFT, HOP))
+    for s in (2.5, 3.0):
+        y = pv.time_stretch(x60_np, s, cfg)
+        ggate[f"stretch_{s}"] = _rel(y, pv_ref.phase_vocoder(x60_np, s, N_FFT, HOP))
+    mag_s, phi_s = pv.pipeline.analyze(x60, cfg)
+    mag_s, psi_s = pv.pipeline.stretch_polar(mag_s, phi_s, cfg, 171)
+    y = pv.pipeline.synthesize_polar(mag_s, psi_s, cfg, 171)
+    ggate["polar_stages_rs171"] = _rel(y, pv_ref.phase_vocoder(x60_np, 171 / HOP, N_FFT, HOP))
+    for name, err in ggate.items():
+        _check(err < 1e-4, f"{name} vs golden: {err:.3e}")
+    y = pv.pitch_shift(x60_np, 19.0, cfg)
+    ref = pv_ref.pitch_shift(x60_np, 19.0, N_FFT, HOP)
+    _check(abs(len(y) - len(ref)) <= 1, f"pitch +19 length {len(y)} vs {len(ref)}")
+    n = min(len(y), len(ref))
+    ggate["pitch_19"] = _rel(y[:n], torch.as_tensor(ref[:n]))
+    _check(ggate["pitch_19"] < 1e-3, f"pitch_shift +19 vs golden: {ggate['pitch_19']:.3e}")
+    _emit("3c_stream_and_general_golden_gate", seconds=60, rel_err=ggate,
+          bounds={"stretch": 1e-4, "pitch": 1e-3})
+    del mag_s, phi_s, psi_s
+
     # ---- 4. main path at real size
     x_long = torch.as_tensor(_signal(3600.0), dtype=torch.float32, device=dev)
     x_pitch = torch.as_tensor(_signal(300.0, seed=1), dtype=torch.float32, device=dev)
-    torch.cuda.synchronize()
-    fused_time_stretch.launches = 0
-    resample_linear.launches = 0
-    stretch_ms = _time_ms(lambda: pv.time_stretch(x_long, 2.0, cfg), reps=3)
-    pitch_ms = _time_ms(lambda: pv.pitch_shift(x_pitch, -7.0, cfg), reps=3)
+    # Each path's counts over its 4 calls (one warm-up, 3 timed).
+    timed = {}
     launches = {
-        "pvoc_fused": fused_time_stretch.launches,
-        "resample_lerp": resample_linear.launches,
+        "stretch_2x_3600s": _counted(
+            counters, lambda: timed.update(stretch=_time_ms(lambda: pv.time_stretch(x_long, 2.0, cfg), reps=3)),
+            {"pvoc_fused": 4}, "time_stretch 2.0x"),
+        "pitch_m7_300s": _counted(
+            counters, lambda: timed.update(pitch=_time_ms(lambda: pv.pitch_shift(x_pitch, -7.0, cfg), reps=3)),
+            {"pvoc_fused": 4, "resample_lerp": 4}, "pitch_shift -7 st"),
     }
-    _check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
+    stretch_ms, pitch_ms = timed["stretch"], timed["pitch"]
     y_long = pv.time_stretch(x_long, 2.0, cfg)
     y_pitch = pv.pitch_shift(x_pitch, -7.0, cfg)
     _check(len(y_long) == pv.stretch_output_length(len(x_long), cfg, 2.0), "stretch length")
@@ -372,22 +599,23 @@ def main() -> int:
     x_ff = torch.as_tensor(x_ff_np, dtype=torch.float32, device=dev)
     nf_ff = (len(x_ff) - N_FFT) // HOP + 1
     _check(nf_ff > pv.pipeline.BRANCH_FAITHFUL_FRAMES, f"{nf_ff} frames do not reroute")
-    torch.cuda.synchronize()
-    for fn in (stft_polar, istft_ola, resample_linear, fused_time_stretch):
-        fn.launches = 0
+    segments = -(-nf_ff // streaming.DEFAULT_SEGMENT_FRAMES)
     ff_runs = {
         "stretch_0.5x_660s": lambda: pv.time_stretch(x_ff, 0.5, cfg),
         "pitch_m7_660s": lambda: pv.pitch_shift(x_ff, -7.0, cfg),
     }
-    ff = {name: {"ms": _time_calls(fn, reps=3)} for name, fn in ff_runs.items()}
-    ff_launches = {
-        "stft_polar": stft_polar.launches, "istft_ola": istft_ola.launches,
-        "resample_lerp": resample_linear.launches, "pvoc_fused": fused_time_stretch.launches,
+    # Per call: one stft_polar over the padded recording; one istft_ola per
+    # segment at Rs = 128 (Rs = 171 does not divide N: no istft_ola); no
+    # pvoc_fused, since "auto" reroutes.
+    ff_expect = {
+        "stretch_0.5x_660s": {"stft_polar": 4, "istft_ola": 4 * segments},
+        "pitch_m7_660s": {"stft_polar": 4, "resample_lerp": 4},
     }
-    _check(ff_launches["stft_polar"] > 0 and ff_launches["istft_ola"] > 0
-           and ff_launches["resample_lerp"] > 0,
-           f"a kernel of the faithful route never launched: {ff_launches}")
-    _check(ff_launches["pvoc_fused"] == 0, f"auto did not reroute: {ff_launches}")
+    ff, ff_launches = {}, {}
+    for name, fn in ff_runs.items():
+        ff[name] = {}
+        ff_launches[name] = _counted(
+            counters, lambda: ff[name].update(ms=_time_calls(fn, reps=3)), ff_expect[name], name)
     for name, rec in ff.items():
         rec["audio_s_per_s"] = [ff_sec / (ms / 1e3) for ms in rec["ms"]]
     for name, fn in ff_runs.items():
@@ -432,7 +660,6 @@ def main() -> int:
     # Device kernels per segment and the idle share, from one profiled
     # 0.5x call, and the host-device synchronizations of one call: the two
     # reads of the initial state before the segment loop, none inside it.
-    segments = -(-nf_ff // streaming.DEFAULT_SEGMENT_FRAMES)
     prof = _profile_call(ff_runs["stretch_0.5x_660s"])
     ff["profile_0.5x"] = prof
     ff["kernels_per_segment"] = prof["kernels"] / segments
@@ -473,6 +700,172 @@ def main() -> int:
           istft_ola_rs128=istft_main)
     del x_pad, mag_p, phi_p, a, b
 
+    # ---- 4d. the fused stream, checkpoints and the general-hop route at
+    # real size
+    import tempfile
+
+    torch.cuda.empty_cache()
+    x_long = torch.as_tensor(_signal(3600.0), dtype=torch.float32, device=dev)
+    nf_long = (len(x_long) - N_FFT) // HOP + 1
+    F_long, S_long = streaming.fused_plan_segments(
+        nf_long, N_FFT, 512, streaming.DEFAULT_FUSED_SEGMENT_FRAMES)
+    stream_run = lambda: streaming.fused_stream_time_stretch(x_long, 2.0, cfg)  # noqa: E731
+    fs = {"frames": nf_long, "segment_frames": F_long, "segments": S_long}
+    fs["launches"] = _counted(counters, lambda: fs.update(ms=_time_calls(stream_run, reps=3)),
+                              {"pvoc_fused_segment": 4 * S_long}, "fused stream 2.0x")
+    fs["audio_s_per_s"] = [3600.0 / (ms / 1e3) for ms in fs["ms"]]
+    fs["monolithic_ms"] = _time_calls(lambda: fused_time_stretch(x_long, N_FFT, HOP, 512), reps=3)
+    fs["peak_gb"] = _peak_gb(stream_run)
+    fs["monolithic_peak_gb"] = _peak_gb(lambda: fused_time_stretch(x_long, N_FFT, HOP, 512))
+    fs["input_gb"] = x_long.numel() * 4 / 1e9
+    fs["syncs_per_call"] = _syncs_per_call(stream_run)
+    _check(fs["syncs_per_call"] == 0, f"the fused stream synchronizes {fs['syncs_per_call']} times")
+    y_stream = stream_run()
+    _check(bool(torch.equal(y_stream, fused_time_stretch(x_long, N_FFT, HOP, 512))),
+           "fused stream differs from the monolithic kernel at 3600 s")
+    fs["bitwise_vs_monolithic"] = True
+    # The checkpointed fused stream: uninterrupted, then killed after two
+    # batches and resumed. Its wall time split: device_s between CUDA events
+    # around each batch's segment loop; fetch_s, the host copies of the
+    # parts (which wait for the batch); save_s, the part and state writes
+    # (on the save thread, overlapping the next batch); load_s, the read of
+    # all parts at the end.
+    clock = _Clock()
+    streaming._fused_scan_from = clock.wrap_device(streaming._fused_scan_from)
+    ckpt._part_to_numpy = clock.wrap("fetch_s", ckpt._part_to_numpy)
+    ckpt.StreamCheckpointer.save_batch = clock.wrap("save_s", ckpt.StreamCheckpointer.save_batch)
+    ckpt.StreamCheckpointer.load_parts = clock.wrap("load_s", ckpt.StreamCheckpointer.load_parts)
+    ck = {}
+    with tempfile.TemporaryDirectory(prefix="pvoc_ck_") as tmp:
+        for name, kw in (("uninterrupted", {}), ("killed", {"_fail_after_batches": 2}),
+                         ("resumed", {})):
+            clock.reset()
+            d = tmp + ("/a" if name == "uninterrupted" else "/b")
+            t0 = time.perf_counter()
+            try:
+                y = ckpt.checkpointed_fused_stream_time_stretch(x_long, 2.0, cfg, checkpoint_dir=d, **kw)
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                _check("injected" in str(e) and name == "killed", f"checkpointed run failed: {e}")
+                y = None
+            ck[name] = {"wall_s": time.perf_counter() - t0, **clock.read(),
+                        "bytes_on_disk": _dir_bytes(d),
+                        "batches_done": ckpt.StreamCheckpointer(d).completed_batches()}
+            if name == "uninterrupted":
+                y_full = y
+            elif name == "resumed":
+                _check(bool(torch.equal(y, y_full)), "resumed fused checkpointed run differs")
+                _check(bool(torch.equal(y_full, y_stream)), "checkpointed fused run differs from the stream")
+        _check(ck["killed"]["batches_done"] == [1], f"killed fused run left {ck['killed']['batches_done']}")
+        ck["bitwise_resumed_vs_uninterrupted_vs_stream"] = True
+        fs["checkpointed"] = ck
+        del y_full, y
+        # The checkpointed polar stream, 0.5x on 660 s.
+        pk = {}
+        for name, kw in (("uninterrupted", {}), ("killed", {"_fail_after_batches": 2}),
+                         ("resumed", {})):
+            d = tmp + ("/pa" if name == "uninterrupted" else "/pb")
+            t0 = time.perf_counter()
+            try:
+                y = ckpt.checkpointed_stream_time_stretch(x_ff, 0.5, cfg, checkpoint_dir=d, **kw)
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                _check("injected" in str(e) and name == "killed", f"checkpointed polar run failed: {e}")
+                y = None
+            pk[name] = {"wall_s": time.perf_counter() - t0, "bytes_on_disk": _dir_bytes(d),
+                        "batches_done": ckpt.StreamCheckpointer(d).completed_batches()}
+            if name == "uninterrupted":
+                y_pfull = y
+            elif name == "resumed":
+                _check(bool(torch.equal(y, y_pfull)), "resumed polar checkpointed run differs")
+        _check(pk["killed"]["batches_done"] == [1], f"killed polar run left {pk['killed']['batches_done']}")
+        pk["bitwise_resumed_vs_uninterrupted"] = True
+        pk["bitwise_vs_stream"] = bool(torch.equal(y_pfull, streaming.stream_time_stretch(x_ff, 0.5, cfg)))
+        fs["checkpointed_polar_0.5x_660s"] = pk
+    _emit("4d_fused_stream_and_checkpoints", card=smi, fused_stream_2x_3600s=fs)
+    del y_stream, y_pfull
+
+    # The general-hop route and the polar stages at Rs = 171, each path
+    # with its own counts over its 4 calls (one warm-up, 3 timed).
+    def polar_stages():
+        mag, phi = pv.pipeline.analyze(x_pitch, cfg)
+        mag, psi = pv.pipeline.stretch_polar(mag, phi, cfg, 171)
+        return pv.pipeline.synthesize_polar(mag, psi, cfg, 171)
+
+    gen, gen_launches = {}, {}
+    for name, secs, fn, expect in (
+        ("stretch_3x_3600s", 3600.0, lambda: pv.time_stretch(x_long, 3.0, cfg),
+         {"pvoc_terms": 4, "istft_frames_cart": 4}),
+        ("pitch_19_300s", 300.0, lambda: pv.pitch_shift(x_pitch, 19.0, cfg),
+         {"pvoc_terms": 4, "istft_frames_cart": 4, "resample_lerp": 4}),
+        ("polar_stages_rs171_300s", 300.0, polar_stages, {"stft_polar": 4, "istft_frames": 4}),
+    ):
+        gen[name] = {}
+        gen_launches[name] = _counted(
+            counters, lambda: gen[name].update(ms=_time_calls(fn, reps=3)), expect, name)
+        gen[name]["audio_s_per_s"] = [secs / (ms / 1e3) for ms in gen[name]["ms"]]
+    gen["stretch_3x_3600s"]["peak_gb"] = _peak_gb(lambda: pv.time_stretch(x_long, 3.0, cfg))
+    y = pv.time_stretch(x_long, 3.0, cfg)
+    _check(len(y) == pv.stretch_output_length(len(x_long), cfg, 3.0) and bool(torch.isfinite(y).all()),
+           "general-hop 3.0x output")
+    y = pv.pitch_shift(x_pitch, 19.0, cfg)
+    _check(bool(torch.isfinite(y).all()), "pitch +19 output")
+    del y
+    # Their kernels against the plain versions at those shapes (these
+    # launches are not counted above).
+    kt = stft_phasor_terms(x_long, N_FFT, HOP, 768)
+    pt = stft_phasor_terms_reference(x_long, N_FFT, HOP, 768)
+    terms_main = _weighted_phasor_err(kt, pt)
+    # P is a product over all 224,997 frames: two f32 analyses' step terms
+    # differ by ~1e-7 rad and their difference walks like sqrt(frames)
+    # (7.9e-5 measured on an H100; 1.1e-5 to 1.6e-5 at 60 s), so 3e-4 here.
+    _check(terms_main["mag_rel"] < 1e-5 and terms_main["p_weighted"] < 3e-4,
+           f"pvoc_terms vs plain at 3.0x / 3600 s: {terms_main}")
+    terms_main.update(frames=nf_long,
+                      ms=_time_ms(lambda: stft_phasor_terms(x_long, N_FFT, HOP, 768), reps=5),
+                      plain_ms=_time_ms(lambda: stft_phasor_terms_reference(x_long, N_FFT, HOP, 768), reps=1))
+    y_re, y_im = kt[0] * kt[1], kt[0] * kt[2]
+    del kt, pt
+    a = istft_frames_cart(y_re, y_im, N_FFT)
+    b = istft_frames_cart_reference(y_re, y_im, N_FFT)
+    cart_main = {"frames": nf_long, "rel_to_max": float((a - b).abs().max() / b.abs().max()),
+                 "max_abs": float((a - b).abs().max())}
+    _check(cart_main["rel_to_max"] < 1e-5, f"istft_frames_cart vs plain at 3.0x / 3600 s: {cart_main}")
+    del a, b
+    cart_main.update(ms=_time_ms(lambda: istft_frames_cart(y_re, y_im, N_FFT), reps=5),
+                     plain_ms=_time_ms(lambda: istft_frames_cart_reference(y_re, y_im, N_FFT), reps=5))
+    del y_re, y_im
+    mag, phi = pv.pipeline.analyze(x_pitch, cfg)
+    mag, psi = pv.pipeline.stretch_polar(mag, phi, cfg, 171)
+    a, b = istft_frames(mag, psi, N_FFT), istft_frames_reference(mag, psi, N_FFT)
+    polar_main = {"frames": mag.shape[0], "rel_to_max": float((a - b).abs().max() / b.abs().max()),
+                  "max_abs": float((a - b).abs().max()),
+                  "ms": _time_ms(lambda: istft_frames(mag, psi, N_FFT), reps=10),
+                  "plain_ms": _time_ms(lambda: istft_frames_reference(mag, psi, N_FFT), reps=10)}
+    _check(polar_main["rel_to_max"] < 1e-5, f"istft_frames vs plain at Rs=171 / 300 s: {polar_main}")
+    del a, b, mag, phi, psi
+    # pvoc_fused_segment at the main path's shape: one 8192-frame segment
+    # from the kernel stream's state after 10 segments, kernel and plain;
+    # then the whole kernel stream against the whole plain stream.
+    _, st10 = streaming._fused_scan_from(
+        x_long, streaming.fused_init_state(N_FFT, 512, dev), nf_long, N_FFT, HOP, 512, F_long, 10)
+    seg_args = (x_long, st10.carry, st10.tail, 1, 10 * F_long, nf_long, N_FFT, HOP, 512, F_long)
+    ka, _, kt = fused_stream_segment(*seg_args)
+    pa, _, pt = fused_stream_segment_reference(*seg_args)
+    seg_main = {"frames": F_long, "rel": _rel(ka, pa, 0), "max_abs": _max_abs(ka, pa, 0),
+                "tail_rel": _rel(kt.reshape(-1), pt.reshape(-1), 0),
+                "ms": _time_ms(lambda: fused_stream_segment(*seg_args), reps=10),
+                "plain_ms": _time_ms(lambda: fused_stream_segment_reference(*seg_args), reps=3)}
+    _check(max(seg_main["rel"], seg_main["tail_rel"]) < 1e-5,
+           f"pvoc_fused_segment vs plain at 3600 s: {seg_main}")
+    y_k = stream_run()
+    seg_main["stream_rel"] = _rel(y_k, _plain_stream(x_long, nf_long, 512, F_long, S_long))
+    _check(seg_main["stream_rel"] < 3e-5, f"fused stream vs plain stream at 3600 s: {seg_main}")
+    del y_k, ka, pa, kt, pt, st10
+    _emit("4d_general_hop_main_path", card=smi, launches=gen_launches, **gen,
+          pvoc_terms_3x_3600s=terms_main, istft_frames_cart_3x_3600s=cart_main,
+          istft_frames_rs171_300s=polar_main, pvoc_fused_segment_2x_3600s=seg_main)
+
     # ---- 5. determinism
     a = pv.time_stretch(x60, 2.0, cfg)
     b = pv.time_stretch(x60, 2.0, cfg)
@@ -480,14 +873,18 @@ def main() -> int:
     a = pv.time_stretch(x60, 0.5, cfg, branch_policy="faithful")
     b = pv.time_stretch(x60, 0.5, cfg, branch_policy="faithful")
     _check(bool(torch.equal(a, b)), "two faithful 0.5x runs differ")
-    _emit("5_determinism", bitwise_equal={"fused_2.0x": True, "faithful_0.5x": True})
+    a = pv.time_stretch(x60, 3.0, cfg)
+    b = pv.time_stretch(x60, 3.0, cfg)
+    _check(bool(torch.equal(a, b)), "two general-hop 3.0x runs differ")
+    _emit("5_determinism", bitwise_equal={"fused_2.0x": True, "faithful_0.5x": True,
+                                          "general_3.0x": True})
 
     kernels = [
         {
             "name": "pvoc_fused", "route": "cuda",
             "source": "phase_vocoder_tpu_torch/csrc/pvoc_fused.cu",
             "replaces": "phase_vocoder_tpu/ops/pallas/fused.py:1526",
-            "launches": launches["pvoc_fused"],
+            "launches": launches["stretch_2x_3600s"]["pvoc_fused"],
             "max_abs_err": shapes["stretch_2x_3600s"]["max_abs"],
             "ms": shapes["stretch_2x_3600s"]["ms"],
             "plain_ms": shapes["stretch_2x_3600s"]["plain_ms"],
@@ -496,14 +893,14 @@ def main() -> int:
             "name": "resample_lerp", "route": "cuda",
             "source": "phase_vocoder_tpu_torch/csrc/resample.cu",
             "replaces": "phase_vocoder_tpu/ops/resample.py:372",
-            "launches": launches["resample_lerp"],
+            "launches": launches["pitch_m7_300s"]["resample_lerp"],
             "max_abs_err": res_abs, "ms": res_ms, "plain_ms": res_plain_ms,
         },
         {
             "name": "stft_polar", "route": "cuda",
             "source": "phase_vocoder_tpu_torch/csrc/stft.cu",
             "replaces": "phase_vocoder_tpu/ops/pallas/stft.py:117",
-            "launches": ff_launches["stft_polar"],
+            "launches": ff_launches["stretch_0.5x_660s"]["stft_polar"],
             "max_abs_err": stft_main["mag_max_abs"],
             "ms": stft_main["ms"], "plain_ms": stft_main["plain_ms"],
         },
@@ -511,10 +908,42 @@ def main() -> int:
             "name": "istft_ola", "route": "cuda",
             "source": "phase_vocoder_tpu_torch/csrc/stft.cu",
             "replaces": "phase_vocoder_tpu/ops/pallas/stft.py:207",
-            "launches": ff_launches["istft_ola"],
+            "launches": ff_launches["stretch_0.5x_660s"]["istft_ola"],
             "max_abs_err": istft_main["segment_1024"]["max_abs"],
             "ms": istft_main["segment_1024"]["ms"],
             "plain_ms": istft_main["segment_1024"]["plain_ms"],
+        },
+        {
+            "name": "pvoc_fused_segment", "route": "cuda",
+            "source": "phase_vocoder_tpu_torch/csrc/pvoc_fused.cu",
+            "replaces": "phase_vocoder_tpu/ops/pallas/fused.py:1886",
+            "launches": fs["launches"]["pvoc_fused_segment"],
+            "max_abs_err": seg_main["max_abs"],
+            "ms": seg_main["ms"], "plain_ms": seg_main["plain_ms"],
+        },
+        {
+            "name": "pvoc_terms", "route": "cuda",
+            "source": "phase_vocoder_tpu_torch/csrc/pvoc_fused.cu",
+            "replaces": "phase_vocoder_tpu/ops/pallas/fused.py:713",
+            "launches": gen_launches["stretch_3x_3600s"]["pvoc_terms"],
+            "max_abs_err": terms_main["y_max_abs"],
+            "ms": terms_main["ms"], "plain_ms": terms_main["plain_ms"],
+        },
+        {
+            "name": "istft_frames", "route": "cuda",
+            "source": "phase_vocoder_tpu_torch/csrc/stft.cu",
+            "replaces": "phase_vocoder_tpu/ops/pallas/stft.py:264",
+            "launches": gen_launches["polar_stages_rs171_300s"]["istft_frames"],
+            "max_abs_err": polar_main["max_abs"],
+            "ms": polar_main["ms"], "plain_ms": polar_main["plain_ms"],
+        },
+        {
+            "name": "istft_frames_cart", "route": "cuda",
+            "source": "phase_vocoder_tpu_torch/csrc/stft.cu",
+            "replaces": "phase_vocoder_tpu/ops/pallas/stft.py:280",
+            "launches": gen_launches["stretch_3x_3600s"]["istft_frames_cart"],
+            "max_abs_err": cart_main["max_abs"],
+            "ms": cart_main["ms"], "plain_ms": cart_main["plain_ms"],
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,8 +2,10 @@
 
 time_stretch and pitch_shift run on hand-written CUDA kernels
 (csrc/pvoc_fused.cu, csrc/resample.cu, and csrc/stft.cu on the
-branch-faithful polar route) for CUDA tensors, and on their plain torch
-versions for CPU tensors. This package never imports jax.
+branch-faithful polar and general-hop routes) for CUDA tensors, and on
+their plain torch versions for CPU tensors; the streaming executors
+(streaming.py) and their checkpointed forms (utils/checkpoint.py) run on
+the same kernels. This package never imports jax.
 
 Quick start:
     import phase_vocoder_tpu_torch as pv
@@ -15,7 +17,7 @@ Quick start:
 from .config import PvocConfig
 from .models import PhaseVocoder
 from .pipeline import pitch_shift, stretch_output_length, time_stretch
-from .streaming import stream_time_stretch
+from .streaming import fused_stream_time_stretch, stream_time_stretch
 
 __version__ = "0.1.0"
 
@@ -26,5 +28,6 @@ __all__ = [
     "pitch_shift",
     "stretch_output_length",
     "stream_time_stretch",
+    "fused_stream_time_stretch",
     "__version__",
 ]

@@ -3,6 +3,8 @@
 Usage:
   pvoc-torch stretch in.wav out.wav --ratio 2.0 [--n-fft 1024 --hop 256]
   pvoc-torch stretch in.wav out.wav --ratio 0.5 --segment-frames 1024
+  pvoc-torch stretch in.wav out.wav --ratio 2.0 --checkpoint-dir ck/ \
+      [--batch-segments 8] [--trace-dir trace/]
   pvoc-torch pitch   in.wav out.wav --semitones -5 [--branch-policy faithful]
   (add --device cpu to run the plain torch versions on the host)
 """
@@ -62,22 +64,40 @@ def _cfg(args) -> PvocConfig:
 
 
 def _run_stretch(args) -> int:
-    from .pipeline import time_stretch
-    from .streaming import stream_time_stretch
+    from . import pipeline, streaming
+    from .utils import profiling
 
     x, sr = read_wav(args.input)
+    cfg = _cfg(args)
     t0 = time.perf_counter()
-    if args.segment_frames:
-        y = stream_time_stretch(
-            x, args.ratio, _cfg(args), segment_frames=args.segment_frames,
-            device=args.device,
-        )
-    else:
-        y = time_stretch(
-            x, args.ratio, _cfg(args), branch_policy=args.branch_policy,
-            device=args.device,
-        )
-    y = y.cpu().numpy()
+    with profiling.trace(args.trace_dir):
+        if args.checkpoint_dir:
+            from .utils import checkpoint
+
+            if pipeline.fused_ok(cfg, cfg.synthesis_hop(args.ratio)):
+                # Long jobs ride the fused segment kernel (bitwise equal to
+                # the single-recording fused kernel).
+                run = checkpoint.checkpointed_fused_stream_time_stretch
+                default_frames = streaming.DEFAULT_FUSED_SEGMENT_FRAMES
+            else:
+                run = checkpoint.checkpointed_stream_time_stretch
+                default_frames = streaming.DEFAULT_SEGMENT_FRAMES
+            y = run(
+                x, args.ratio, cfg, checkpoint_dir=args.checkpoint_dir,
+                segment_frames=args.segment_frames or default_frames,
+                batch_segments=args.batch_segments, device=args.device,
+            )
+        elif args.segment_frames:
+            y = streaming.stream_time_stretch(
+                x, args.ratio, cfg, segment_frames=args.segment_frames,
+                device=args.device,
+            )
+        else:
+            y = pipeline.time_stretch(
+                x, args.ratio, cfg, branch_policy=args.branch_policy,
+                device=args.device,
+            )
+        y = y.cpu().numpy()
     dt = time.perf_counter() - t0
     write_wav(args.output, y, sr, pcm16=not args.float32)
     emit_metric("audio_seconds_per_second", audio_seconds_per_second(len(x), sr, dt),
@@ -108,7 +128,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--segment-frames", type=int, default=None,
         help="run the polar streaming executor with this many frames per "
-        "segment (default: time_stretch's own routing)",
+        "segment (default: time_stretch's own routing); with "
+        "--checkpoint-dir, the frames per checkpointed segment",
+    )
+    p.add_argument(
+        "--checkpoint-dir", default=None,
+        help="checkpoint/resume directory for long runs: the fused segment "
+        "executor where the fused kernel covers the geometry, else the polar "
+        "one; a rerun resumes after the last completed segment batch",
+    )
+    p.add_argument(
+        "--batch-segments", type=int, default=8,
+        help="segments per checkpoint batch (with --checkpoint-dir)",
+    )
+    p.add_argument(
+        "--trace-dir", default=None,
+        help="write a torch.profiler trace (Chrome/Perfetto JSON) here",
     )
     _add_dsp_args(p)
     p.set_defaults(fn=_run_stretch)

@@ -1,10 +1,21 @@
-// pvoc_fused — the whole phase-vocoder time-scale modification on an H100.
+// pvoc_fused — the phase-vocoder time-scale modification on an H100: the
+// whole recording, one segment of a stream, or the phasor terms alone.
 //
-// Replaces: phase_vocoder_tpu/ops/pallas/fused.py, _pvoc_kernel (the
-// single-recording Pallas kernel) and its tile body _pvoc_tile, as wrapped
-// by fused_time_stretch. Same function: raw samples in, normalized
-// stretched waveform of length (nf-1)*Rs + N out, for Ra | N and any
-// 0 < Rs <= N/2; N a power of two up to 4096.
+// Replaces: these kernels of phase_vocoder_tpu/ops/pallas/fused.py,
+//   * _pvoc_kernel (the single-recording Pallas kernel) and its tile body
+//     _pvoc_tile, as wrapped by fused_time_stretch -> pvoc_fused below.
+//     Raw samples in, normalized stretched waveform of length
+//     (nf-1)*Rs + N out, for Ra | N and any 0 < Rs <= N/2; N a power of
+//     two up to 4096;
+//   * _pvoc_kernel_stream, as wrapped by fused_stream_segment ->
+//     pvoc_fused_segment below: the same TSM on one F-frame segment, with
+//     the cross-segment state (anchor/previous unit phasor, running phasor
+//     P, the OLA tail, the started flag and the global frame offset)
+//     flowing in and out;
+//   * _terms_kernel, as wrapped by stft_phasor_terms -> pvoc_terms below:
+//     framing, the windowed FFT, |X|, the unit phasors and the step terms
+//     of every bin (DC and Nyquist included), optionally with the
+//     renormalized prefix product. No synthesis.
 //
 // What bounds it here: device memory traffic. The TPU kernel spends its
 // time in DFT matrix products on the MXU; here each frame's DFT is a
@@ -34,6 +45,16 @@
 //   (d) overlap-add in gather form: a thread per output sample sums the
 //       <= m frames covering it in increasing frame order and multiplies
 //       by the inverse window energy of its row (head, interior or tail).
+// A stream segment is the same launches with the state as arguments: the
+// first frame's previous phasor (q >= 2) or anchor (integer k) is read
+// from the carry once the recording has started; the carry scan starts
+// from the carried P, and its running value after the last chunk is the
+// next segment's P (equal to what the apply pass writes for the last
+// frame); the gather starts each of the first m-1 rows from the
+// un-normalized partial sum the previous segment left, and leaves the sums
+// of its own last frames into the next m-1 rows the same way. With F a
+// multiple of the chunk and F >= m-1, every float operation happens in the
+// order of the single-recording run, so a stream is bitwise equal to it.
 // Every pass is deterministic, so reruns are bitwise equal. Offsets into
 // the signal, spectra and frames are 64-bit. Build without fast math: the
 // principal-root branch near zre = -1 and the atan2 accuracy rely on IEEE
@@ -50,7 +71,10 @@ constexpr float kTiny = 1e-30f;
 constexpr int kThreads = 256;
 
 struct Geo {
-  int64_t nf;
+  int64_t nf;        // frames this launch processes
+  int64_t goff;      // global index of its frame 0
+  int64_t nf_total;  // frames of the recording (normalization rows)
+  int started;       // 0 only before the recording's first frame
   int n_fft;
   int log2n;
   int nh;     // N/2: general bins are 1..nh-1, Nyquist is nh
@@ -60,6 +84,15 @@ struct Geo {
   int alg;    // 1: principal roots + integer power; 0: angle domain
   float kf;   // float32(p/q) for the angle domain
   int chunk;  // frames per scan chunk (q >= 2)
+};
+
+// Where the prefix product's bins live: bin b of frame i has its real part
+// at i*stride + b and its imaginary part im_off further; bins b0..b0+n-1.
+struct Lanes {
+  int64_t stride;
+  int64_t im_off;
+  int b0;
+  int n;
 };
 
 // (a) One block per frame: spec[i] = rfft(x[i*Ra : i*Ra+N] * w).
@@ -192,6 +225,36 @@ __device__ __forceinline__ void normalize(float& re, float& im) {
   im = im / r;
 }
 
+// The step term of general bin b: c (u conj(u_prev) h)^k.
+__device__ __forceinline__ void step_term(float ur, float ui, float pr,
+                                          float pi, int b,
+                                          const float* __restrict__ consts,
+                                          const Geo& g, float& tr,
+                                          float& ti) {
+  const float hr = consts[b], hi = consts[g.nh + b];
+  const float cr = consts[2 * g.nh + b], ci = consts[3 * g.nh + b];
+  const float dr = ur * pr + ui * pi;
+  const float di = ui * pr - ur * pi;
+  const float zr = dr * hr - di * hi;
+  const float zi = dr * hi + di * hr;
+  float wr, wi;
+  pow_k(zr, zi, g, wr, wi);
+  tr = wr * cr - wi * ci;
+  ti = wr * ci + wi * cr;
+}
+
+// P = normalize(carry of i's chunk * L), L the in-chunk product.
+__device__ __forceinline__ void carry_apply(const float* __restrict__ carry,
+                                            int64_t i, int k, const Geo& g,
+                                            const Lanes& L, float lr,
+                                            float li, float& pr, float& pi) {
+  const int64_t c = ((i / g.chunk) * L.n + k) * 2;
+  const float cr = carry[c], ci = carry[c + 1];
+  pr = cr * lr - ci * li;
+  pi = cr * li + ci * lr;
+  normalize(pr, pi);
+}
+
 // Y for the forced-real bins, which bypass the phasor machinery: DC passes
 // through, Nyquist passes through times (-1)^(Rs*i) with i the global
 // frame index. Returns false for a general bin.
@@ -200,14 +263,18 @@ __device__ __forceinline__ bool write_real_bin(const float* spec, float* y,
                                                const Geo& g) {
   if (b != 0 && b != g.nh) return false;
   const int64_t row = i * 2 * g.nb;
-  const float sign = (b == g.nh && (g.rs & 1) && (i & 1)) ? -1.f : 1.f;
+  const float sign =
+      (b == g.nh && (g.rs & 1) && ((g.goff + i) & 1)) ? -1.f : 1.f;
   y[row + b] = spec[row + b] * sign;
   y[row + g.nb + b] = 0.f;
   return true;
 }
 
-// (b), integer k: Y_i = |X_i| u_0 (u_i conj u_0)^k.
+// (b), integer k: Y_i = |X_i| u_0 (u_i conj u_0)^k. The anchor u_0 comes
+// from frame 0's spectrum until the recording has started, then from rows
+// 0-1 of the carry (ng = nh-1 general bins per row).
 __global__ void phase_closed(const float* __restrict__ spec,
+                             const float* __restrict__ carry_in,
                              float* __restrict__ y, Geo g) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= g.nf * g.nb) return;
@@ -217,7 +284,12 @@ __global__ void phase_closed(const float* __restrict__ spec,
   const int64_t row = i * 2 * g.nb;
   float mag, ur, ui, m0, u0r, u0i;
   unit_phasor(spec[row + b], spec[row + g.nb + b], mag, ur, ui);
-  unit_phasor(spec[b], spec[g.nb + b], m0, u0r, u0i);
+  if (g.started) {
+    u0r = carry_in[b - 1];
+    u0i = carry_in[g.nh - 1 + b - 1];
+  } else {
+    unit_phasor(spec[b], spec[g.nb + b], m0, u0r, u0i);
+  }
   const float zr = ur * u0r + ui * u0i;
   const float zi = ui * u0r - ur * u0i;
   float wr, wi;
@@ -226,10 +298,12 @@ __global__ void phase_closed(const float* __restrict__ spec,
   y[row + g.nb + b] = mag * (wr * u0i + wi * u0r);
 }
 
-// (b), q >= 2, pass 1: step terms c (u_i conj u_{i-1} h)^k, term_0 = u_0,
-// written into y's general bins.
+// (b), q >= 2, pass 1: step terms into y's general bins. The recording's
+// first frame takes u_0; a segment's first frame takes its previous unit
+// phasor from rows 0-1 of the carry.
 __global__ void phase_terms(const float* __restrict__ spec,
                             const float* __restrict__ consts,
+                            const float* __restrict__ carry_in,
                             float* __restrict__ y, Geo g) {
   const int ng = g.nh - 1;
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -240,41 +314,75 @@ __global__ void phase_terms(const float* __restrict__ spec,
   float mag, ur, ui;
   unit_phasor(spec[row + b], spec[row + g.nb + b], mag, ur, ui);
   float tr = ur, ti = ui;
-  if (i > 0) {
-    const int64_t prev = row - 2 * g.nb;
+  if (i > 0 || g.started) {
     float mp, pr, pi;
-    unit_phasor(spec[prev + b], spec[prev + g.nb + b], mp, pr, pi);
-    const float hr = consts[b], hi = consts[g.nh + b];
-    const float cr = consts[2 * g.nh + b], ci = consts[3 * g.nh + b];
-    const float dr = ur * pr + ui * pi;
-    const float di = ui * pr - ur * pi;
-    const float zr = dr * hr - di * hi;
-    const float zi = dr * hi + di * hr;
-    float wr, wi;
-    pow_k(zr, zi, g, wr, wi);
-    tr = wr * cr - wi * ci;
-    ti = wr * ci + wi * cr;
+    if (i > 0) {
+      const int64_t prev = row - 2 * g.nb;
+      unit_phasor(spec[prev + b], spec[prev + g.nb + b], mp, pr, pi);
+    } else {
+      pr = carry_in[b - 1];
+      pi = carry_in[ng + b - 1];
+    }
+    step_term(ur, ui, pr, pi, b, consts, g, tr, ti);
   }
   y[row + b] = tr;
   y[row + g.nb + b] = ti;
 }
 
-// Pass 2: inclusive product of the terms inside each chunk (in place),
-// and the chunk's total.
+// pvoc_terms pass 1, every bin of every frame: |X|, the unit phasors, and
+// the step terms; the forced-real bins take u conj(u_prev) times
+// spin = (-1)^Rs at Nyquist, the first frame takes u_0. mag and u are
+// (nf, nb); t holds the terms as (2, nf, nb) = [re | im].
+__global__ void terms_all(const float* __restrict__ spec,
+                          const float* __restrict__ consts,
+                          float* __restrict__ mag, float* __restrict__ t,
+                          float* __restrict__ u, Geo g) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t plane = g.nf * g.nb;
+  if (idx >= plane) return;
+  const int64_t i = idx / g.nb;
+  const int b = (int)(idx % g.nb);
+  const int64_t row = i * 2 * g.nb;
+  float m, ur, ui;
+  unit_phasor(spec[row + b], spec[row + g.nb + b], m, ur, ui);
+  float tr = ur, ti = ui;
+  if (i > 0) {
+    const int64_t prev = row - 2 * g.nb;
+    float mp, pr, pi;
+    unit_phasor(spec[prev + b], spec[prev + g.nb + b], mp, pr, pi);
+    if (b == 0 || b == g.nh) {
+      const float spin = (b == g.nh && (g.rs & 1)) ? -1.f : 1.f;
+      tr = (ur * pr + ui * pi) * spin;
+      ti = (ui * pr - ur * pi) * spin;
+    } else {
+      step_term(ur, ui, pr, pi, b, consts, g, tr, ti);
+    }
+  }
+  mag[idx] = m;
+  t[idx] = tr;
+  t[plane + idx] = ti;
+  if (u != nullptr) {
+    u[idx] = ur;
+    u[plane + idx] = ui;
+  }
+}
+
+// Scan pass 2: inclusive product of the terms inside each chunk (in
+// place), and the chunk's total.
 __global__ void scan_chunks(float* __restrict__ y, float* __restrict__ tot,
-                            Geo g) {
-  const int ng = g.nh - 1;
+                            Geo g, Lanes L) {
   const int64_t nch = (g.nf + g.chunk - 1) / g.chunk;
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= nch * ng) return;
-  const int64_t c = idx / ng;
-  const int b = 1 + (int)(idx % ng);
+  if (idx >= nch * L.n) return;
+  const int64_t c = idx / L.n;
+  const int k = (int)(idx % L.n);
+  const int b = L.b0 + k;
   const int64_t i0 = c * g.chunk;
   const int64_t i1 = i0 + g.chunk < g.nf ? i0 + g.chunk : g.nf;
   float lr = 0.f, li = 0.f;
   for (int64_t i = i0; i < i1; ++i) {
-    const int64_t row = i * 2 * g.nb;
-    const float tr = y[row + b], ti = y[row + g.nb + b];
+    const int64_t re = i * L.stride + b;
+    const float tr = y[re], ti = y[re + L.im_off];
     if (i == i0) {
       lr = tr;
       li = ti;
@@ -283,79 +391,144 @@ __global__ void scan_chunks(float* __restrict__ y, float* __restrict__ tot,
       li = lr * ti + li * tr;
       lr = t;
     }
-    y[row + b] = lr;
-    y[row + g.nb + b] = li;
+    y[re] = lr;
+    y[re + L.im_off] = li;
   }
-  tot[(c * ng + (b - 1)) * 2] = lr;
-  tot[(c * ng + (b - 1)) * 2 + 1] = li;
+  tot[(c * L.n + k) * 2] = lr;
+  tot[(c * L.n + k) * 2 + 1] = li;
 }
 
-// Pass 3: per bin, the exclusive product of the chunk totals, renormalized
-// at every step.
+// Scan pass 3: per bin, the exclusive product of the chunk totals,
+// renormalized at every step, starting from the carried P (rows 2-3 of
+// carry_in) or from 1. The running value after the last chunk goes to rows
+// 2-3 of carry_out.
 __global__ void scan_carry(const float* __restrict__ tot,
-                           float* __restrict__ carry, Geo g) {
-  const int ng = g.nh - 1;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= ng) return;
+                           float* __restrict__ carry,
+                           const float* __restrict__ carry_in,
+                           float* __restrict__ carry_out, Geo g, Lanes L) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= L.n) return;
   const int64_t nch = (g.nf + g.chunk - 1) / g.chunk;
   float cr = 1.f, ci = 0.f;
+  if (carry_in != nullptr) {
+    cr = carry_in[2 * L.n + k];
+    ci = carry_in[3 * L.n + k];
+  }
   for (int64_t c = 0; c < nch; ++c) {
-    const int64_t k = (c * ng + b) * 2;
-    carry[k] = cr;
-    carry[k + 1] = ci;
-    const float tr = tot[k], ti = tot[k + 1];
+    const int64_t j = (c * L.n + k) * 2;
+    carry[j] = cr;
+    carry[j + 1] = ci;
+    const float tr = tot[j], ti = tot[j + 1];
     const float t = cr * tr - ci * ti;
     ci = cr * ti + ci * tr;
     cr = t;
     normalize(cr, ci);
   }
+  if (carry_out != nullptr) {
+    carry_out[2 * L.n + k] = cr;
+    carry_out[3 * L.n + k] = ci;
+  }
 }
 
-// Pass 4: P_i = normalize(carry_c L_i), Y = |X| P; forced-real bins as usual.
+// Scan pass 4 of the TSM: P_i = normalize(carry_c L_i), Y = |X| P;
+// forced-real bins as usual.
 __global__ void phase_apply(const float* __restrict__ spec,
                             const float* __restrict__ carry,
-                            float* __restrict__ y, Geo g) {
+                            float* __restrict__ y, Geo g, Lanes L) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= g.nf * g.nb) return;
   const int64_t i = idx / g.nb;
   const int b = (int)(idx % g.nb);
   if (write_real_bin(spec, y, i, b, g)) return;
   const int64_t row = i * 2 * g.nb;
-  const int64_t k = ((i / g.chunk) * (g.nh - 1) + (b - 1)) * 2;
-  const float cr = carry[k], ci = carry[k + 1];
-  const float lr = y[row + b], li = y[row + g.nb + b];
-  float pr = cr * lr - ci * li;
-  float pi = cr * li + ci * lr;
-  normalize(pr, pi);
+  float pr, pi;
+  carry_apply(carry, i, b - 1, g, L, y[row + b], y[row + g.nb + b], pr, pi);
   float mag, ur, ui;
   unit_phasor(spec[row + b], spec[row + g.nb + b], mag, ur, ui);
   y[row + b] = mag * pr;
   y[row + g.nb + b] = mag * pi;
 }
 
-// (d) Gather-form overlap-add with the COLA normalization. norm_rows holds
-// 2m-1 rows of Rs inverse window energies: head rows 0..m-2, tail rows
-// (output rows nf..nf+m-2), then the interior row.
+// Scan pass 4 of pvoc_terms: P_i = normalize(carry_c L_i) in place.
+__global__ void scan_apply(const float* __restrict__ carry,
+                           float* __restrict__ t, Geo g, Lanes L) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= g.nf * L.n) return;
+  const int64_t i = idx / L.n;
+  const int k = (int)(idx % L.n);
+  const int64_t re = i * L.stride + L.b0 + k;
+  float pr, pi;
+  carry_apply(carry, i, k, g, L, t[re], t[re + L.im_off], pr, pi);
+  t[re] = pr;
+  t[re + L.im_off] = pi;
+}
+
+// The carried phasor of a segment (rows 0-1 of carry_out): integer k keeps
+// the anchor u_0, q >= 2 takes the unit phasor of the segment's last frame.
+// Integer k carries rows 2-3 through unchanged.
+__global__ void carry_phasor(const float* __restrict__ spec,
+                             const float* __restrict__ carry_in,
+                             float* __restrict__ carry_out, Geo g) {
+  const int ng = g.nh - 1;
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= ng) return;
+  const int b = k + 1;
+  float m, ur, ui;
+  if (g.q == 1 && g.started) {
+    ur = carry_in[k];
+    ui = carry_in[ng + k];
+  } else {
+    const int64_t row = (g.q == 1 ? 0 : g.nf - 1) * 2 * g.nb;
+    unit_phasor(spec[row + b], spec[row + g.nb + b], m, ur, ui);
+  }
+  carry_out[k] = ur;
+  carry_out[ng + k] = ui;
+  if (g.q == 1) {
+    carry_out[2 * ng + k] = carry_in[2 * ng + k];
+    carry_out[3 * ng + k] = carry_in[3 * ng + k];
+  }
+}
+
+// (d) Gather-form overlap-add with the COLA normalization, over n_out
+// samples of local rows 0.. of this launch. A row's sum starts from the
+// un-normalized partial sum tail_in left for it (rows < m-1; none when
+// tail_in is null), then adds this launch's frames oldest first. The first
+// n_main samples are normalized into out; the rest are the partial sums
+// for the next launch, un-normalized, into tail_out. norm_rows holds 2m-1
+// rows of Rs inverse window energies: head rows 0..m-2, tail rows (output
+// rows nf_total..nf_total+m-2), then the interior row, chosen by the
+// global row goff + r; rows past the recording's output are written 0.
 __global__ void ola_gather(const float* __restrict__ frames,
                            const float* __restrict__ norm_rows,
-                           float* __restrict__ out, int64_t out_len, Geo g,
-                           int m) {
+                           const float* __restrict__ tail_in,
+                           float* __restrict__ out,
+                           float* __restrict__ tail_out, int64_t n_out,
+                           int64_t n_main, Geo g, int m) {
   const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= out_len) return;
+  if (n >= n_out) return;
   const int64_t r = n / g.rs;
   const int t = (int)(n % g.rs);
+  float acc = (tail_in != nullptr && r < m - 1) ? tail_in[n] : 0.f;
   const int64_t jlo = r - m + 1 > 0 ? r - m + 1 : 0;
   const int64_t jhi = r < g.nf - 1 ? r : g.nf - 1;
-  float acc = 0.f;
   for (int64_t j = jlo; j <= jhi; ++j) {
     const int off = (int)(r - j) * g.rs + t;
     if (off < g.n_fft) acc += frames[j * g.n_fft + off];
   }
+  if (n >= n_main) {
+    tail_out[n - n_main] = acc;
+    return;
+  }
+  const int64_t gr = g.goff + r;
   int64_t nrow;
-  if (r >= g.nf) {
-    nrow = m - 1 + (r - g.nf);
-  } else if (r < m - 1) {
-    nrow = r;
+  if (gr >= g.nf_total) {
+    nrow = m - 1 + (gr - g.nf_total);
+    if (nrow > 2 * m - 3) {
+      out[n] = 0.f;
+      return;
+    }
+  } else if (gr < m - 1) {
+    nrow = gr;
   } else {
     nrow = 2 * m - 2;
   }
@@ -364,6 +537,98 @@ __global__ void ola_gather(const float* __restrict__ frames,
 
 unsigned blocks_for(int64_t n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
+}
+
+Geo make_geo(long long nf, int n_fft, int ra, int rs, int p, int q, int alg,
+             int chunk, float kf) {
+  Geo g;
+  g.nf = nf;
+  g.goff = 0;
+  g.nf_total = nf;
+  g.started = 0;
+  g.n_fft = n_fft;
+  g.log2n = log2_int(n_fft);
+  g.nh = n_fft / 2;
+  g.nb = g.nh + 1;
+  g.ra = ra;
+  g.rs = rs;
+  g.p = p;
+  g.q = q;
+  g.alg = alg;
+  g.kf = kf;
+  g.chunk = chunk;
+  return g;
+}
+
+// The three scan passes over the lanes L of y (q >= 2).
+cudaError_t run_scan(float* y, float* tot, float* carry,
+                     const float* carry_in, float* carry_out, const Geo& g,
+                     const Lanes& L, cudaStream_t stream) {
+  const int64_t nch = (g.nf + g.chunk - 1) / g.chunk;
+  scan_chunks<<<blocks_for(nch * L.n, kThreads), kThreads, 0, stream>>>(
+      y, tot, g, L);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  scan_carry<<<blocks_for(L.n, kThreads), kThreads, 0, stream>>>(
+      tot, carry, carry_in, carry_out, g, L);
+  return cudaGetLastError();
+}
+
+// The TSM passes over g.nf frames of x (any of them may be 0), then the
+// gather of n_out samples. carry_in/carry_out/tail_in/tail_out are null
+// for a whole recording.
+cudaError_t run_tsm(const float* x, float* out, float* tail_out,
+                    float* carry_out, float* spec, float* y, float* frames,
+                    float* tot, float* carry, const float* fft,
+                    const float* consts, const float* norm_rows,
+                    const float* carry_in, const float* tail_in,
+                    int64_t n_out, int64_t n_main, const Geo& g,
+                    cudaStream_t stream) {
+  const float* win = fft;
+  const float* twc = fft + g.n_fft;
+  const float* tws = fft + g.n_fft + g.nh;
+  const int m = (g.n_fft + g.rs - 1) / g.rs;
+  const int ng = g.nh - 1;
+  const size_t smem = 2 * g.n_fft * sizeof(float);
+  cudaError_t err;
+
+  if (g.nf > 0) {
+    fft_analysis<<<(unsigned)g.nf, kThreads, smem, stream>>>(x, win, twc,
+                                                             tws, spec, g);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if (carry_out != nullptr) {
+      carry_phasor<<<blocks_for(ng, kThreads), kThreads, 0, stream>>>(
+          spec, carry_in, carry_out, g);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    if (g.q == 1) {
+      phase_closed<<<blocks_for(g.nf * g.nb, kThreads), kThreads, 0,
+                     stream>>>(spec, carry_in, y, g);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    } else {
+      const Lanes L = {2 * g.nb, g.nb, 1, ng};
+      phase_terms<<<blocks_for(g.nf * ng, kThreads), kThreads, 0, stream>>>(
+          spec, consts, carry_in, y, g);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      if ((err = run_scan(y, tot, carry, carry_in, carry_out, g, L,
+                          stream)) != cudaSuccess)
+        return err;
+      phase_apply<<<blocks_for(g.nf * g.nb, kThreads), kThreads, 0,
+                    stream>>>(spec, carry, y, g, L);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    fft_synthesis<<<(unsigned)g.nf, kThreads, smem, stream>>>(y, win, twc,
+                                                              tws, frames, g);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  } else if (carry_out != nullptr) {  // a segment past the last frame
+    err = cudaMemcpyAsync(carry_out, carry_in, 4 * ng * sizeof(float),
+                          cudaMemcpyDeviceToDevice, stream);
+    if (err != cudaSuccess) return err;
+  }
+
+  ola_gather<<<blocks_for(n_out, kThreads), kThreads, 0, stream>>>(
+      frames, norm_rows, tail_in, out, tail_out, n_out, n_main, g, m);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -385,57 +650,68 @@ extern "C" int pvoc_fused(const float* x, float* out, float* spec, float* y,
                           const float* norm_rows, long long nf, int n_fft,
                           int ra, int rs, int p, int q, int alg, int chunk,
                           float kf, cudaStream_t stream) {
-  Geo g;
-  g.nf = nf;
-  g.n_fft = n_fft;
-  g.log2n = log2_int(n_fft);
-  g.nh = n_fft / 2;
-  g.nb = g.nh + 1;
-  g.ra = ra;
-  g.rs = rs;
-  g.p = p;
-  g.q = q;
-  g.alg = alg;
-  g.kf = kf;
-  g.chunk = chunk;
-  const float* win = fft;
-  const float* twc = fft + n_fft;
-  const float* tws = fft + n_fft + g.nh;
+  const Geo g = make_geo(nf, n_fft, ra, rs, p, q, alg, chunk, kf);
+  const int64_t out_len = (nf - 1) * (int64_t)rs + n_fft;
+  return run_tsm(x, out, nullptr, nullptr, spec, y, frames, tot, carry, fft,
+                 consts, norm_rows, nullptr, nullptr, out_len, out_len, g,
+                 stream);
+}
+
+// One segment of F frames starting at global frame goff, of which
+// n_valid (0..F) are frames of the recording (nf_total frames in all).
+//   x_seg: the signal from sample goff*ra on (>= (n_valid-1)*ra + n_fft);
+//   out (F*rs): the segment's output rows, normalized;
+//   carry_in/carry_out (4, n_fft/2-1): rows 0-1 the anchor u_0 (integer
+//     k) or the previous frame's unit phasor (q >= 2), rows 2-3 the
+//     running phasor P;
+//   tail_in/tail_out (m-1, rs): un-normalized partial sums of the first
+//     m-1 output rows of this / the next segment;
+//   spec, y, frames, tot, carry: scratch for F frames, as for pvoc_fused;
+//   started: 0 for the recording's first segment.
+// Needs F a multiple of chunk and F >= m-1.
+extern "C" int pvoc_fused_segment(
+    const float* x_seg, float* out, float* tail_out, float* carry_out,
+    float* spec, float* y, float* frames, float* tot, float* carry,
+    const float* fft, const float* consts, const float* norm_rows,
+    const float* carry_in, const float* tail_in, long long n_valid,
+    long long seg_frames, long long goff, long long nf_total, int started,
+    int n_fft, int ra, int rs, int p, int q, int alg, int chunk, float kf,
+    cudaStream_t stream) {
+  Geo g = make_geo(n_valid, n_fft, ra, rs, p, q, alg, chunk, kf);
+  g.goff = goff;
+  g.nf_total = nf_total;
+  g.started = started;
   const int m = (n_fft + rs - 1) / rs;
-  const int ng = g.nh - 1;
+  const int64_t n_main = seg_frames * (int64_t)rs;
+  return run_tsm(x_seg, out, tail_out, carry_out, spec, y, frames, tot,
+                 carry, fft, consts, norm_rows, carry_in, tail_in,
+                 n_main + (int64_t)(m - 1) * rs, n_main, g, stream);
+}
+
+// Phasor terms of nf frames of x (nf >= 1): mag (nf, nb), t (2, nf, nb)
+// the step terms or, with scan, the scanned phasors P; u (2, nf, nb) the
+// unit phasors or null. spec (nf, 2*nb) scratch; tot and carry
+// (ceil(nf/chunk), nb, 2) scratch when scan. nb = n_fft/2 + 1.
+extern "C" int pvoc_terms(const float* x, float* spec, float* mag, float* t,
+                          float* u, float* tot, float* carry,
+                          const float* fft, const float* consts, long long nf,
+                          int n_fft, int ra, int rs, int p, int q, int alg,
+                          int chunk, float kf, int scan, cudaStream_t stream) {
+  const Geo g = make_geo(nf, n_fft, ra, rs, p, q, alg, chunk, kf);
   const size_t smem = 2 * n_fft * sizeof(float);
   cudaError_t err;
-
-  fft_analysis<<<(unsigned)nf, kThreads, smem, stream>>>(x, win, twc, tws,
-                                                         spec, g);
+  fft_analysis<<<(unsigned)nf, kThreads, smem, stream>>>(
+      x, fft, fft + n_fft, fft + n_fft + g.nh, spec, g);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  if (q == 1) {
-    phase_closed<<<blocks_for(nf * g.nb, kThreads), kThreads, 0, stream>>>(
-        spec, y, g);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  } else {
-    const int64_t nch = (nf + chunk - 1) / chunk;
-    phase_terms<<<blocks_for(nf * ng, kThreads), kThreads, 0, stream>>>(
-        spec, consts, y, g);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    scan_chunks<<<blocks_for(nch * ng, kThreads), kThreads, 0, stream>>>(
-        y, tot, g);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    scan_carry<<<blocks_for(ng, kThreads), kThreads, 0, stream>>>(tot, carry,
-                                                                  g);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    phase_apply<<<blocks_for(nf * g.nb, kThreads), kThreads, 0, stream>>>(
-        spec, carry, y, g);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-
-  fft_synthesis<<<(unsigned)nf, kThreads, smem, stream>>>(y, win, twc, tws,
-                                                          frames, g);
+  terms_all<<<blocks_for(nf * g.nb, kThreads), kThreads, 0, stream>>>(
+      spec, consts, mag, t, u, g);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  const int64_t out_len = (nf - 1) * (int64_t)rs + n_fft;
-  ola_gather<<<blocks_for(out_len, kThreads), kThreads, 0, stream>>>(
-      frames, norm_rows, out, out_len, g, m);
+  if (!scan) return cudaSuccess;
+  const Lanes L = {g.nb, (int64_t)nf * g.nb, 0, g.nb};
+  if ((err = run_scan(t, tot, carry, nullptr, nullptr, g, L, stream)) !=
+      cudaSuccess)
+    return err;
+  scan_apply<<<blocks_for(nf * g.nb, kThreads), kThreads, 0, stream>>>(
+      carry, t, g, L);
   return cudaGetLastError();
 }

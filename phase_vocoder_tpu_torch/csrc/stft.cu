@@ -7,7 +7,12 @@
 //     leaves to XLA) -> stft_polar below;
 //   * _istft_kernel (polar -> cartesian, inverse DFT, synthesis window,
 //     fold overlap-add carried across the in-order grid, un-normalized, as
-//     wrapped by istft_ola) -> istft_ola below.
+//     wrapped by istft_ola) -> istft_ola below;
+//   * _istft_frames_kernel (polar) and _istft_frames_cart_kernel
+//     (cartesian): the masked inverse DFT and synthesis window without the
+//     overlap-add, for any synthesis hop, as wrapped by istft_frames and
+//     istft_frames_cart -> istft_frames below (pass 1 of istft_ola, with
+//     a flag for the input form).
 //
 // What bounds them here: device memory traffic. Each frame's DFT is the
 // radix-2 FFT of fft_common.cuh in shared memory (~5 N log2 N FLOP, a
@@ -23,8 +28,9 @@
 //     mag = sqrt(re^2+im^2) and phi = atan2(im, re) straight into two
 //     (nf, N/2+1) tensors, the JAX layout: the spectrum never reaches
 //     device memory as (re, im).
-//   istft_ola, pass 1: one block per frame turns mask*mag*(cos psi,
-//     sin psi) into the Hermitian spectrum in shared memory (imaginary
+//   istft_ola, pass 1 (and istft_frames): one block per frame turns
+//     mask*mag*(cos psi, sin psi), or mask*(re, im) for the cartesian
+//     form, into the Hermitian spectrum in shared memory (imaginary
 //     parts of DC and Nyquist forced to zero, as a real inverse transform
 //     drops them: psi there is 0 or +-pi plus a multiple of pi, whose f32
 //     sine is not zero), runs the inverse FFT, and writes w * x / N to an
@@ -74,17 +80,19 @@ stft_polar_kernel(const float* __restrict__ x, const float* __restrict__ win,
   }
 }
 
-// istft_ola pass 1, one block per frame:
-// frames[i] = w * irfft(mask_i * mag_i * e^{i psi_i}) with the imaginary
-// parts of DC and Nyquist dropped.
+// istft_ola pass 1 and istft_frames, one block per frame:
+// frames[i] = w * irfft(Y_i) with the imaginary parts of DC and Nyquist
+// dropped, where Y_i = mask_i * a_i * e^{i b_i} (polar: a = mag, b = psi)
+// or mask_i * (a_i + i b_i) (cartesian: a = re, b = im).
 __global__ void __launch_bounds__(kThreads)
-istft_frames_kernel(const float* __restrict__ mag,
-                    const float* __restrict__ psi,
+istft_frames_kernel(const float* __restrict__ a,
+                    const float* __restrict__ b,
                     const float* __restrict__ mask,
                     const float* __restrict__ win,
                     const float* __restrict__ twc,
                     const float* __restrict__ tws,
-                    float* __restrict__ frames, int n_fft, int log2n) {
+                    float* __restrict__ frames, int n_fft, int log2n,
+                    int polar) {
   extern __shared__ float sm[];
   float* sr = sm;
   float* si = sm + n_fft;
@@ -92,19 +100,25 @@ istft_frames_kernel(const float* __restrict__ mag,
   const int nh = n_fft / 2;
   const int nb = nh + 1;
   const float mk = mask[i];
-  const float* mrow = mag + i * nb;
-  const float* prow = psi + i * nb;
+  const float* arow = a + i * nb;
+  const float* brow = b + i * nb;
   for (int k = threadIdx.x; k < nb; k += blockDim.x) {
-    const float m = mrow[k] * mk;
-    float s, c;
-    sincosf(prow[k], &s, &c);
-    const float re = m * c;
+    float re, im;
+    if (polar) {
+      const float m = arow[k] * mk;
+      float s, c;
+      sincosf(brow[k], &s, &c);
+      re = m * c;
+      im = m * s;
+    } else {
+      re = arow[k] * mk;
+      im = brow[k] * mk;
+    }
     const int r = bitrev(k, log2n);
     sr[r] = re;
     if (k == 0 || k == nh) {
       si[r] = 0.f;
     } else {
-      const float im = m * s;
       si[r] = im;
       const int rm = bitrev(n_fft - k, log2n);  // Hermitian half: conj(Y[k])
       sr[rm] = re;
@@ -168,12 +182,26 @@ extern "C" int istft_ola(const float* mag, const float* psi,
   const size_t smem = 2 * n_fft * sizeof(float);
   istft_frames_kernel<<<(unsigned)nf, kThreads, smem, stream>>>(
       mag, psi, mask, fft, fft + n_fft, fft + n_fft + n_fft / 2, frames,
-      n_fft, log2_int(n_fft));
+      n_fft, log2_int(n_fft), 1);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int64_t out_len = (nf - 1) * (int64_t)rs + n_fft;
   const int m = (n_fft + rs - 1) / rs;
   ola_sum_kernel<<<blocks_for(out_len, kThreads), kThreads, 0, stream>>>(
       frames, out, out_len, nf, n_fft, rs, m);
+  return cudaGetLastError();
+}
+
+// Windowed frames (nf, n_fft) of the masked inverse DFT, no overlap-add:
+// a, b (nf, n_fft/2+1) are (mag, psi) when polar is 1, (re, im) when 0;
+// mask (nf,), fft as above.
+extern "C" int istft_frames(const float* a, const float* b,
+                            const float* mask, const float* fft,
+                            float* frames, long long nf, int n_fft,
+                            int polar, cudaStream_t stream) {
+  const size_t smem = 2 * n_fft * sizeof(float);
+  istft_frames_kernel<<<(unsigned)nf, kThreads, smem, stream>>>(
+      a, b, mask, fft, fft + n_fft, fft + n_fft + n_fft / 2, frames, n_fft,
+      log2_int(n_fft), polar);
   return cudaGetLastError();
 }

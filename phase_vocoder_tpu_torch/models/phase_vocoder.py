@@ -44,5 +44,14 @@ class PhaseVocoder(nn.Module):
         (streaming.stream_time_stretch; kw: segment_frames)."""
         return streaming.stream_time_stretch(x, stretch, self.config, device=self.device, **kw)
 
+    def checkpointed_time_stretch(self, x, stretch: float, checkpoint_dir: str, **kw) -> torch.Tensor:
+        """Segmented polar TSM with crash recovery at segment-batch
+        granularity (utils.checkpoint.checkpointed_stream_time_stretch)."""
+        from ..utils.checkpoint import checkpointed_stream_time_stretch
+
+        return checkpointed_stream_time_stretch(
+            x, stretch, self.config, checkpoint_dir=checkpoint_dir, device=self.device, **kw
+        )
+
     def output_length(self, in_len: int, stretch: float) -> int:
         return pipeline.stretch_output_length(in_len, self.config, stretch)

@@ -38,11 +38,24 @@ _SIGNATURES = {
         _LL, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,  # geometry
         _P,  # stream
     ],
+    "pvoc_fused_segment": [
+        *[_P] * 14,  # signal, outputs, state, scratch and tables
+        _LL, _LL, _LL, _LL,  # n_valid, seg_frames, goff, nf_total
+        _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,  # started, geometry
+        _P,  # stream
+    ],
+    "pvoc_terms": [
+        *[_P] * 9,  # x, spec, mag, t, u, tot, carry, fft, consts
+        _LL, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,  # geometry, scan
+        _P,  # stream
+    ],
     "resample_lerp": [_P, _P, _LL, _LL, ctypes.c_double, _P],
     # x, fft table, mag, phi, nf, n_fft, hop, stream
     "stft_polar": [_P, _P, _P, _P, _LL, _I, _I, _P],
     # mag, psi, mask, fft table, frames, out, nf, n_fft, rs, stream
     "istft_ola": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
+    # a, b, mask, fft table, frames, nf, n_fft, polar, stream
+    "istft_frames": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
 }
 
 

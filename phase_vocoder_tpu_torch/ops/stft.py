@@ -1,14 +1,17 @@
-"""Polar STFT analysis and polar iSTFT + overlap-add (counterpart of
-phase_vocoder_tpu/ops/pallas/stft.py: stft_polar and istft_ola).
+"""Polar STFT analysis, polar iSTFT + overlap-add, and the windowed
+inverse-DFT frames of a polar or cartesian spectrum (counterpart of
+phase_vocoder_tpu/ops/pallas/stft.py: stft_polar, istft_ola, istft_frames
+and istft_frames_cart).
 
-`stft_polar` and `istft_ola` run the CUDA kernels of csrc/stft.cu for a
-CUDA tensor, counting one launch each in `.launches`, and their plain torch
-versions (`*_reference`) for a CPU tensor. A CUDA tensor launches the
-kernel or raises; nothing falls back.
+Each runs a CUDA kernel of csrc/stft.cu for a CUDA tensor, counting one
+launch in `.launches`, and its plain torch version (`*_reference`) for a
+CPU tensor. A CUDA tensor launches the kernel or raises; nothing falls
+back.
 
 The kernels take a power-of-two n_fft up to 4096 (the radix-2 FFT of
 csrc/fft_common.cuh); istft_ola keeps the JAX contract rs | n_fft with
-overlap n_fft/rs >= 2.
+overlap n_fft/rs >= 2. istft_frames(_cart) do no overlap-add, so the
+caller's fold serves any synthesis hop.
 """
 
 from __future__ import annotations
@@ -29,6 +32,10 @@ __all__ = [
     "stft_polar_reference",
     "istft_ola",
     "istft_ola_reference",
+    "istft_frames",
+    "istft_frames_reference",
+    "istft_frames_cart",
+    "istft_frames_cart_reference",
 ]
 
 
@@ -118,21 +125,44 @@ def _mask(frame_mask, nf: int, like: torch.Tensor) -> torch.Tensor:
     return frame_mask.to(device=like.device, dtype=like.dtype).contiguous()
 
 
+def _windowed_irfft(re: torch.Tensor, im: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """w * irfft(re + i im) per frame, the imaginary parts of DC and
+    Nyquist dropped (as the kernels' Hermitian fill does; im, a fresh
+    tensor of the caller's, is zeroed there in place)."""
+    im[:, 0] = 0.0
+    im[:, -1] = 0.0
+    frames = torch.fft.irfft(torch.complex(re, im), n=n_fft, dim=-1)
+    return frames * hann_window(n_fft, re.device)
+
+
+def istft_frames_reference(
+    mag: torch.Tensor, psi: torch.Tensor, n_fft: int,
+    frame_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain torch polar frames: Y = mask*mag*e^{i psi} with the imaginary
+    parts of DC and Nyquist set to zero, torch.fft.irfft, Hann window.
+    Returns (nf, n_fft)."""
+    m = mag * _mask(frame_mask, mag.shape[0], mag)[:, None]
+    return _windowed_irfft(m * torch.cos(psi), m * torch.sin(psi), n_fft)
+
+
+def istft_frames_cart_reference(
+    y_re: torch.Tensor, y_im: torch.Tensor, n_fft: int,
+    frame_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain torch cartesian frames: Y = mask*(y_re + i y_im), then as
+    istft_frames_reference. Returns (nf, n_fft)."""
+    mask = _mask(frame_mask, y_re.shape[0], y_re)[:, None]
+    return _windowed_irfft(y_re * mask, y_im * mask, n_fft)
+
+
 def istft_ola_reference(
     mag: torch.Tensor, psi: torch.Tensor, n_fft: int, rs: int,
     frame_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Plain torch polar synthesis: Y = mask*mag*e^{i psi} with the
-    imaginary parts of DC and Nyquist set to zero, torch.fft.irfft, Hann
-    window, fold overlap-add. Un-normalized, (nf-1)*rs + n_fft samples."""
-    nf = mag.shape[0]
-    m = mag * _mask(frame_mask, nf, mag)[:, None]
-    re = m * torch.cos(psi)
-    im = m * torch.sin(psi)
-    im[:, 0] = 0.0
-    im[:, -1] = 0.0
-    frames = torch.fft.irfft(torch.complex(re, im), n=n_fft, dim=-1)
-    return overlap_add(frames * hann_window(n_fft, mag.device), rs)
+    """Plain torch polar synthesis: istft_frames_reference, then fold
+    overlap-add. Un-normalized, (nf-1)*rs + n_fft samples."""
+    return overlap_add(istft_frames_reference(mag, psi, n_fft, frame_mask), rs)
 
 
 def istft_ola(
@@ -180,3 +210,68 @@ def istft_ola(
 
 
 istft_ola.launches = 0
+
+
+def _istft_frames(a, b, n_fft: int, frame_mask, wrapper) -> torch.Tensor:
+    """The istft_frames kernel for `wrapper` (istft_frames: polar form,
+    istft_frames_cart: cartesian), counting its launches."""
+    polar = wrapper is istft_frames
+    what = wrapper.__name__
+    if not fft_size_supported(n_fft):
+        raise ValueError(f"{what} requires n_fft a power of two <= {MAX_N_FFT} (got {n_fft})")
+    nb = n_fft // 2 + 1
+    if a.dim() != 2 or a.shape[1] != nb or b.shape != a.shape:
+        raise ValueError(f"{what}: inputs must be (nf, {nb}), got {tuple(a.shape)} {tuple(b.shape)}")
+    nf = a.shape[0]
+    if nf == 0:
+        return a.new_zeros((0, n_fft))
+    if a.device.type == "cpu":
+        ref = istft_frames_reference if polar else istft_frames_cart_reference
+        return ref(a, b, n_fft, frame_mask)
+    _check_cuda(a, what)
+    _check_cuda(b, what)
+    mask = _mask(frame_mask, nf, a)
+    frames = torch.empty((nf, n_fft), dtype=torch.float32, device=a.device)
+    table = _device_fft_table(n_fft, str(a.device))
+    lib = _build.kernels()
+    with torch.cuda.device(a.device):
+        rc = lib.istft_frames(
+            a.data_ptr(), b.data_ptr(), mask.data_ptr(), table.data_ptr(),
+            frames.data_ptr(), nf, n_fft, int(polar),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(rc, what)
+    wrapper.launches += 1
+    return frames
+
+
+def istft_frames(
+    mag: torch.Tensor, psi: torch.Tensor, n_fft: int,
+    frame_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Polar spectra (nf, n_fft//2+1) -> windowed output frames (nf, n_fft),
+    for any synthesis hop: Y = mask*mag*e^{i psi}, inverse DFT, Hann window,
+    no overlap-add (the caller folds). A CUDA tensor goes through the
+    istft_frames kernel (csrc/stft.cu, polar form) and counts one launch in
+    `istft_frames.launches`; a CPU tensor goes through
+    istft_frames_reference."""
+    return _istft_frames(mag, psi, n_fft, frame_mask, istft_frames)
+
+
+istft_frames.launches = 0
+
+
+def istft_frames_cart(
+    y_re: torch.Tensor, y_im: torch.Tensor, n_fft: int,
+    frame_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Cartesian spectra (nf, n_fft//2+1) -> windowed output frames (nf,
+    n_fft): the cartesian twin of istft_frames, for the general-hop phasor
+    route where Y = mag * P arrives as (re, im). A CUDA tensor goes through
+    the istft_frames kernel (csrc/stft.cu, cartesian form) and counts one
+    launch in `istft_frames_cart.launches`; a CPU tensor goes through
+    istft_frames_cart_reference."""
+    return _istft_frames(y_re, y_im, n_fft, frame_mask, istft_frames_cart)
+
+
+istft_frames_cart.launches = 0

@@ -4,14 +4,23 @@ Routes of time_stretch, in the JAX package's order:
   1. a q >= 2 hop ratio with branch_policy "faithful", or "auto" past
      BRANCH_FAITHFUL_FRAMES frames: the branch-faithful polar streaming
      executor (streaming.py; kernels of ops/stft.py on the "fused" backend);
-  2. the fused TSM kernel (ops/fused.py) where it covers the geometry;
-  3. on the "matmul"/"xla" backends, the monolithic polar path (analyze ->
+  2. the fused TSM kernel (ops/fused.py) where it covers the geometry
+     (0 < Rs <= N/2);
+  3. on the "fused" backend past that (Rs > N/2: stretch above 2, pitch
+     above +12 st), the general-hop phasor route phasor_general_stretch:
+     the stft_phasor_terms kernel, Y = mag * P, the istft_frames_cart
+     kernel, then fold overlap-add and the window-energy normalization in
+     plain torch; the streaming executor past both max_monolithic_frames
+     and max_phasor_general_frames;
+  4. on the "matmul"/"xla" backends, the monolithic polar path (analyze ->
      stretch_polar -> synthesize_polar) up to max_monolithic_frames, the
      streaming executor beyond.
-pitch_shift takes the same stretch routes (no length cut-over on the polar
-backends, as in the JAX package) and then the linear resampler
-(ops/resample.py). What this package does not have yet raises
-NotImplementedError, naming the ROADMAP item, before any compute.
+pitch_shift takes the same stretch routes (no length cut-over, as in the
+JAX package) and then the linear resampler (ops/resample.py).
+synthesize_polar runs the istft_ola kernel for Rs | N and the istft_frames
+kernel plus fold overlap-add for any other Rs on the "fused" backend.
+What this package does not have yet raises NotImplementedError, naming the
+ROADMAP item, before any compute.
 
 Tensors stay on the device they came on. Anything else (numpy arrays,
 lists) is converted to float32 on `device`, which defaults to "cuda" and
@@ -26,9 +35,22 @@ import torch
 from .config import PvocConfig
 from .ops import fft as fft_ops
 from .ops import framing, phase
-from .ops.fused import _rational_k, fused_time_stretch, phasor_supported
+from .ops.fused import (
+    _rational_k,
+    fused_time_stretch,
+    phasor_supported,
+    phasor_terms_supported,
+    stft_phasor_terms,
+)
 from .ops.resample import resample_linear
-from .ops.stft import istft_ola, istft_ola_supported, stft_polar, stft_supported
+from .ops.stft import (
+    istft_frames,
+    istft_frames_cart,
+    istft_ola,
+    istft_ola_supported,
+    stft_polar,
+    stft_supported,
+)
 from .ops.window import hann_window
 
 __all__ = [
@@ -43,6 +65,8 @@ __all__ = [
     "fused_ok",
     "fused_analysis_ok",
     "fused_synthesis_ok",
+    "phasor_general_ok",
+    "phasor_general_stretch",
     "BRANCH_FAITHFUL_FRAMES",
 ]
 
@@ -65,6 +89,29 @@ def stretch_output_length(in_len: int, cfg: PvocConfig, stretch: float) -> int:
 def fused_ok(cfg: PvocConfig, rs: int) -> bool:
     """True when the fused kernel covers (cfg, Rs)."""
     return cfg.fft_backend == "fused" and phasor_supported(cfg.n_fft, cfg.hop, rs)
+
+
+def phasor_general_ok(cfg: PvocConfig, rs: int) -> bool:
+    """True when the general-hop phasor route applies: the fused backend,
+    a geometry the fused kernel does not take (Rs > N/2), and one the
+    stft_phasor_terms kernel does."""
+    return (
+        cfg.fft_backend == "fused"
+        and not fused_ok(cfg, rs)
+        and phasor_terms_supported(cfg.n_fft, cfg.hop, rs)
+    )
+
+
+def phasor_general_stretch(x: torch.Tensor, cfg: PvocConfig, rs: int) -> torch.Tensor:
+    """TSM for general synthesis hops (see phasor_general_ok): phasor terms
+    with the prefix product, Y = mag * P, windowed inverse-DFT frames, fold
+    overlap-add, window-energy normalization."""
+    n = cfg.n_fft
+    mag, pre, pim, nf = stft_phasor_terms(x, n, cfg.hop, rs, scan=True)
+    y_frames = istft_frames_cart(mag * pre, mag * pim, n)
+    out = framing.overlap_add(y_frames, rs, method="fold")
+    norm = framing.ola_window_norm(hann_window(n, x.device), nf, rs, method="fold")
+    return out / norm
 
 
 def fused_analysis_ok(cfg: PvocConfig) -> bool:
@@ -127,21 +174,21 @@ def synthesize_polar(
     rs: int,
     frame_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Polar-form synthesis: the istft_ola kernel plus the window-energy
-    normalization where it applies, else the (re, im) path of synthesize."""
-    if fused_synthesis_ok(cfg, rs):
-        out = istft_ola(mag, psi, cfg.n_fft, rs, frame_mask=frame_mask)
+    """Polar-form synthesis plus the window-energy normalization: the
+    istft_ola kernel where it applies, else on the fused backend the
+    istft_frames kernel and fold overlap-add (any Rs), else the (re, im)
+    path of synthesize."""
+    if cfg.fft_backend == "fused":
+        if fused_synthesis_ok(cfg, rs):
+            out = istft_ola(mag, psi, cfg.n_fft, rs, frame_mask=frame_mask)
+        else:
+            frames = istft_frames(mag, psi, cfg.n_fft, frame_mask=frame_mask)
+            out = framing.overlap_add(frames, rs, method="fold")
         w = hann_window(cfg.n_fft, mag.device)
         norm = framing.ola_window_norm(
             w, mag.shape[0], rs, method="fold", frame_mask=frame_mask
         )
         return out / norm
-    if cfg.fft_backend == "fused":
-        raise NotImplementedError(
-            f"polar synthesis at Rs={rs} (Rs does not divide n_fft={cfg.n_fft} "
-            "with overlap >= 2) on the fused backend is the JAX package's "
-            "istft_frames kernel, not ported yet (ROADMAP queue 2 row 12)"
-        )
     return synthesize(
         mag * torch.cos(psi), mag * torch.sin(psi), cfg, rs, frame_mask=frame_mask
     )
@@ -179,6 +226,19 @@ def _polar_stretch(x: torch.Tensor, cfg: PvocConfig, rs: int) -> torch.Tensor:
     return synthesize_polar(mag, psi, cfg, rs)
 
 
+def _stretch(route: str, x: torch.Tensor, stretch: float, cfg: PvocConfig, rs: int) -> torch.Tensor:
+    """The time stretch of `x` on the route _route chose."""
+    if route == "stream":
+        from . import streaming
+
+        return streaming.stream_time_stretch(x, stretch, cfg)
+    if route == "fused":
+        return fused_time_stretch(x, cfg.n_fft, cfg.hop, rs)
+    if route == "general":
+        return phasor_general_stretch(x, cfg, rs)
+    return _polar_stretch(x, cfg, rs)
+
+
 # ----------------------------------------------------------------- routing
 
 
@@ -190,9 +250,9 @@ def _route(
     max_monolithic_frames: int | None = None,
     max_phasor_general_frames: int | None = None,
 ) -> str:
-    """"stream", "fused" or "polar", in the JAX package's order; raises for
-    what is not ported. The max_* limits are time_stretch's (None: no
-    length cut-over, as pitch_shift)."""
+    """"stream", "fused", "general" or "polar", in the JAX package's order;
+    raises for what is not ported. The max_* limits are time_stretch's
+    (None: no length cut-over, as pitch_shift)."""
     if branch_policy not in _BRANCH_POLICIES:
         raise ValueError(f"unknown branch_policy {branch_policy!r}")
     if cfg.fft_backend == "fused" and not stft_supported(cfg.n_fft, cfg.hop):
@@ -209,22 +269,11 @@ def _route(
         return "stream"
     if fused_ok(cfg, rs):
         return "fused"
-    if cfg.fft_backend == "fused":
-        # The JAX package runs phasor_general_stretch here, and the
-        # streaming executor past both frame limits.
-        if max_monolithic_frames is not None and nf > max(
-            max_monolithic_frames, max_phasor_general_frames
-        ):
-            return "stream"
-        raise NotImplementedError(
-            f"Rs={rs} > n_fft/2={cfg.n_fft // 2} on the fused backend routes "
-            "to phasor_general_stretch, not ported yet (ROADMAP queue 2 rows "
-            "6 and 13); branch_policy='faithful' (q >= 2) or "
-            "fft_backend='matmul' serve it"
-        )
+    general = phasor_general_ok(cfg, rs)
     if max_monolithic_frames is not None and nf > max_monolithic_frames:
-        return "stream"
-    return "polar"
+        if not (general and nf <= max_phasor_general_frames):
+            return "stream"
+    return "general" if general else "polar"
 
 
 def time_stretch(
@@ -255,13 +304,7 @@ def time_stretch(
     route = _route(
         cfg, rs, nf, branch_policy, max_monolithic_frames, max_phasor_general_frames
     )
-    if route == "stream":
-        from . import streaming
-
-        return streaming.stream_time_stretch(x, stretch, cfg)
-    if route == "fused":
-        return fused_time_stretch(x, cfg.n_fft, cfg.hop, rs)
-    return _polar_stretch(x, cfg, rs)
+    return _stretch(route, x, stretch, cfg, rs)
 
 
 def pitch_shift(
@@ -283,13 +326,5 @@ def pitch_shift(
         return x.new_zeros((0,))
     out_len = int(round(stretched_len / factor))
     nf = framing.num_frames(x.shape[-1], cfg.n_fft, cfg.hop)
-    route = _route(cfg, rs, nf, branch_policy)
-    if route == "stream":
-        from . import streaming
-
-        y = streaming.stream_time_stretch(x, factor, cfg)
-    elif route == "fused":
-        y = fused_time_stretch(x, cfg.n_fft, cfg.hop, rs)
-    else:
-        y = _polar_stretch(x, cfg, rs)
+    y = _stretch(_route(cfg, rs, nf, branch_policy), x, factor, cfg, rs)
     return resample_linear(y, 1.0 / factor, out_len)

@@ -1,6 +1,11 @@
-"""Streaming segmented execution of the polar path (counterpart of
-phase_vocoder_tpu/streaming.py, its polar executor): a recording of any
-length as a loop over fixed-size segments of F frames, with bounded state.
+"""Streaming segmented execution (counterpart of
+phase_vocoder_tpu/streaming.py): a recording of any length as a loop over
+fixed-size segments of F frames, with bounded state. Two executors: the
+polar one (stream_time_stretch, the branch-faithful route) and the fused
+one (fused_stream_time_stretch, the pvoc_fused_segment kernel, bitwise
+equal to the single-recording fused kernel; see the section below).
+
+The polar executor:
 
 Exactness: the cross-segment state is the sequence-parallel carry of the
 JAX package's parallel/chunked.py, applied serially:
@@ -37,6 +42,7 @@ from . import pipeline
 from .config import PvocConfig
 from .ops import fft as fft_ops
 from .ops import framing, phase
+from .ops.fused import SCAN_CHUNK, fused_stream_segment, init_carry, segment_workspace
 from .ops.stft import istft_ola
 from .ops.window import hann_window
 
@@ -49,6 +55,11 @@ __all__ = [
     "pad_for_segments",
     "flush_tail",
     "stream_time_stretch",
+    "DEFAULT_FUSED_SEGMENT_FRAMES",
+    "FusedStreamState",
+    "fused_init_state",
+    "fused_plan_segments",
+    "fused_stream_time_stretch",
 ]
 
 _EPS = 1e-8
@@ -250,4 +261,104 @@ def stream_time_stretch(
     state0 = init_state(cfg, rs, dtype=x.dtype, device=x.device)
     main, state = _stream_scan_from(x_pad, state0, nf, cfg, rs, F, S)
     out = torch.cat([main, flush_tail(state)])
+    return out[: framing.output_length(nf, cfg.n_fft, rs)]
+
+
+# ---------------------------------------------------------------------------
+# Fused streaming: a loop over segments of the pvoc_fused_segment kernel.
+#
+# The single-recording fused TSM carries, from frame to frame, only the
+# anchor or previous unit phasor, the running phasor P and the OLA sums of
+# the next m-1 output rows. fused_stream_segment takes exactly that state
+# in and gives it out, so the loop reproduces the single-recording result
+# bit for bit while its memory is one segment's scratch, and a run can be
+# checkpointed between segments (utils/checkpoint.py). The segment reads
+# its frames straight from the unpadded signal at its frame offset, so the
+# JAX package's padded rows view (fused_stream_rows) has no counterpart.
+# ---------------------------------------------------------------------------
+
+# Fused segment size in frames: ~131 s of 16 kHz audio at hop 256.
+DEFAULT_FUSED_SEGMENT_FRAMES = 8192
+
+
+@dataclasses.dataclass
+class FusedStreamState:
+    """Cross-segment state of the fused streaming executor (a few KB)."""
+
+    carry: torch.Tensor  # (4, n_fft/2-1): rows 0-1 anchor/previous phasor, 2-3 P
+    tail: torch.Tensor  # (m-1, rs) un-normalized OLA sums of the next rows
+    started: int  # 0 only before the first segment
+    frame_offset: int  # global index of the next segment's first frame
+
+
+def fused_init_state(n_fft: int, rs: int, device=None) -> FusedStreamState:
+    m = -(-n_fft // rs)
+    return FusedStreamState(
+        carry=init_carry(n_fft, device),
+        tail=torch.zeros((m - 1, rs), dtype=torch.float32, device=device),
+        started=0,
+        frame_offset=0,
+    )
+
+
+def fused_plan_segments(nf: int, n_fft: int, rs: int, segment_frames: int) -> tuple[int, int]:
+    """(F, S): F the requested size rounded down to a multiple of SCAN_CHUNK
+    (at least one chunk, and at least m-1 so a tail never spans two
+    segments); S*F >= nf + m - 1, so the last OLA sums drain into ordinary
+    output rows."""
+    m = -(-n_fft // rs)
+    F = max(SCAN_CHUNK, (segment_frames // SCAN_CHUNK) * SCAN_CHUNK,
+            -(-(m - 1) // SCAN_CHUNK) * SCAN_CHUNK)
+    return F, -(-(nf + m - 1) // F)
+
+
+def _fused_scan_from(
+    x: torch.Tensor, state0: FusedStreamState, nf: int, n_fft: int, hop: int,
+    rs: int, F: int, s_count: int,
+) -> tuple[torch.Tensor, FusedStreamState]:
+    """Loop over `s_count` F-frame segments of x starting from `state0` (any
+    state: the resume point). The frame offset and the started flag are
+    host ints, so the loop never reads the device; the segments' scratch is
+    allocated once. Returns (outputs (s_count*F*rs,), final state)."""
+    work = segment_workspace(F, n_fft, hop, rs, x.device) if x.device.type == "cuda" else None
+    out = torch.empty(s_count * F * rs, dtype=torch.float32, device=x.device)
+    carry, tail = state0.carry, state0.tail
+    g, started = state0.frame_offset, state0.started
+    for j in range(s_count):
+        _, carry, tail = fused_stream_segment(
+            x, carry, tail, started, g, nf, n_fft, hop, rs, F,
+            out=out[j * F * rs : (j + 1) * F * rs], work=work,
+        )
+        g += F
+        started = 1
+    return out, FusedStreamState(carry=carry, tail=tail, started=started, frame_offset=g)
+
+
+def fused_stream_time_stretch(
+    x,
+    stretch: float,
+    cfg: PvocConfig = PvocConfig(),
+    segment_frames: int = DEFAULT_FUSED_SEGMENT_FRAMES,
+    device="cuda",
+) -> torch.Tensor:
+    """Segmented fused TSM: the state flow of the single-recording fused
+    kernel, bitwise equal to it, in memory bounded by one segment.
+
+    Requires pipeline.fused_ok geometry (raises ValueError otherwise).
+    Tensors stay on their device; anything else goes to `device`.
+    """
+    x = pipeline._as_signal(x, device)
+    rs = cfg.synthesis_hop(stretch)
+    if not pipeline.fused_ok(cfg, rs):
+        raise ValueError(
+            "fused_stream_time_stretch requires the fused-kernel geometry "
+            "(fused backend, n_fft a power of two, hop | n_fft, rs <= n_fft/2)"
+        )
+    nf = framing.num_frames(x.shape[-1], cfg.n_fft, cfg.hop)
+    if nf <= 0:
+        return x.new_zeros((0,))
+    F, S = fused_plan_segments(nf, cfg.n_fft, rs, segment_frames)
+    out, _ = _fused_scan_from(
+        x, fused_init_state(cfg.n_fft, rs, x.device), nf, cfg.n_fft, cfg.hop, rs, F, S
+    )
     return out[: framing.output_length(nf, cfg.n_fft, rs)]

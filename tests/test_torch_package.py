@@ -35,6 +35,35 @@ def test_import_does_not_pull_in_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "phase_vocoder_tpu_torch.streaming",
+    "phase_vocoder_tpu_torch.utils.checkpoint",
+    "phase_vocoder_tpu_torch.utils.profiling",
+    "phase_vocoder_tpu_torch.models.phase_vocoder",
+    "phase_vocoder_tpu_torch.ops.fused",
+    "phase_vocoder_tpu_torch.ops.stft",
+])
+def test_module_imports_no_jax_orbax_or_ml_dtypes(module):
+    """Neither jax, orbax nor ml_dtypes exists on the card's machine: the
+    checkpoints use numpy files and the bfloat16 parts torch's own type."""
+    code = (
+        f"import sys, {module}; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'orbax', 'ml_dtypes', 'phase_vocoder_tpu')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    proc = _run("-c", code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_sources_name_no_jax_orbax_or_ml_dtypes():
+    for path in PKG.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]):
+                assert words[1].split(".")[0] not in ("jax", "orbax", "ml_dtypes"), (path, line)
+
+
 def test_cli_help_lists_subcommands():
     proc = _run("-m", "phase_vocoder_tpu_torch.cli", "--help")
     assert proc.returncode == 0, proc.stderr

@@ -150,9 +150,19 @@ def test_faithful_reroutes_every_q2_input(no_compute, stream_calls, x1):
     assert [c[0] for c in stream_calls] == [0.5, 2.0 ** (-7 / 12)]
 
 
-def test_rs_above_half_n_raises(no_compute, x1):
-    with pytest.raises(NotImplementedError, match="phasor_general_stretch"):
-        tpv.time_stretch(x1, 2.5, device="cpu")  # Rs = 640 > N/2
+def test_rs_above_half_n_raises(no_compute, monkeypatch, x1):
+    """Rs = 640 > N/2 no longer raises: below both frame limits it takes
+    the general-hop phasor route, as the JAX package does, and matches it."""
+    routes = []
+    general = pipeline.phasor_general_stretch
+    monkeypatch.setattr(
+        pipeline, "phasor_general_stretch",
+        lambda x, cfg, rs: routes.append(rs) or general(x, cfg, rs),
+    )
+    y = tpv.time_stretch(x1, 2.5, device="cpu").numpy()
+    assert routes == [640]
+    j = np.asarray(jpv.time_stretch(x1, 2.5, JAX_CFG))
+    assert rel_err(y, j) < 5e-5
 
 
 def test_rs_above_half_n_streams_past_both_limits(no_compute, stream_calls):

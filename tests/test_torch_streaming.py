@@ -225,10 +225,17 @@ def test_polar_cumsum_no_worse_than_jax(x1):
     assert rel_err(y, ref) <= rel_err(j, ref)
 
 
-def test_synthesize_polar_on_fused_backend_with_general_hop_raises():
-    mag = torch.ones((4, N // 2 + 1))
-    with pytest.raises(NotImplementedError, match="istft_frames"):
-        pipeline.synthesize_polar(mag, mag, CFG, 171)
+def test_synthesize_polar_on_fused_backend_with_general_hop_raises(x1):
+    """Rs = 171 does not divide N: on the fused backend synthesize_polar
+    now runs the istft_frames kernel's plain version and fold OLA instead
+    of raising, and matches the "matmul" backend's synthesis (same formula,
+    torch.fft vs an FP32 matrix inverse DFT)."""
+    mag, phi = pipeline.analyze(torch.as_tensor(x1), CFG)
+    mag, psi = pipeline.stretch_polar(mag, phi, CFG, 171)
+    y = pipeline.synthesize_polar(mag, psi, CFG, 171).numpy()
+    ref = pipeline.synthesize_polar(mag, psi, tpv.PvocConfig(fft_backend="matmul"), 171).numpy()
+    assert len(y) == (mag.shape[0] - 1) * 171 + N
+    assert rel_err(y, ref) < 1e-5
 
 
 # -------------------------------------------------------- facade and CLI
