@@ -51,11 +51,38 @@ each; any failure raises and the script exits non-zero:
          3.0x on 3600 s, pitch_shift +19 st on 300 s) and the polar stages
          at Rs = 171 on 300 s, timed, with their kernels against the plain
          versions at those shapes;
-  5. determinism: two 2.0x runs, two faithful 0.5x runs and two 3.0x
-     general-hop runs are bitwise equal.
+     4e. the parallel layer: the BASELINE batch (64 utterances of 5-30 s,
+         ratios 0.5-2.0) through batch_time_stretch_varied, rows against
+         the single-recording kernel; chunked_time_stretch(force=True) at
+         2.0x and 0.5x on 3600 s against time_stretch, with peak memory;
+         batched_chunked_time_stretch on a (1, 1) mesh, 8 x 600 s; two
+         ranks on the one card (two processes of this script, gloo) at
+         60 s against the single route; the new kernels against their
+         plain versions at these shapes;
+  2e. (run after 2d) the parallel layer's kernels against their plain
+      versions (60 s): pvoc_fused_batch on a ragged batch of 4 at Rs
+      128/171/512 with a row shorter than the overlap, pvoc_terms over a
+      batch (scan off, u on), phasor_istft_ola with and without a mask at
+      Rs 128/256/512, phasor_istft_ola_batch with a (B, F) mask;
+  3d. (run after 3c) the golden gate of the parallel entry points (60 s):
+      batch_time_stretch_varied at 0.5/1.0/1.5/2.0, chunked_time_stretch
+      (force=True) at 0.5x/2.0x, batched_chunked_time_stretch on a (1, 1)
+      mesh;
+  5. determinism: two 2.0x runs, two faithful 0.5x runs, two 3.0x
+     general-hop runs, two batch runs and two chunked 0.5x runs are
+     bitwise equal.
 
-The line before the last holds the per-kernel JSON record; the last line
-is {"ok": true, "device": {...}}. Imports nothing of JAX.
+The line before the last holds the per-kernel JSON record: each kernel's
+launches on its main path, its agreement with its plain version, its time,
+the plain version's, one PyTorch call's computing the same function where
+there is one (null otherwise), and its bound: the larger of the bytes it
+must move over 3.35 TB/s and the FP32 operations its FFTs need (2.5 N
+log2 N a real transform) over 67 TFLOP/s. The last line is
+{"ok": true, "device": {...}}. Imports nothing of JAX.
+
+    python3 chip_smoke.py --rank-worker RANK WORLD PORT DIR
+
+is the worker of the two-rank phase (4e).
 """
 
 from __future__ import annotations
@@ -232,6 +259,26 @@ def _weighted_phasor_err(k, p) -> dict:
             "p_weighted": float((dp * (p[0] / top)).max()), "y_max_abs": y_abs}
 
 
+def _terms_errors(k, p) -> dict:
+    """Step terms (no scan) and unit phasors of the phasor-terms kernels
+    against their plain versions, planes (mag, t_re, t_im, u_re, u_im): |X|
+    relative to max |X|; u and the terms weighted by |X|/max |X|. At k = 1/2
+    a term whose argument lies within float32 rounding of the principal
+    root's branch cut comes out negated in one of two analyses (|difference|
+    near 2): those are counted apart (flip_share) and left out of
+    t_weighted and of y_max_abs (|X| t, the largest difference left)."""
+    top = float(p[0].abs().max())
+    w = p[0] / top
+    dt = (torch.complex(k[1], k[2]) - torch.complex(p[1], p[2])).abs()
+    du = (torch.complex(k[3], k[4]) - torch.complex(p[3], p[4])).abs()
+    flip = dt > 1.0
+    return {"mag_rel": float((k[0] - p[0]).abs().max()) / top,
+            "u_weighted": float((du * w).max()),
+            "t_weighted": float(torch.where(flip, 0.0, dt * w).max()),
+            "flip_share": float(flip.double().mean()),
+            "y_max_abs": float(torch.where(flip, 0.0, dt * p[0]).max())}
+
+
 def _counted(counters: dict, fn, expect: dict, what: str) -> dict:
     """Set every kernel's launch count to 0, run fn(), read the counts just
     after, and check them: exactly `expect` for the kernels it names, 0 for
@@ -289,8 +336,83 @@ def _dir_bytes(path) -> int:
     return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
 
 
+_START = time.perf_counter()
+
+
 def _emit(phase: str, **rec) -> None:
-    print(json.dumps({"phase": phase, **rec}), flush=True)
+    print(json.dumps({"phase": phase, "elapsed_s": time.perf_counter() - _START, **rec}), flush=True)
+
+
+# A real N-point FFT: 2.5 N log2 N FP32 operations.
+_FFT_FLOP = 2.5 * N_FFT * 10
+
+
+def _bound(bytes_moved: float, flop: float) -> dict:
+    """The least time the card could take: bytes over 3.35 TB/s or FP32
+    operations over 67 TFLOP/s (H100 SXM data sheet), whichever is larger."""
+    t_bytes, t_ops = bytes_moved / 3.35e12 * 1e3, flop / 67e12 * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_worker(argv: list) -> int:
+    """One of the two ranks of phase 4e: chunked_time_stretch of the 60 s
+    signal at 2.0x and 0.5x over a gloo group on the one card; saves the
+    output and this process's kernel launches."""
+    from phase_vocoder_tpu_torch.ops import fused
+    from phase_vocoder_tpu_torch.parallel import chunked, distributed
+
+    rank, world, port, out = int(argv[0]), int(argv[1]), int(argv[2]), argv[3]
+    distributed.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo", timeout_s=240)
+    try:
+        x = torch.as_tensor(_signal(60.0), dtype=torch.float32, device="cuda")
+        mesh = distributed.global_mesh("seq")
+        res = {}
+        for s in (2.0, 0.5):
+            wrappers = (fused.fused_stream_segment, fused.stft_phasor_terms, fused.phasor_istft_ola)
+            for w in wrappers:
+                w.launches = 0
+            y = chunked.chunked_time_stretch(x, s, mesh=mesh)
+            torch.cuda.synchronize()
+            res[f"y{s}"] = y.cpu().numpy()
+            res[f"launches{s}"] = np.array([w.launches for w in wrappers])
+        np.savez(f"{out}/rank{rank}.npz", device=torch.cuda.get_device_name(0), **res)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _run_ranks(world: int, timeout: float) -> list:
+    """Run _rank_worker in `world` processes of this script; kill them all
+    past `timeout` seconds or on the first failure. Returns their saves."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="pvoc_ranks_") as tmp:
+        port = _free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, __file__, "--rank-worker", str(r), str(world), str(port), tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+        deadline = time.monotonic() + timeout
+        try:
+            while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+                if any(p.poll() not in (None, 0) for p in procs):
+                    break
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            logs = [p.communicate()[0] for p in procs]
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            _check(p.returncode == 0, f"rank {r} of {world} failed (rc {p.returncode}):\n{log[-3000:]}")
+        return [dict(np.load(f"{tmp}/rank{r}.npz")) for r in range(world)]
 
 
 def main() -> int:
@@ -304,10 +426,20 @@ def main() -> int:
         fused_stream_segment,
         fused_stream_segment_reference,
         fused_time_stretch,
+        fused_time_stretch_batch,
+        fused_time_stretch_batch_reference,
         fused_time_stretch_reference,
+        phasor_istft_ola,
+        phasor_istft_ola_batch,
+        phasor_istft_ola_batch_reference,
+        phasor_istft_ola_reference,
         stft_phasor_terms,
+        stft_phasor_terms_batch,
+        stft_phasor_terms_batch_reference,
         stft_phasor_terms_reference,
     )
+    from phase_vocoder_tpu_torch.parallel import chunked
+    from phase_vocoder_tpu_torch.parallel.mesh import make_mesh_2d
     from phase_vocoder_tpu_torch.ops.resample import (
         resample_linear,
         resample_linear_reference,
@@ -332,6 +464,8 @@ def main() -> int:
         "stft_polar": stft_polar, "istft_ola": istft_ola,
         "pvoc_fused_segment": fused_stream_segment, "pvoc_terms": stft_phasor_terms,
         "istft_frames": istft_frames, "istft_frames_cart": istft_frames_cart,
+        "pvoc_fused_batch": fused_time_stretch_batch, "pvoc_terms_batch": stft_phasor_terms_batch,
+        "phasor_istft_ola": phasor_istft_ola, "phasor_istft_ola_batch": phasor_istft_ola_batch,
     }
 
     # ---- 1. card, versions, build
@@ -471,6 +605,78 @@ def main() -> int:
           bounds={"mag_rel": 1e-5, "p_weighted": 1e-4, "frames": 1e-5})
     del re_p, im_p
 
+    # ---- 2e. the parallel layer's kernels vs their plain versions, 60 s
+    lens_r = [len(x60), int(37.0 * SR), 1800, int(51.0 * SR)]  # 1800: 4 frames
+    xs_r = torch.zeros((4, len(x60)), device=dev)
+    for i, n in enumerate(lens_r):
+        xs_r[i, :n] = torch.as_tensor(_signal(n / SR, seed=10 + i)[:n], dtype=torch.float32, device=dev)
+    nfs_r = [(n - N_FFT) // HOP + 1 for n in lens_r]
+    # Each row is held bit for bit to the single-recording kernel on its own
+    # signal, and to the plain version at 5e-5: on row 0 at Rs = 512 the
+    # single-recording kernel itself reads 1.66e-5 from its plain version
+    # (an H100 reading; anchor phases of quiet bins, cuFFT against the
+    # kernel's FFT), above the 1e-5 that 2a holds on the chirp of seed 0.
+    batch_k = {}
+    for rs in (128, 171, 512):
+        k = fused_time_stretch_batch(xs_r, N_FFT, HOP, rs, nfs_r)
+        p = fused_time_stretch_batch_reference(xs_r, N_FFT, HOP, rs, nfs_r)
+        bound = 5e-5
+        for b, nf_b in enumerate(nfs_r):
+            n_out = (nf_b - 1) * rs + N_FFT
+            rec = {"frames": nf_b,
+                   "rel": _rel(k[b, :n_out], p[b, :n_out], N_FFT if n_out > 3 * N_FFT else 0),
+                   "zeros_after": bool((k[b, n_out:] == 0).all()),
+                   "bitwise_vs_single_kernel": bool(torch.equal(
+                       k[b, :n_out], fused_time_stretch(xs_r[b, : lens_r[b]].contiguous(), N_FFT, HOP, rs)))}
+            _check(rec["rel"] < bound and rec["zeros_after"] and rec["bitwise_vs_single_kernel"],
+                   f"pvoc_fused_batch vs plain and the single kernel at Rs={rs}: {rec}")
+            batch_k[f"{rs}/row{b}"] = rec
+    del xs_r, k, p
+    xb60 = torch.stack([x60, torch.as_tensor(_signal(60.0, seed=3), dtype=torch.float32, device=dev)])
+    kt = stft_phasor_terms_batch(xb60, N_FFT, HOP, 128, scan=False, return_u=True)
+    pt = stft_phasor_terms_batch_reference(xb60, N_FFT, HOP, 128, scan=False, return_u=True)
+    terms_b = {}
+    for b in range(2):
+        rec = _weighted_phasor_err([a[b] for a in kt[:3]], [a[b] for a in pt[:3]])
+        rec["u_weighted"] = _weighted_phasor_err([kt[0][b], kt[3][b], kt[4][b]],
+                                                 [pt[0][b], pt[3][b], pt[4][b]])["p_weighted"]
+        one = stft_phasor_terms(xb60[b], N_FFT, HOP, 128, scan=False, return_u=True)
+        rec["bitwise_vs_single_kernel"] = all(bool(torch.equal(a[b], o)) for a, o in zip(kt[:5], one[:5]))
+        _check(rec["mag_rel"] < 1e-5 and max(rec["p_weighted"], rec["u_weighted"]) < 1e-4,
+               f"pvoc_terms_batch vs plain, row {b}: {rec}")
+        terms_b[f"row{b}"] = rec
+    del kt, pt
+    mag_s, pre_s, pim_s, nf_s = stft_phasor_terms(x60, N_FFT, HOP, 128)  # scanned P at 0.5x
+    smask = torch.ones(nf_s, device=dev)
+    smask[-100:] = 0.0
+    synth = {}
+    for rs in (128, 256, 512):
+        for name, fm in (("normalized", None), ("masked", smask)):
+            a = phasor_istft_ola(mag_s, pre_s, pim_s, N_FFT, rs, nf_s, fm)
+            b = phasor_istft_ola_reference(mag_s, pre_s, pim_s, N_FFT, rs, nf_s, fm)
+            synth[f"{rs}/{name}"] = _rel(a, b)
+            _check(synth[f"{rs}/{name}"] < 1e-5, f"phasor_istft_ola vs plain at Rs={rs}, {name}: {synth}")
+            if fm is not None:
+                _check(bool((a[(nf_s - 100 - 1) * rs + N_FFT :] == 0).all()),
+                       f"phasor_istft_ola: masked frames leak at Rs={rs}")
+    kb = stft_phasor_terms_batch(xb60, N_FFT, HOP, 128)
+    bmask = torch.ones((2, nf_s), device=dev)
+    bmask[:, -100:] = 0.0
+    synth_b = {}
+    for rs in (128, 256):
+        a = phasor_istft_ola_batch(*kb[:3], N_FFT, rs, nf_s, bmask)
+        b = phasor_istft_ola_batch_reference(*kb[:3], N_FFT, rs, nf_s, bmask)
+        synth_b[rs] = max(_rel(a[i], b[i]) for i in range(2))
+        _check(synth_b[rs] < 1e-5, f"phasor_istft_ola_batch vs plain at Rs={rs}: {synth_b[rs]:.3e}")
+        _check(bool((a[:, (nf_s - 100 - 1) * rs + N_FFT :] == 0).all()), "phasor_istft_ola_batch: masked frames leak")
+        synth_b[f"{rs}/row1_bitwise_vs_single_kernel"] = bool(torch.equal(
+            a[1], phasor_istft_ola(kb[0][1], kb[1][1], kb[2][1], N_FFT, rs, nf_s, bmask[1])))
+    _emit("2e_parallel_kernels_vs_plain", seconds=60, pvoc_fused_batch=batch_k, pvoc_terms_batch=terms_b,
+          phasor_istft_ola_rel=synth, phasor_istft_ola_batch_rel=synth_b, masked_frames=100,
+          bounds={"batch_vs_plain": 5e-5, "batch_vs_single_kernel": "bitwise", "mag_rel": 1e-5, "weighted": 1e-4,
+                  "synthesis": 1e-5})
+    del mag_s, pre_s, pim_s, kb, a, b
+
     # ---- 3. golden gate through the public API, 60 s
     gate = {}
     for s in (0.5, 1.0, 2.0):
@@ -530,6 +736,32 @@ def main() -> int:
           bounds={"stretch": 1e-4, "pitch": 1e-3})
     del mag_s, phi_s, psi_s
 
+    # ---- 3d. golden gate of the parallel entry points, 60 s
+    golden = {}
+
+    def _golden(x_np, s):
+        key = (id(x_np), s)
+        if key not in golden:
+            golden[key] = pv_ref.phase_vocoder(x_np, s, N_FFT, HOP)
+        return golden[key]
+
+    pgate = {}
+    xs_g = [x60_np, _signal(45.0, seed=4), _signal(60.0, seed=5), _signal(30.0, seed=6)]
+    for x_np, r, y in zip(xs_g, (0.5, 1.0, 1.5, 2.0),
+                          pv.batch_time_stretch_varied(xs_g, [0.5, 1.0, 1.5, 2.0], cfg)):
+        pgate[f"batch_varied_{r}"] = _rel(y, _golden(x_np, r))
+    m11 = make_mesh_2d(1, 1)
+    for s in (0.5, 2.0):
+        pgate[f"chunked_force_{s}"] = _rel(chunked.chunked_time_stretch(x60_np, s, cfg, force=True),
+                                           _golden(x60_np, s))
+        ys = chunked.batched_chunked_time_stretch(np.stack([x60_np, xs_g[2]]), s, cfg, mesh=m11)
+        for i, x_np in enumerate((x60_np, xs_g[2])):
+            pgate[f"batched_chunked_{s}/row{i}"] = _rel(ys[i], _golden(x_np, s))
+    for name, err in pgate.items():
+        _check(err < 1e-4, f"{name} vs golden: {err:.3e}")
+    _emit("3d_parallel_golden_gate", seconds=60, rel_err=pgate, bound=1e-4)
+    del golden, ys
+
     # ---- 4. main path at real size
     x_long = torch.as_tensor(_signal(3600.0), dtype=torch.float32, device=dev)
     x_pitch = torch.as_tensor(_signal(300.0, seed=1), dtype=torch.float32, device=dev)
@@ -568,10 +800,12 @@ def main() -> int:
         bound = 1e-5 if rs % HOP == 0 else 5e-5
         rel = _rel(a, b)
         _check(rel < bound, f"pvoc_fused vs plain, {name}: {rel:.3e} >= {bound}")
+        nf_x = (len(x) - N_FFT) // HOP + 1
         shapes[name] = {
             "rel": rel, "max_abs": _max_abs(a, b),
             "ms": _time_ms(lambda: fused_time_stretch(x, N_FFT, HOP, rs), reps=3),
             "plain_ms": _time_ms(lambda: fused_time_stretch_reference(x, N_FFT, HOP, rs), reps=1),
+            **_bound(4 * (len(x) + len(a)), 2 * nf_x * _FFT_FLOP),
         }
         del a, b
     factor = 2.0 ** (-7 / 12)
@@ -586,11 +820,17 @@ def main() -> int:
     _check(res_abs < 1e-6, f"resample_lerp vs plain at the -7 st shape: {res_abs:.3e}")
     res_ms = _time_ms(lambda: resample_linear(y_st, 1.0 / factor, out_len), reps=20)
     res_plain_ms = _time_ms(lambda: resample_linear_reference(y_st, 1.0 / factor, out_len), reps=5)
+    # One PyTorch call interpolating linearly to out_len points (its
+    # positions are i*(n-1)/(out_len-1), the kernel's i*step).
+    res_lib_ms = _time_ms(lambda: torch.nn.functional.interpolate(
+        y_st[None, None], size=out_len, mode="linear", align_corners=True), reps=20)
+    res_bound = _bound(4 * (len(y_st) + out_len), 3 * out_len)
     _emit("4b_kernel_vs_plain_main_shapes", card=smi, pvoc_fused=shapes,
           resample_m7_300s={"max_abs": res_abs, "ms": res_ms, "plain_ms": res_plain_ms,
+                            "library_ms": res_lib_ms, **res_bound,
                             "n_in": len(y_st), "n_out": out_len})
 
-    del x_long, y_st, a, b
+    del y_st, a, b
     torch.cuda.empty_cache()
 
     # ---- 4c. the branch-faithful route at real size, through "auto"
@@ -679,10 +919,15 @@ def main() -> int:
     stft_main = _spec_errors((mag_k, phi_k), (mag_p, phi_p))
     _check(stft_main["spec_rel"] < 1e-5 and stft_main["mag_rel"] < 1e-5,
            f"stft_polar vs plain at 660 s: {stft_main}")
+    hann = torch.hann_window(N_FFT, device=dev)
     stft_main.update(
         frames=mag_k.shape[0],
         ms=_time_ms(lambda: stft_polar(x_pad, N_FFT, HOP), reps=5),
         plain_ms=_time_ms(lambda: stft_polar_reference(x_pad, N_FFT, HOP), reps=5),
+        # torch.stft: the same windowed spectrum, complex instead of polar.
+        library_ms=_time_ms(lambda: torch.stft(x_pad, N_FFT, HOP, window=hann, center=False,
+                                               return_complex=True), reps=5),
+        **_bound(4 * (len(x_pad) + 2 * mag_k.numel()), mag_k.shape[0] * _FFT_FLOP),
     )
     del mag_k, phi_k
     istft_main = {}
@@ -695,6 +940,10 @@ def main() -> int:
         _check(rec["rel"] < 1e-5, f"istft_ola vs plain, {name}: {rec['rel']:.3e}")
         rec["ms"] = _time_ms(lambda: istft_ola(m_, p_, N_FFT, 128), reps=10)
         rec["plain_ms"] = _time_ms(lambda: istft_ola_reference(m_, p_, N_FFT, 128), reps=5)
+        # torch.istft on mag e^{i psi}: the same sum, window-normalized.
+        spec_c = torch.polar(m_, p_).T.contiguous()
+        rec["library_ms"] = _time_ms(lambda: torch.istft(spec_c, N_FFT, 128, window=hann, center=True), reps=5)
+        rec.update(_bound(4 * (2 * m_.numel() + m_.shape[0] + len(a)), m_.shape[0] * _FFT_FLOP))
         istft_main[name] = rec
     _emit("4c_stft_kernels_vs_plain_main_shapes", card=smi, stft_polar=stft_main,
           istft_ola_rs128=istft_main)
@@ -705,7 +954,6 @@ def main() -> int:
     import tempfile
 
     torch.cuda.empty_cache()
-    x_long = torch.as_tensor(_signal(3600.0), dtype=torch.float32, device=dev)
     nf_long = (len(x_long) - N_FFT) // HOP + 1
     F_long, S_long = streaming.fused_plan_segments(
         nf_long, N_FFT, 512, streaming.DEFAULT_FUSED_SEGMENT_FRAMES)
@@ -823,7 +1071,8 @@ def main() -> int:
            f"pvoc_terms vs plain at 3.0x / 3600 s: {terms_main}")
     terms_main.update(frames=nf_long,
                       ms=_time_ms(lambda: stft_phasor_terms(x_long, N_FFT, HOP, 768), reps=5),
-                      plain_ms=_time_ms(lambda: stft_phasor_terms_reference(x_long, N_FFT, HOP, 768), reps=1))
+                      plain_ms=_time_ms(lambda: stft_phasor_terms_reference(x_long, N_FFT, HOP, 768), reps=1),
+                      **_bound(4 * (len(x_long) + 3 * kt[0].numel()), nf_long * _FFT_FLOP))
     y_re, y_im = kt[0] * kt[1], kt[0] * kt[2]
     del kt, pt
     a = istft_frames_cart(y_re, y_im, N_FFT)
@@ -832,8 +1081,13 @@ def main() -> int:
                  "max_abs": float((a - b).abs().max())}
     _check(cart_main["rel_to_max"] < 1e-5, f"istft_frames_cart vs plain at 3.0x / 3600 s: {cart_main}")
     del a, b
+    y_cplx = torch.complex(y_re, y_im)
+    # torch.fft.irfft: the same inverse transforms, without the window.
     cart_main.update(ms=_time_ms(lambda: istft_frames_cart(y_re, y_im, N_FFT), reps=5),
-                     plain_ms=_time_ms(lambda: istft_frames_cart_reference(y_re, y_im, N_FFT), reps=5))
+                     plain_ms=_time_ms(lambda: istft_frames_cart_reference(y_re, y_im, N_FFT), reps=5),
+                     library_ms=_time_ms(lambda: torch.fft.irfft(y_cplx, n=N_FFT, dim=-1), reps=5),
+                     **_bound(4 * (2 * y_re.numel() + nf_long * N_FFT), nf_long * _FFT_FLOP))
+    del y_cplx
     del y_re, y_im
     mag, phi = pv.pipeline.analyze(x_pitch, cfg)
     mag, psi = pv.pipeline.stretch_polar(mag, phi, cfg, 171)
@@ -841,7 +1095,11 @@ def main() -> int:
     polar_main = {"frames": mag.shape[0], "rel_to_max": float((a - b).abs().max() / b.abs().max()),
                   "max_abs": float((a - b).abs().max()),
                   "ms": _time_ms(lambda: istft_frames(mag, psi, N_FFT), reps=10),
-                  "plain_ms": _time_ms(lambda: istft_frames_reference(mag, psi, N_FFT), reps=10)}
+                  "plain_ms": _time_ms(lambda: istft_frames_reference(mag, psi, N_FFT), reps=10),
+                  **_bound(4 * (2 * mag.numel() + mag.shape[0] * N_FFT), mag.shape[0] * _FFT_FLOP)}
+    spec_p = torch.polar(mag, psi)
+    polar_main["library_ms"] = _time_ms(lambda: torch.fft.irfft(spec_p, n=N_FFT, dim=-1), reps=10)
+    del spec_p
     _check(polar_main["rel_to_max"] < 1e-5, f"istft_frames vs plain at Rs=171 / 300 s: {polar_main}")
     del a, b, mag, phi, psi
     # pvoc_fused_segment at the main path's shape: one 8192-frame segment
@@ -855,7 +1113,9 @@ def main() -> int:
     seg_main = {"frames": F_long, "rel": _rel(ka, pa, 0), "max_abs": _max_abs(ka, pa, 0),
                 "tail_rel": _rel(kt.reshape(-1), pt.reshape(-1), 0),
                 "ms": _time_ms(lambda: fused_stream_segment(*seg_args), reps=10),
-                "plain_ms": _time_ms(lambda: fused_stream_segment_reference(*seg_args), reps=3)}
+                "plain_ms": _time_ms(lambda: fused_stream_segment_reference(*seg_args), reps=3),
+                **_bound(4 * ((F_long - 1) * HOP + N_FFT + len(ka) + 2 * kt.numel() + 2 * st10.carry.numel()),
+                         2 * F_long * _FFT_FLOP)}
     _check(max(seg_main["rel"], seg_main["tail_rel"]) < 1e-5,
            f"pvoc_fused_segment vs plain at 3600 s: {seg_main}")
     y_k = stream_run()
@@ -865,6 +1125,163 @@ def main() -> int:
     _emit("4d_general_hop_main_path", card=smi, launches=gen_launches, **gen,
           pvoc_terms_3x_3600s=terms_main, istft_frames_cart_3x_3600s=cart_main,
           istft_frames_rs171_300s=polar_main, pvoc_fused_segment_2x_3600s=seg_main)
+
+    # ---- 4e. the parallel layer at full width
+    # The BASELINE batch: 64 utterances of 5-30 s, six ratios, one batched
+    # launch per synthesis hop (6 per call; 4 calls).
+    rng = np.random.default_rng(64)
+    ratios64 = [(0.5, 0.75, 1.0, 1.25, 1.5, 2.0)[i % 6] for i in range(64)]
+    xs64 = [torch.as_tensor(_signal(float(sec), seed=200 + i), dtype=torch.float32, device=dev)
+            for i, sec in enumerate(rng.uniform(5.0, 30.0, 64))]
+    audio64 = sum(len(x) for x in xs64) / SR
+    run64 = lambda: pv.batch_time_stretch_varied(xs64, ratios64, cfg)  # noqa: E731
+    b64 = {"utterances": 64, "audio_seconds": audio64,
+           "frames": sum((len(x) - N_FFT) // HOP + 1 for x in xs64)}
+    b64["launches"] = _counted(counters, lambda: b64.update(ms=_time_calls(run64, reps=3)),
+                               {"pvoc_fused_batch": 24}, "64-utterance batch")
+    b64["audio_s_per_s"] = [audio64 / (ms / 1e3) for ms in b64["ms"]]
+    worst, bitwise = 0.0, True
+    for x, r, y in zip(xs64, ratios64, run64()):
+        single = fused_time_stretch(x, N_FFT, HOP, cfg.synthesis_hop(r))
+        worst = max(worst, _rel(y, single))
+        bitwise = bitwise and bool(torch.equal(y, single))
+    _check(worst <= 1e-6, f"64-utterance batch rows vs the single-recording kernel: {worst:.3e}")
+    b64.update(rel_vs_single_kernel_max=worst, bitwise_vs_single_kernel=bitwise)
+    # pvoc_fused_batch against its plain version on the batch's 2.0x group.
+    rows = [x for x, r in zip(xs64, ratios64) if r == 2.0]
+    t_max = max(len(x) for x in rows)
+    xb = torch.stack([torch.nn.functional.pad(x, (0, t_max - len(x))) for x in rows])
+    nfs_b = [(len(x) - N_FFT) // HOP + 1 for x in rows]
+    a = fused_time_stretch_batch(xb, N_FFT, HOP, 512, nfs_b)
+    b = fused_time_stretch_batch_reference(xb, N_FFT, HOP, 512, nfs_b)
+    spans = [(nf_b - 1) * 512 + N_FFT for nf_b in nfs_b]
+    fb_main = {"rows": len(rows), "frames": sum(nfs_b),
+               "rel": max(_rel(a[i, :n], b[i, :n]) for i, n in enumerate(spans)),
+               "max_abs": max(_max_abs(a[i, :n], b[i, :n]) for i, n in enumerate(spans)),
+               "ms": _time_ms(lambda: fused_time_stretch_batch(xb, N_FFT, HOP, 512, nfs_b), reps=10),
+               "plain_ms": _time_ms(lambda: fused_time_stretch_batch_reference(xb, N_FFT, HOP, 512, nfs_b), reps=1),
+               **_bound(4 * (sum((nf_b - 1) * HOP + N_FFT for nf_b in nfs_b) + a.numel()),
+                        2 * sum(nfs_b) * _FFT_FLOP)}
+    _check(fb_main["rel"] < 5e-5, f"pvoc_fused_batch vs plain at the 2.0x group: {fb_main}")
+    _emit("4e_batch_64_utterances", card=smi, **b64, pvoc_fused_batch_2x_group=fb_main)
+    del xs64, xb, a, b
+
+    # chunked_time_stretch(force=True) on the card at 3600 s, beside the
+    # single route ("fast" at 0.5x, as the chunked program never reroutes).
+    ch = {}
+    for s, expect in ((2.0, {"pvoc_fused_segment": 4}), (0.5, {"pvoc_terms": 4, "phasor_istft_ola": 4})):
+        rec = {}
+        run = lambda: chunked.chunked_time_stretch(x_long, s, cfg, force=True)  # noqa: E731
+        single = lambda: pv.time_stretch(x_long, s, cfg, branch_policy="fast")  # noqa: E731
+        rec["launches"] = _counted(counters, lambda: rec.update(ms=_time_calls(run, reps=3)), expect,
+                                   f"chunked {s}x on 3600 s")
+        rec["audio_s_per_s"] = [3600.0 / (ms / 1e3) for ms in rec["ms"]]
+        rec["single_ms"] = _time_calls(single, reps=3)
+        rec["peak_gb"] = _peak_gb(run)
+        rec["single_peak_gb"] = _peak_gb(single)
+        y, ys = run(), single()
+        rec["rel_vs_single"] = _rel(y, ys)
+        rec["bitwise_vs_single"] = bool(torch.equal(y, ys))
+        if s == 2.0:
+            _check(rec["rel_vs_single"] <= 5e-5, f"chunked 2.0x vs time_stretch at 3600 s: {rec}")
+        ch[f"{s}x_3600s"] = rec
+    del y, ys
+    # 0.5x is gated on stationary tones; the chirp number above is recorded.
+    t = torch.arange(int(3600.0 * SR), dtype=torch.float64, device=dev) / SR
+    x_tones = (0.5 * torch.sin(2 * np.pi * 440.0 * t) + 0.3 * torch.sin(2 * np.pi * 1234.5 * t)
+               + 0.2 * torch.sin(2 * np.pi * 3111.0 * t))  # _tones, made on the card
+    x_tones = (x_tones / x_tones.abs().max()).float()
+    del t
+    ch["0.5x_3600s"]["tones_rel_vs_single"] = _rel(
+        chunked.chunked_time_stretch(x_tones, 0.5, cfg, force=True),
+        pv.time_stretch(x_tones, 0.5, cfg, branch_policy="fast"))
+    _check(ch["0.5x_3600s"]["tones_rel_vs_single"] <= 5e-5,
+           f"chunked 0.5x vs time_stretch on 3600 s of tones: {ch['0.5x_3600s']}")
+    del x_tones
+    # phasor_istft_ola at this shape: 224,997 frames of 0.5x phasors, the
+    # valid-frame mask of one rank (all ones).
+    mag_c, pre_c, pim_c, nf_c = stft_phasor_terms(x_long, N_FFT, HOP, 128)
+    ones_c = torch.ones(nf_c, device=dev)
+    a = phasor_istft_ola(mag_c, pre_c, pim_c, N_FFT, 128, nf_c, ones_c)
+    b = phasor_istft_ola_reference(mag_c, pre_c, pim_c, N_FFT, 128, nf_c, ones_c)
+    y_c = torch.complex(mag_c * pre_c, mag_c * pim_c).T.contiguous()  # torch.istft's layout
+    win = torch.hann_window(N_FFT, device=dev)
+    synth_main = {"frames": nf_c, "rel": _rel(a, b), "max_abs": _max_abs(a, b),
+                  "ms": _time_ms(lambda: phasor_istft_ola(mag_c, pre_c, pim_c, N_FFT, 128, nf_c, ones_c), reps=5),
+                  "plain_ms": _time_ms(lambda: phasor_istft_ola_reference(mag_c, pre_c, pim_c, N_FFT, 128,
+                                                                          nf_c, ones_c), reps=2),
+                  "library_ms": _time_ms(lambda: torch.istft(y_c, N_FFT, 128, window=win, center=True), reps=5),
+                  **_bound(4 * (3 * nf_c * (N_FFT // 2 + 1) + nf_c + a.numel()), nf_c * _FFT_FLOP)}
+    _check(synth_main["rel"] < 1e-5, f"phasor_istft_ola vs plain at 0.5x / 3600 s: {synth_main}")
+    del mag_c, pre_c, pim_c, y_c, a, b
+    _emit("4e_chunked_3600s", card=smi, **ch, phasor_istft_ola_0_5x_3600s=synth_main)
+
+    # batched_chunked_time_stretch on a (1, 1) mesh, 8 x 600 s: one
+    # pvoc_terms_batch and one phasor_istft_ola_batch launch per call.
+    # Eight 10-minute pieces of the hour-long signal, starting 428 s apart.
+    xs8 = torch.stack([x_long[i * 428 * SR : (i * 428 + 600) * SR] for i in range(8)])
+    bc = {}
+    for s in (2.0, 0.5):
+        rec = {}
+        run = lambda: chunked.batched_chunked_time_stretch(xs8, s, cfg, mesh=m11)  # noqa: E731
+        rec["launches"] = _counted(counters, lambda: rec.update(ms=_time_calls(run, reps=3)),
+                                   {"pvoc_terms_batch": 4, "phasor_istft_ola_batch": 4},
+                                   f"batched chunked {s}x, 8 x 600 s")
+        rec["audio_s_per_s"] = [4800.0 / (ms / 1e3) for ms in rec["ms"]]
+        rec["peak_gb"] = _peak_gb(run)
+        ys = run()
+        rec["rel_vs_single_max"] = max(
+            _rel(ys[i], pv.time_stretch(xs8[i], s, cfg, branch_policy="fast")) for i in range(8))
+        if s == 2.0:
+            _check(rec["rel_vs_single_max"] <= 5e-5, f"batched chunked 2.0x vs time_stretch: {rec}")
+        bc[f"{s}x"] = rec
+    del ys
+    # Their kernels against the plain versions at this shape.
+    kt = stft_phasor_terms_batch(xs8, N_FFT, HOP, 128, scan=False, return_u=True)
+    pt = stft_phasor_terms_batch_reference(xs8, N_FFT, HOP, 128, scan=False, return_u=True)
+    nf8 = kt[-1]
+    tb_main = {"frames": 8 * nf8, **_terms_errors(kt, pt),
+               "ms": _time_ms(lambda: stft_phasor_terms_batch(xs8, N_FFT, HOP, 128, scan=False, return_u=True), reps=5),
+               "plain_ms": _time_ms(lambda: stft_phasor_terms_batch_reference(
+                   xs8, N_FFT, HOP, 128, scan=False, return_u=True), reps=1),
+               **_bound(4 * (xs8.numel() + 5 * 8 * nf8 * (N_FFT // 2 + 1)), 8 * nf8 * _FFT_FLOP)}
+    _check(tb_main["mag_rel"] < 1e-5 and max(tb_main["u_weighted"], tb_main["t_weighted"]) < 1e-4
+           and tb_main["flip_share"] < 1e-5, f"pvoc_terms_batch vs plain at 8 x 600 s: {tb_main}")
+    del kt, pt
+    kb = stft_phasor_terms_batch(xs8, N_FFT, HOP, 128)
+    ones8 = torch.ones((8, nf8), device=dev)
+    a = phasor_istft_ola_batch(*kb[:3], N_FFT, 128, nf8, ones8)
+    b = phasor_istft_ola_batch_reference(*kb[:3], N_FFT, 128, nf8, ones8)
+    y8 = torch.complex(kb[0] * kb[1], kb[0] * kb[2]).transpose(1, 2).contiguous()
+    sb_main = {"frames": 8 * nf8, "rel": max(_rel(a[i], b[i]) for i in range(8)),
+               "max_abs": max(_max_abs(a[i], b[i]) for i in range(8)),
+               "ms": _time_ms(lambda: phasor_istft_ola_batch(*kb[:3], N_FFT, 128, nf8, ones8), reps=5),
+               "plain_ms": _time_ms(lambda: phasor_istft_ola_batch_reference(*kb[:3], N_FFT, 128, nf8, ones8), reps=1),
+               "library_ms": _time_ms(lambda: torch.istft(y8, N_FFT, 128, window=win, center=True), reps=5),
+               **_bound(4 * (3 * 8 * nf8 * (N_FFT // 2 + 1) + 8 * nf8 + a.numel()), 8 * nf8 * _FFT_FLOP)}
+    _check(sb_main["rel"] < 1e-5, f"phasor_istft_ola_batch vs plain at 8 x 600 s: {sb_main}")
+    del kb, y8, a, b, xs8
+    _emit("4e_batched_chunked_8x600s", card=smi, **bc, pvoc_terms_batch_8x600s=tb_main,
+          phasor_istft_ola_batch_8x600s=sb_main)
+
+    # Two ranks on the one card: two processes of this script, a gloo group
+    # (NCCL refuses two ranks on one card), 60 s, against the single route.
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _run_ranks(2, timeout=300)
+    two = {"wall_s": time.perf_counter() - t0, "devices": [str(r["device"]) for r in ranks]}
+    for s in (2.0, 0.5):
+        single = pv.time_stretch(x60, s, cfg)
+        two[f"{s}x_rel_vs_single"] = _rel(torch.as_tensor(ranks[0][f"y{s}"]), single)
+        two[f"{s}x_ranks_equal"] = bool(np.array_equal(ranks[0][f"y{s}"], ranks[1][f"y{s}"]))
+        two[f"{s}x_launches_per_rank"] = [r[f"launches{s}"].tolist() for r in ranks]
+        _check(two[f"{s}x_rel_vs_single"] <= 5e-5 and two[f"{s}x_ranks_equal"],
+               f"two ranks on one card at {s}x: {two}")
+    # Per rank: one pvoc_fused_segment at 2.0x; one pvoc_terms and one
+    # phasor_istft_ola at 0.5x.
+    _check(all(r["launches2.0"].tolist() == [1, 0, 0] and r["launches0.5"].tolist() == [0, 1, 1]
+               for r in ranks), f"two-rank launches: {two}")
+    _emit("4e_two_ranks_one_card", card=smi, seconds=60, **two)
 
     # ---- 5. determinism
     a = pv.time_stretch(x60, 2.0, cfg)
@@ -876,75 +1293,52 @@ def main() -> int:
     a = pv.time_stretch(x60, 3.0, cfg)
     b = pv.time_stretch(x60, 3.0, cfg)
     _check(bool(torch.equal(a, b)), "two general-hop 3.0x runs differ")
+    xs_d = [x60, x60[: 30 * SR], x60[: 45 * SR]]
+    a = pv.batch_time_stretch_varied(xs_d, [0.5, 1.5, 2.0], cfg)
+    b = pv.batch_time_stretch_varied(xs_d, [0.5, 1.5, 2.0], cfg)
+    _check(all(bool(torch.equal(u, v)) for u, v in zip(a, b)), "two batch runs differ")
+    a = chunked.chunked_time_stretch(x60, 0.5, cfg, force=True)
+    b = chunked.chunked_time_stretch(x60, 0.5, cfg, force=True)
+    _check(bool(torch.equal(a, b)), "two chunked 0.5x runs differ")
     _emit("5_determinism", bitwise_equal={"fused_2.0x": True, "faithful_0.5x": True,
-                                          "general_3.0x": True})
+                                          "general_3.0x": True, "batch_varied": True,
+                                          "chunked_0.5x": True})
 
+    def _row(name, source, replaces, launches, rec, max_abs, library_ms=None):
+        return {"name": name, "route": "cuda", "source": f"phase_vocoder_tpu_torch/csrc/{source}",
+                "replaces": f"phase_vocoder_tpu/{replaces}", "launches": launches,
+                "max_abs_err": max_abs, "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                "library_ms": rec.get("library_ms", library_ms)}
+
+    # library_ms is null where no single PyTorch call computes the function
+    # (a whole phase vocoder; the phasor terms).
+    fused_2x = shapes["stretch_2x_3600s"]
     kernels = [
-        {
-            "name": "pvoc_fused", "route": "cuda",
-            "source": "phase_vocoder_tpu_torch/csrc/pvoc_fused.cu",
-            "replaces": "phase_vocoder_tpu/ops/pallas/fused.py:1526",
-            "launches": launches["stretch_2x_3600s"]["pvoc_fused"],
-            "max_abs_err": shapes["stretch_2x_3600s"]["max_abs"],
-            "ms": shapes["stretch_2x_3600s"]["ms"],
-            "plain_ms": shapes["stretch_2x_3600s"]["plain_ms"],
-        },
-        {
-            "name": "resample_lerp", "route": "cuda",
-            "source": "phase_vocoder_tpu_torch/csrc/resample.cu",
-            "replaces": "phase_vocoder_tpu/ops/resample.py:372",
-            "launches": launches["pitch_m7_300s"]["resample_lerp"],
-            "max_abs_err": res_abs, "ms": res_ms, "plain_ms": res_plain_ms,
-        },
-        {
-            "name": "stft_polar", "route": "cuda",
-            "source": "phase_vocoder_tpu_torch/csrc/stft.cu",
-            "replaces": "phase_vocoder_tpu/ops/pallas/stft.py:117",
-            "launches": ff_launches["stretch_0.5x_660s"]["stft_polar"],
-            "max_abs_err": stft_main["mag_max_abs"],
-            "ms": stft_main["ms"], "plain_ms": stft_main["plain_ms"],
-        },
-        {
-            "name": "istft_ola", "route": "cuda",
-            "source": "phase_vocoder_tpu_torch/csrc/stft.cu",
-            "replaces": "phase_vocoder_tpu/ops/pallas/stft.py:207",
-            "launches": ff_launches["stretch_0.5x_660s"]["istft_ola"],
-            "max_abs_err": istft_main["segment_1024"]["max_abs"],
-            "ms": istft_main["segment_1024"]["ms"],
-            "plain_ms": istft_main["segment_1024"]["plain_ms"],
-        },
-        {
-            "name": "pvoc_fused_segment", "route": "cuda",
-            "source": "phase_vocoder_tpu_torch/csrc/pvoc_fused.cu",
-            "replaces": "phase_vocoder_tpu/ops/pallas/fused.py:1886",
-            "launches": fs["launches"]["pvoc_fused_segment"],
-            "max_abs_err": seg_main["max_abs"],
-            "ms": seg_main["ms"], "plain_ms": seg_main["plain_ms"],
-        },
-        {
-            "name": "pvoc_terms", "route": "cuda",
-            "source": "phase_vocoder_tpu_torch/csrc/pvoc_fused.cu",
-            "replaces": "phase_vocoder_tpu/ops/pallas/fused.py:713",
-            "launches": gen_launches["stretch_3x_3600s"]["pvoc_terms"],
-            "max_abs_err": terms_main["y_max_abs"],
-            "ms": terms_main["ms"], "plain_ms": terms_main["plain_ms"],
-        },
-        {
-            "name": "istft_frames", "route": "cuda",
-            "source": "phase_vocoder_tpu_torch/csrc/stft.cu",
-            "replaces": "phase_vocoder_tpu/ops/pallas/stft.py:264",
-            "launches": gen_launches["polar_stages_rs171_300s"]["istft_frames"],
-            "max_abs_err": polar_main["max_abs"],
-            "ms": polar_main["ms"], "plain_ms": polar_main["plain_ms"],
-        },
-        {
-            "name": "istft_frames_cart", "route": "cuda",
-            "source": "phase_vocoder_tpu_torch/csrc/stft.cu",
-            "replaces": "phase_vocoder_tpu/ops/pallas/stft.py:280",
-            "launches": gen_launches["stretch_3x_3600s"]["istft_frames_cart"],
-            "max_abs_err": cart_main["max_abs"],
-            "ms": cart_main["ms"], "plain_ms": cart_main["plain_ms"],
-        },
+        _row("pvoc_fused", "pvoc_fused.cu", "ops/pallas/fused.py:1526",
+             launches["stretch_2x_3600s"]["pvoc_fused"], fused_2x, fused_2x["max_abs"]),
+        _row("resample_lerp", "resample.cu", "ops/resample.py:372", launches["pitch_m7_300s"]["resample_lerp"],
+             {"ms": res_ms, "plain_ms": res_plain_ms, "library_ms": res_lib_ms, **res_bound}, res_abs),
+        _row("stft_polar", "stft.cu", "ops/pallas/stft.py:117", ff_launches["stretch_0.5x_660s"]["stft_polar"],
+             stft_main, stft_main["mag_max_abs"]),
+        _row("istft_ola", "stft.cu", "ops/pallas/stft.py:207", ff_launches["stretch_0.5x_660s"]["istft_ola"],
+             istft_main["segment_1024"], istft_main["segment_1024"]["max_abs"]),
+        _row("pvoc_fused_segment", "pvoc_fused.cu", "ops/pallas/fused.py:1886",
+             fs["launches"]["pvoc_fused_segment"], seg_main, seg_main["max_abs"]),
+        _row("pvoc_terms", "pvoc_fused.cu", "ops/pallas/fused.py:713",
+             gen_launches["stretch_3x_3600s"]["pvoc_terms"], terms_main, terms_main["y_max_abs"]),
+        _row("istft_frames", "stft.cu", "ops/pallas/stft.py:264",
+             gen_launches["polar_stages_rs171_300s"]["istft_frames"], polar_main, polar_main["max_abs"]),
+        _row("istft_frames_cart", "stft.cu", "ops/pallas/stft.py:280",
+             gen_launches["stretch_3x_3600s"]["istft_frames_cart"], cart_main, cart_main["max_abs"]),
+        _row("pvoc_fused_batch", "pvoc_fused.cu", "ops/pallas/fused.py:1610",
+             b64["launches"]["pvoc_fused_batch"], fb_main, fb_main["max_abs"]),
+        _row("pvoc_terms_batch", "pvoc_fused.cu", "ops/pallas/fused.py:733",
+             bc["0.5x"]["launches"]["pvoc_terms_batch"], tb_main, tb_main["y_max_abs"]),
+        _row("phasor_istft_ola", "pvoc_fused.cu", "ops/pallas/fused.py:990",
+             ch["0.5x_3600s"]["launches"]["phasor_istft_ola"], synth_main, synth_main["max_abs"]),
+        _row("phasor_istft_ola_batch", "pvoc_fused.cu", "ops/pallas/fused.py:1021",
+             bc["0.5x"]["launches"]["phasor_istft_ola_batch"], sb_main, sb_main["max_abs"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -956,4 +1350,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(_rank_worker(sys.argv[2:]))
     sys.exit(main())

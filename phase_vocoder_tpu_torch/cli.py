@@ -6,12 +6,16 @@ Usage:
   pvoc-torch stretch in.wav out.wav --ratio 2.0 --checkpoint-dir ck/ \
       [--batch-segments 8] [--trace-dir trace/]
   pvoc-torch pitch   in.wav out.wav --semitones -5 [--branch-policy faithful]
+  pvoc-torch batch   a.wav b.wav c.wav --ratio 2.0 --out-dir stretched/
+  pvoc-torch chunked in.wav out.wav --ratio 2.0 \
+      --coordinator HOST:PORT --num-processes 2 --process-id 0   # one per device
   (add --device cpu to run the plain torch versions on the host)
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -117,6 +121,62 @@ def _run_pitch(args) -> int:
     return 0
 
 
+def _run_batch(args) -> int:
+    from .parallel.batch import batch_time_stretch_ragged
+
+    loaded = [read_wav(p) for p in args.inputs]
+    srs = {sr for _, sr in loaded}
+    if len(srs) != 1:
+        print(f"error: mixed sample rates {sorted(srs)}", file=sys.stderr)
+        return 2
+    sr = srs.pop()
+    xs = [x for x, _ in loaded]
+    t0 = time.perf_counter()
+    ys = [y.cpu().numpy() for y in batch_time_stretch_ragged(xs, args.ratio, _cfg(args),
+                                                           device=args.device)]
+    dt = time.perf_counter() - t0
+    os.makedirs(args.out_dir, exist_ok=True)
+    for path, y in zip(args.inputs, ys):
+        write_wav(os.path.join(args.out_dir, os.path.basename(path)), y, sr, pcm16=not args.float32)
+    emit_metric("batch_audio_seconds_per_second",
+                audio_seconds_per_second(sum(len(x) for x in xs), sr, dt), "audio-s/s",
+                utterances=len(xs), device=args.device)
+    return 0
+
+
+def _run_chunked(args) -> int:
+    import torch.distributed as dist
+
+    from .parallel import distributed
+    from .parallel.chunked import chunked_time_stretch
+    from .parallel.mesh import make_mesh
+
+    multihost = args.coordinator is not None or args.num_processes is not None
+    if multihost:
+        # One process per device, on one host or many: the chunked bodies'
+        # collectives run over the process group (parallel/mesh.py).
+        distributed.initialize(
+            coordinator_address=args.coordinator, num_processes=args.num_processes,
+            process_id=args.process_id, backend="gloo" if args.device == "cpu" else "nccl",
+        )
+    try:
+        mesh = make_mesh(args.devices)
+        x, sr = read_wav(args.input)
+        t0 = time.perf_counter()
+        y = chunked_time_stretch(x, args.ratio, _cfg(args), mesh=mesh, device=args.device)
+        y = y.cpu().numpy()
+        dt = time.perf_counter() - t0
+        if not multihost or dist.get_rank() == 0:
+            write_wav(args.output, y, sr, pcm16=not args.float32)
+            emit_metric("chunked_audio_seconds_per_second",
+                        audio_seconds_per_second(len(x), sr, dt), "audio-s/s",
+                        devices=mesh.size(), device=args.device)
+    finally:
+        if multihost:
+            dist.destroy_process_group()
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="pvoc-torch", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -154,6 +214,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--semitones", type=float, required=True)
     _add_dsp_args(p)
     p.set_defaults(fn=_run_pitch)
+
+    p = sub.add_parser("batch", help="data-parallel TSM of many WAVs (one padded batch)")
+    p.add_argument("inputs", nargs="+")
+    p.add_argument("--ratio", type=float, required=True)
+    p.add_argument("--out-dir", default="stretched")
+    _add_dsp_args(p)
+    p.set_defaults(fn=_run_batch)
+
+    p = sub.add_parser("chunked", help="sequence-parallel TSM of one long WAV")
+    p.add_argument("input")
+    p.add_argument("output")
+    p.add_argument("--ratio", type=float, required=True)
+    p.add_argument("--devices", type=int, default=None,
+                   help="mesh size: the number of processes (default: all of them)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-process: rank 0's address for torch.distributed "
+                        "(run one pvoc-torch process per device, each with the "
+                        "same three flags and its own --process-id)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="multi-process: total number of processes")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="multi-process: this process's rank (rank 0 writes the output)")
+    _add_dsp_args(p)
+    p.set_defaults(fn=_run_chunked)
     return ap
 
 

@@ -1,5 +1,6 @@
 // pvoc_fused — the phase-vocoder time-scale modification on an H100: the
-// whole recording, one segment of a stream, or the phasor terms alone.
+// whole recording, a batch of recordings, one segment of a stream, the
+// phasor terms alone, or the synthesis from given phasors.
 //
 // Replaces: these kernels of phase_vocoder_tpu/ops/pallas/fused.py,
 //   * _pvoc_kernel (the single-recording Pallas kernel) and its tile body
@@ -7,15 +8,26 @@
 //     Raw samples in, normalized stretched waveform of length
 //     (nf-1)*Rs + N out, for Ra | N and any 0 < Rs <= N/2; N a power of
 //     two up to 4096;
+//   * _pvoc_kernel_batched, as wrapped by fused_time_stretch_batch ->
+//     pvoc_fused_batch below: the same TSM over the rows of a (B, T)
+//     batch, each row with its own frame count (ragged), its own anchor,
+//     scan and head/tail normalization;
 //   * _pvoc_kernel_stream, as wrapped by fused_stream_segment ->
 //     pvoc_fused_segment below: the same TSM on one F-frame segment, with
 //     the cross-segment state (anchor/previous unit phasor, running phasor
 //     P, the OLA tail, the started flag and the global frame offset)
 //     flowing in and out;
-//   * _terms_kernel, as wrapped by stft_phasor_terms -> pvoc_terms below:
+//   * _terms_kernel and _terms_kernel_batched, as wrapped by
+//     stft_phasor_terms and stft_phasor_terms_batch -> pvoc_terms below:
 //     framing, the windowed FFT, |X|, the unit phasors and the step terms
 //     of every bin (DC and Nyquist included), optionally with the
-//     renormalized prefix product. No synthesis.
+//     renormalized prefix product, for one recording or every row of a
+//     batch. No synthesis;
+//   * _synth_kernel and _synth_kernel_batched, as wrapped by
+//     phasor_istft_ola and phasor_istft_ola_batch -> pvoc_phasor_synth
+//     below: Y = mask |X| P from given magnitudes and phasors, the
+//     windowed inverse FFT and the fold overlap-add, normalized or (with a
+//     frame mask) not.
 //
 // What bounds it here: device memory traffic. The TPU kernel spends its
 // time in DFT matrix products on the MXU; here each frame's DFT is a
@@ -45,6 +57,12 @@
 //   (d) overlap-add in gather form: a thread per output sample sums the
 //       <= m frames covering it in increasing frame order and multiplies
 //       by the inverse window energy of its row (head, interior or tail).
+// A batch is the same launches with the batch row as gridDim.y: every
+// buffer holds B rows of nf frames, a row's passes touch only its own
+// frames (the first n_b of them, n_b read from a device array of frame
+// counts), so each row computes exactly what the single-recording launch
+// computes for its own signal. The TPU grid's batch axis reset its VMEM
+// carry at each row's first tile; here there is no carry to reset.
 // A stream segment is the same launches with the state as arguments: the
 // first frame's previous phasor (q >= 2) or anchor (integer k) is read
 // from the carry once the recording has started; the carry scan starts
@@ -71,7 +89,7 @@ constexpr float kTiny = 1e-30f;
 constexpr int kThreads = 256;
 
 struct Geo {
-  int64_t nf;        // frames this launch processes
+  int64_t nf;        // frames per batch row of this launch's buffers
   int64_t goff;      // global index of its frame 0
   int64_t nf_total;  // frames of the recording (normalization rows)
   int started;       // 0 only before the recording's first frame
@@ -84,10 +102,19 @@ struct Geo {
   int alg;    // 1: principal roots + integer power; 0: angle domain
   float kf;   // float32(p/q) for the angle domain
   int chunk;  // frames per scan chunk (q >= 2)
+  int batch;          // batch rows, gridDim.y of every pass
+  int64_t x_stride;   // samples between two rows of x
+  const int* nfs;     // frames of each row (device), or null: all have nf
 };
 
-// Where the prefix product's bins live: bin b of frame i has its real part
-// at i*stride + b and its imaginary part im_off further; bins b0..b0+n-1.
+// Frames of batch row b: its own count in a ragged batch, else nf.
+__device__ __forceinline__ int64_t row_frames(const Geo& g, int b) {
+  return g.nfs != nullptr ? (int64_t)g.nfs[b] : g.nf;
+}
+
+// Where the prefix product's bins live: bin b of frame i of batch row r
+// has its real part at (r*nf + i)*stride + b and its imaginary part im_off
+// further; bins b0..b0+n-1.
 struct Lanes {
   int64_t stride;
   int64_t im_off;
@@ -103,8 +130,10 @@ fft_analysis(const float* __restrict__ x, const float* __restrict__ win,
   extern __shared__ float sm[];
   float* sr = sm;
   float* si = sm + g.n_fft;
+  const int bat = blockIdx.y;
   const int64_t i = blockIdx.x;
-  const float* xf = x + i * g.ra;
+  if (i >= row_frames(g, bat)) return;
+  const float* xf = x + bat * g.x_stride + i * g.ra;
   for (int t = threadIdx.x; t < g.n_fft; t += blockDim.x) {
     const int r = bitrev(t, g.log2n);
     sr[r] = xf[t] * win[t];
@@ -112,7 +141,7 @@ fft_analysis(const float* __restrict__ x, const float* __restrict__ win,
   }
   __syncthreads();
   fft_shared(sr, si, g.n_fft, twc, tws, -1.f);
-  float* row = spec + i * 2 * g.nb;
+  float* row = spec + (bat * g.nf + i) * 2 * g.nb;
   for (int k = threadIdx.x; k < g.nb; k += blockDim.x) {
     row[k] = sr[k];
     row[g.nb + k] = si[k];
@@ -128,8 +157,11 @@ fft_synthesis(const float* __restrict__ y, const float* __restrict__ win,
   extern __shared__ float sm[];
   float* sr = sm;
   float* si = sm + g.n_fft;
+  const int bat = blockIdx.y;
   const int64_t i = blockIdx.x;
-  const float* row = y + i * 2 * g.nb;
+  if (i >= row_frames(g, bat)) return;
+  const int64_t fr = bat * g.nf + i;
+  const float* row = y + fr * 2 * g.nb;
   for (int k = threadIdx.x; k < g.n_fft; k += blockDim.x) {
     const int r = bitrev(k, g.log2n);
     if (k <= g.nh) {
@@ -143,7 +175,7 @@ fft_synthesis(const float* __restrict__ y, const float* __restrict__ win,
   __syncthreads();
   fft_shared(sr, si, g.n_fft, twc, tws, 1.f);
   const float scale = 1.f / g.n_fft;
-  float* out = frames + i * g.n_fft;
+  float* out = frames + fr * g.n_fft;
   for (int t = threadIdx.x; t < g.n_fft; t += blockDim.x) {
     out[t] = sr[t] * scale * win[t];
   }
@@ -243,12 +275,19 @@ __device__ __forceinline__ void step_term(float ur, float ui, float pr,
   ti = wr * ci + wi * cr;
 }
 
-// P = normalize(carry of i's chunk * L), L the in-chunk product.
+// Chunks of the prefix product per batch row in the scan buffers.
+__device__ __forceinline__ int64_t row_chunks(const Geo& g) {
+  return (g.nf + g.chunk - 1) / g.chunk;
+}
+
+// P = normalize(carry of frame i's chunk * L), L the in-chunk product;
+// frame i of batch row bat.
 __device__ __forceinline__ void carry_apply(const float* __restrict__ carry,
-                                            int64_t i, int k, const Geo& g,
-                                            const Lanes& L, float lr,
-                                            float li, float& pr, float& pi) {
-  const int64_t c = ((i / g.chunk) * L.n + k) * 2;
+                                            int bat, int64_t i, int k,
+                                            const Geo& g, const Lanes& L,
+                                            float lr, float li, float& pr,
+                                            float& pi) {
+  const int64_t c = ((bat * row_chunks(g) + i / g.chunk) * L.n + k) * 2;
   const float cr = carry[c], ci = carry[c + 1];
   pr = cr * lr - ci * li;
   pi = cr * li + ci * lr;
@@ -257,12 +296,13 @@ __device__ __forceinline__ void carry_apply(const float* __restrict__ carry,
 
 // Y for the forced-real bins, which bypass the phasor machinery: DC passes
 // through, Nyquist passes through times (-1)^(Rs*i) with i the global
-// frame index. Returns false for a general bin.
+// frame index. fr is the frame's row in the buffers. Returns false for a
+// general bin.
 __device__ __forceinline__ bool write_real_bin(const float* spec, float* y,
-                                               int64_t i, int b,
+                                               int64_t fr, int64_t i, int b,
                                                const Geo& g) {
   if (b != 0 && b != g.nh) return false;
-  const int64_t row = i * 2 * g.nb;
+  const int64_t row = fr * 2 * g.nb;
   const float sign =
       (b == g.nh && (g.rs & 1) && ((g.goff + i) & 1)) ? -1.f : 1.f;
   y[row + b] = spec[row + b] * sign;
@@ -271,24 +311,28 @@ __device__ __forceinline__ bool write_real_bin(const float* spec, float* y,
 }
 
 // (b), integer k: Y_i = |X_i| u_0 (u_i conj u_0)^k. The anchor u_0 comes
-// from frame 0's spectrum until the recording has started, then from rows
+// from the row's frame 0 until the recording has started, then from rows
 // 0-1 of the carry (ng = nh-1 general bins per row).
 __global__ void phase_closed(const float* __restrict__ spec,
                              const float* __restrict__ carry_in,
                              float* __restrict__ y, Geo g) {
+  const int bat = blockIdx.y;
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= g.nf * g.nb) return;
   const int64_t i = idx / g.nb;
+  if (i >= row_frames(g, bat)) return;
   const int b = (int)(idx % g.nb);
-  if (write_real_bin(spec, y, i, b, g)) return;
-  const int64_t row = i * 2 * g.nb;
+  const int64_t f0 = bat * g.nf;  // the row's frame 0 in the buffers
+  if (write_real_bin(spec, y, f0 + i, i, b, g)) return;
+  const int64_t row = (f0 + i) * 2 * g.nb;
   float mag, ur, ui, m0, u0r, u0i;
   unit_phasor(spec[row + b], spec[row + g.nb + b], mag, ur, ui);
   if (g.started) {
     u0r = carry_in[b - 1];
     u0i = carry_in[g.nh - 1 + b - 1];
   } else {
-    unit_phasor(spec[b], spec[g.nb + b], m0, u0r, u0i);
+    const int64_t row0 = f0 * 2 * g.nb;
+    unit_phasor(spec[row0 + b], spec[row0 + g.nb + b], m0, u0r, u0i);
   }
   const float zr = ur * u0r + ui * u0i;
   const float zi = ui * u0r - ur * u0i;
@@ -306,11 +350,13 @@ __global__ void phase_terms(const float* __restrict__ spec,
                             const float* __restrict__ carry_in,
                             float* __restrict__ y, Geo g) {
   const int ng = g.nh - 1;
+  const int bat = blockIdx.y;
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= g.nf * ng) return;
   const int64_t i = idx / ng;
+  if (i >= row_frames(g, bat)) return;
   const int b = 1 + (int)(idx % ng);
-  const int64_t row = i * 2 * g.nb;
+  const int64_t row = (bat * g.nf + i) * 2 * g.nb;
   float mag, ur, ui;
   unit_phasor(spec[row + b], spec[row + g.nb + b], mag, ur, ui);
   float tr = ur, ti = ui;
@@ -332,17 +378,18 @@ __global__ void phase_terms(const float* __restrict__ spec,
 // pvoc_terms pass 1, every bin of every frame: |X|, the unit phasors, and
 // the step terms; the forced-real bins take u conj(u_prev) times
 // spin = (-1)^Rs at Nyquist, the first frame takes u_0. mag and u are
-// (nf, nb); t holds the terms as (2, nf, nb) = [re | im].
+// (B, nf, nb); t holds the terms as (2, B, nf, nb) = [re | im].
 __global__ void terms_all(const float* __restrict__ spec,
                           const float* __restrict__ consts,
                           float* __restrict__ mag, float* __restrict__ t,
                           float* __restrict__ u, Geo g) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t plane = g.nf * g.nb;
-  if (idx >= plane) return;
+  if (idx >= g.nf * g.nb) return;
+  const int64_t plane = g.batch * g.nf * g.nb;
+  const int64_t e = blockIdx.y * g.nf * g.nb + idx;  // element of (B, nf, nb)
   const int64_t i = idx / g.nb;
   const int b = (int)(idx % g.nb);
-  const int64_t row = i * 2 * g.nb;
+  const int64_t row = (e / g.nb) * 2 * g.nb;
   float m, ur, ui;
   unit_phasor(spec[row + b], spec[row + g.nb + b], m, ur, ui);
   float tr = ur, ti = ui;
@@ -358,12 +405,12 @@ __global__ void terms_all(const float* __restrict__ spec,
       step_term(ur, ui, pr, pi, b, consts, g, tr, ti);
     }
   }
-  mag[idx] = m;
-  t[idx] = tr;
-  t[plane + idx] = ti;
+  mag[e] = m;
+  t[e] = tr;
+  t[plane + e] = ti;
   if (u != nullptr) {
-    u[idx] = ur;
-    u[plane + idx] = ui;
+    u[e] = ur;
+    u[plane + e] = ui;
   }
 }
 
@@ -371,17 +418,21 @@ __global__ void terms_all(const float* __restrict__ spec,
 // place), and the chunk's total.
 __global__ void scan_chunks(float* __restrict__ y, float* __restrict__ tot,
                             Geo g, Lanes L) {
-  const int64_t nch = (g.nf + g.chunk - 1) / g.chunk;
+  const int bat = blockIdx.y;
+  const int64_t nch = row_chunks(g);
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= nch * L.n) return;
   const int64_t c = idx / L.n;
   const int k = (int)(idx % L.n);
   const int b = L.b0 + k;
+  const int64_t n_row = row_frames(g, bat);
   const int64_t i0 = c * g.chunk;
-  const int64_t i1 = i0 + g.chunk < g.nf ? i0 + g.chunk : g.nf;
+  if (i0 >= n_row) return;
+  const int64_t i1 = i0 + g.chunk < n_row ? i0 + g.chunk : n_row;
+  const int64_t base = bat * g.nf * L.stride + b;
   float lr = 0.f, li = 0.f;
   for (int64_t i = i0; i < i1; ++i) {
-    const int64_t re = i * L.stride + b;
+    const int64_t re = base + i * L.stride;
     const float tr = y[re], ti = y[re + L.im_off];
     if (i == i0) {
       lr = tr;
@@ -394,8 +445,9 @@ __global__ void scan_chunks(float* __restrict__ y, float* __restrict__ tot,
     y[re] = lr;
     y[re + L.im_off] = li;
   }
-  tot[(c * L.n + k) * 2] = lr;
-  tot[(c * L.n + k) * 2 + 1] = li;
+  const int64_t j = ((bat * nch + c) * L.n + k) * 2;
+  tot[j] = lr;
+  tot[j + 1] = li;
 }
 
 // Scan pass 3: per bin, the exclusive product of the chunk totals,
@@ -406,16 +458,18 @@ __global__ void scan_carry(const float* __restrict__ tot,
                            float* __restrict__ carry,
                            const float* __restrict__ carry_in,
                            float* __restrict__ carry_out, Geo g, Lanes L) {
+  const int bat = blockIdx.y;
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= L.n) return;
-  const int64_t nch = (g.nf + g.chunk - 1) / g.chunk;
+  const int64_t nch = (row_frames(g, bat) + g.chunk - 1) / g.chunk;
+  const int64_t c0 = bat * row_chunks(g);
   float cr = 1.f, ci = 0.f;
   if (carry_in != nullptr) {
     cr = carry_in[2 * L.n + k];
     ci = carry_in[3 * L.n + k];
   }
   for (int64_t c = 0; c < nch; ++c) {
-    const int64_t j = (c * L.n + k) * 2;
+    const int64_t j = ((c0 + c) * L.n + k) * 2;
     carry[j] = cr;
     carry[j + 1] = ci;
     const float tr = tot[j], ti = tot[j + 1];
@@ -435,14 +489,18 @@ __global__ void scan_carry(const float* __restrict__ tot,
 __global__ void phase_apply(const float* __restrict__ spec,
                             const float* __restrict__ carry,
                             float* __restrict__ y, Geo g, Lanes L) {
+  const int bat = blockIdx.y;
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= g.nf * g.nb) return;
   const int64_t i = idx / g.nb;
+  if (i >= row_frames(g, bat)) return;
   const int b = (int)(idx % g.nb);
-  if (write_real_bin(spec, y, i, b, g)) return;
-  const int64_t row = i * 2 * g.nb;
+  const int64_t fr = bat * g.nf + i;
+  if (write_real_bin(spec, y, fr, i, b, g)) return;
+  const int64_t row = fr * 2 * g.nb;
   float pr, pi;
-  carry_apply(carry, i, b - 1, g, L, y[row + b], y[row + g.nb + b], pr, pi);
+  carry_apply(carry, bat, i, b - 1, g, L, y[row + b], y[row + g.nb + b], pr,
+              pi);
   float mag, ur, ui;
   unit_phasor(spec[row + b], spec[row + g.nb + b], mag, ur, ui);
   y[row + b] = mag * pr;
@@ -452,13 +510,14 @@ __global__ void phase_apply(const float* __restrict__ spec,
 // Scan pass 4 of pvoc_terms: P_i = normalize(carry_c L_i) in place.
 __global__ void scan_apply(const float* __restrict__ carry,
                            float* __restrict__ t, Geo g, Lanes L) {
+  const int bat = blockIdx.y;
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= g.nf * L.n) return;
   const int64_t i = idx / L.n;
   const int k = (int)(idx % L.n);
-  const int64_t re = i * L.stride + L.b0 + k;
+  const int64_t re = (bat * g.nf + i) * L.stride + L.b0 + k;
   float pr, pi;
-  carry_apply(carry, i, k, g, L, t[re], t[re + L.im_off], pr, pi);
+  carry_apply(carry, bat, i, k, g, L, t[re], t[re + L.im_off], pr, pi);
   t[re] = pr;
   t[re + L.im_off] = pi;
 }
@@ -489,31 +548,69 @@ __global__ void carry_phasor(const float* __restrict__ spec,
   }
 }
 
+// pvoc_phasor_synth pass 1: the packed spectrum Y = |X| P (times the frame
+// mask when there is one) from (B, nf, nb) planes; the imaginary parts of
+// DC and Nyquist are zero, as an inverse real DFT drops them.
+__global__ void phasor_y(const float* __restrict__ mag,
+                         const float* __restrict__ pre,
+                         const float* __restrict__ pim,
+                         const float* __restrict__ mask,
+                         float* __restrict__ y, Geo g) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= g.nf * g.nb) return;
+  const int64_t e = blockIdx.y * g.nf * g.nb + idx;
+  const int64_t fr = e / g.nb;
+  const int b = (int)(idx % g.nb);
+  float yr = mag[e] * pre[e];
+  float yi = (b == 0 || b == g.nh) ? 0.f : mag[e] * pim[e];
+  if (mask != nullptr) {
+    yr = yr * mask[fr];
+    yi = yi * mask[fr];
+  }
+  y[fr * 2 * g.nb + b] = yr;
+  y[fr * 2 * g.nb + g.nb + b] = yi;
+}
+
 // (d) Gather-form overlap-add with the COLA normalization, over n_out
-// samples of local rows 0.. of this launch. A row's sum starts from the
-// un-normalized partial sum tail_in left for it (rows < m-1; none when
-// tail_in is null), then adds this launch's frames oldest first. The first
-// n_main samples are normalized into out; the rest are the partial sums
-// for the next launch, un-normalized, into tail_out. norm_rows holds 2m-1
-// rows of Rs inverse window energies: head rows 0..m-2, tail rows (output
-// rows nf_total..nf_total+m-2), then the interior row, chosen by the
-// global row goff + r; rows past the recording's output are written 0.
+// samples of local rows 0.. of this launch, per batch row (n_out samples
+// apart in out). A row's sum starts from the un-normalized partial sum
+// tail_in left for it (rows < m-1; none when tail_in is null), then adds
+// this launch's frames oldest first. The first n_main samples are
+// normalized into out; the rest are the partial sums for the next launch,
+// un-normalized, into tail_out. norm_rows holds 2m-1 rows of Rs inverse
+// window energies: head rows 0..m-2, tail rows (output rows
+// nf_total..nf_total+m-2), then the interior row, chosen by the global row
+// goff + r; rows past the recording's output are written 0. In a ragged
+// batch (g.nfs set) each batch row has nf_total = its own frame count and
+// norm_rows is a stack of such tables, one for each count 1..m-1 (the
+// table of a count >= m-1 is the last).
 __global__ void ola_gather(const float* __restrict__ frames,
                            const float* __restrict__ norm_rows,
                            const float* __restrict__ tail_in,
                            float* __restrict__ out,
                            float* __restrict__ tail_out, int64_t n_out,
                            int64_t n_main, Geo g, int m) {
+  const int bat = blockIdx.y;
   const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= n_out) return;
   const int64_t r = n / g.rs;
   const int t = (int)(n % g.rs);
+  const int64_t n_row = row_frames(g, bat);
+  const float* fb = frames + bat * g.nf * g.n_fft;
+  float* ob = out + bat * n_out;
+  int64_t nf_total = g.nf_total;
+  const float* norm = norm_rows;
+  if (g.nfs != nullptr) {
+    nf_total = n_row;
+    const int64_t key = n_row < m - 1 ? (n_row > 1 ? n_row : 1) : m - 1;
+    norm += (key - 1) * (2 * m - 1) * (int64_t)g.rs;
+  }
   float acc = (tail_in != nullptr && r < m - 1) ? tail_in[n] : 0.f;
   const int64_t jlo = r - m + 1 > 0 ? r - m + 1 : 0;
-  const int64_t jhi = r < g.nf - 1 ? r : g.nf - 1;
+  const int64_t jhi = r < n_row - 1 ? r : n_row - 1;
   for (int64_t j = jlo; j <= jhi; ++j) {
     const int off = (int)(r - j) * g.rs + t;
-    if (off < g.n_fft) acc += frames[j * g.n_fft + off];
+    if (off < g.n_fft) acc += fb[j * g.n_fft + off];
   }
   if (n >= n_main) {
     tail_out[n - n_main] = acc;
@@ -521,10 +618,10 @@ __global__ void ola_gather(const float* __restrict__ frames,
   }
   const int64_t gr = g.goff + r;
   int64_t nrow;
-  if (gr >= g.nf_total) {
-    nrow = m - 1 + (gr - g.nf_total);
+  if (gr >= nf_total) {
+    nrow = m - 1 + (gr - nf_total);
     if (nrow > 2 * m - 3) {
-      out[n] = 0.f;
+      ob[n] = 0.f;
       return;
     }
   } else if (gr < m - 1) {
@@ -532,11 +629,17 @@ __global__ void ola_gather(const float* __restrict__ frames,
   } else {
     nrow = 2 * m - 2;
   }
-  out[n] = acc * norm_rows[nrow * g.rs + t];
+  ob[n] = acc * norm[nrow * g.rs + t];
 }
 
 unsigned blocks_for(int64_t n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
+}
+
+// A grid of blocks over n items per batch row, one row of blocks per batch
+// row.
+dim3 grid_for(int64_t n, const Geo& g) {
+  return dim3(blocks_for(n, kThreads), (unsigned)g.batch);
 }
 
 Geo make_geo(long long nf, int n_fft, int ra, int rs, int p, int q, int alg,
@@ -557,6 +660,9 @@ Geo make_geo(long long nf, int n_fft, int ra, int rs, int p, int q, int alg,
   g.alg = alg;
   g.kf = kf;
   g.chunk = chunk;
+  g.batch = 1;
+  g.x_stride = 0;
+  g.nfs = nullptr;
   return g;
 }
 
@@ -565,18 +671,17 @@ cudaError_t run_scan(float* y, float* tot, float* carry,
                      const float* carry_in, float* carry_out, const Geo& g,
                      const Lanes& L, cudaStream_t stream) {
   const int64_t nch = (g.nf + g.chunk - 1) / g.chunk;
-  scan_chunks<<<blocks_for(nch * L.n, kThreads), kThreads, 0, stream>>>(
-      y, tot, g, L);
+  scan_chunks<<<grid_for(nch * L.n, g), kThreads, 0, stream>>>(y, tot, g, L);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  scan_carry<<<blocks_for(L.n, kThreads), kThreads, 0, stream>>>(
+  scan_carry<<<grid_for(L.n, g), kThreads, 0, stream>>>(
       tot, carry, carry_in, carry_out, g, L);
   return cudaGetLastError();
 }
 
-// The TSM passes over g.nf frames of x (any of them may be 0), then the
-// gather of n_out samples. carry_in/carry_out/tail_in/tail_out are null
-// for a whole recording.
+// The TSM passes over g.nf frames of each batch row of x (any of them may
+// be 0), then the gather of n_out samples per row. carry_in/carry_out/
+// tail_in/tail_out are null for whole recordings.
 cudaError_t run_tsm(const float* x, float* out, float* tail_out,
                     float* carry_out, float* spec, float* y, float* frames,
                     float* tot, float* carry, const float* fft,
@@ -590,11 +695,12 @@ cudaError_t run_tsm(const float* x, float* out, float* tail_out,
   const int m = (g.n_fft + g.rs - 1) / g.rs;
   const int ng = g.nh - 1;
   const size_t smem = 2 * g.n_fft * sizeof(float);
+  const dim3 per_frame((unsigned)g.nf, (unsigned)g.batch);
   cudaError_t err;
 
   if (g.nf > 0) {
-    fft_analysis<<<(unsigned)g.nf, kThreads, smem, stream>>>(x, win, twc,
-                                                             tws, spec, g);
+    fft_analysis<<<per_frame, kThreads, smem, stream>>>(x, win, twc, tws,
+                                                        spec, g);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     if (carry_out != nullptr) {
       carry_phasor<<<blocks_for(ng, kThreads), kThreads, 0, stream>>>(
@@ -602,23 +708,23 @@ cudaError_t run_tsm(const float* x, float* out, float* tail_out,
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
     if (g.q == 1) {
-      phase_closed<<<blocks_for(g.nf * g.nb, kThreads), kThreads, 0,
-                     stream>>>(spec, carry_in, y, g);
+      phase_closed<<<grid_for(g.nf * g.nb, g), kThreads, 0, stream>>>(
+          spec, carry_in, y, g);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     } else {
       const Lanes L = {2 * g.nb, g.nb, 1, ng};
-      phase_terms<<<blocks_for(g.nf * ng, kThreads), kThreads, 0, stream>>>(
+      phase_terms<<<grid_for(g.nf * ng, g), kThreads, 0, stream>>>(
           spec, consts, carry_in, y, g);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
       if ((err = run_scan(y, tot, carry, carry_in, carry_out, g, L,
                           stream)) != cudaSuccess)
         return err;
-      phase_apply<<<blocks_for(g.nf * g.nb, kThreads), kThreads, 0,
-                    stream>>>(spec, carry, y, g, L);
+      phase_apply<<<grid_for(g.nf * g.nb, g), kThreads, 0, stream>>>(
+          spec, carry, y, g, L);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
-    fft_synthesis<<<(unsigned)g.nf, kThreads, smem, stream>>>(y, win, twc,
-                                                              tws, frames, g);
+    fft_synthesis<<<per_frame, kThreads, smem, stream>>>(y, win, twc, tws,
+                                                         frames, g);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   } else if (carry_out != nullptr) {  // a segment past the last frame
     err = cudaMemcpyAsync(carry_out, carry_in, 4 * ng * sizeof(float),
@@ -626,7 +732,7 @@ cudaError_t run_tsm(const float* x, float* out, float* tail_out,
     if (err != cudaSuccess) return err;
   }
 
-  ola_gather<<<blocks_for(n_out, kThreads), kThreads, 0, stream>>>(
+  ola_gather<<<grid_for(n_out, g), kThreads, 0, stream>>>(
       frames, norm_rows, tail_in, out, tail_out, n_out, n_main, g, m);
   return cudaGetLastError();
 }
@@ -654,6 +760,29 @@ extern "C" int pvoc_fused(const float* x, float* out, float* spec, float* y,
   const int64_t out_len = (nf - 1) * (int64_t)rs + n_fft;
   return run_tsm(x, out, nullptr, nullptr, spec, y, frames, tot, carry, fft,
                  consts, norm_rows, nullptr, nullptr, out_len, out_len, g,
+                 stream);
+}
+
+// The TSM of every row of a (batch, x_stride) signal, row b's first
+// nfs[b] frames (0 <= nfs[b] <= nf). out (batch, (nf+m-1)*rs): row b's
+// output, normalized at its own frame count, then zeros. Scratch as for
+// pvoc_fused with batch*nf frames, tot and carry
+// (batch*ceil(nf/chunk), n_fft/2-1, 2); norm_stack (m-1, 2m-1, rs) holds
+// the normalization rows of the frame counts 1..m-1 (m = ceil(n_fft/rs)).
+extern "C" int pvoc_fused_batch(
+    const float* x, const int* nfs, float* out, float* spec, float* y,
+    float* frames, float* tot, float* carry, const float* fft,
+    const float* consts, const float* norm_stack, int batch,
+    long long x_stride, long long nf, int n_fft, int ra, int rs, int p,
+    int q, int alg, int chunk, float kf, cudaStream_t stream) {
+  Geo g = make_geo(nf, n_fft, ra, rs, p, q, alg, chunk, kf);
+  g.batch = batch;
+  g.x_stride = x_stride;
+  g.nfs = nfs;
+  const int m = (n_fft + rs - 1) / rs;
+  const int64_t out_len = (nf + m - 1) * (int64_t)rs;
+  return run_tsm(x, out, nullptr, nullptr, spec, y, frames, tot, carry, fft,
+                 consts, norm_stack, nullptr, nullptr, out_len, out_len, g,
                  stream);
 }
 
@@ -688,30 +817,64 @@ extern "C" int pvoc_fused_segment(
                  n_main + (int64_t)(m - 1) * rs, n_main, g, stream);
 }
 
-// Phasor terms of nf frames of x (nf >= 1): mag (nf, nb), t (2, nf, nb)
-// the step terms or, with scan, the scanned phasors P; u (2, nf, nb) the
-// unit phasors or null. spec (nf, 2*nb) scratch; tot and carry
-// (ceil(nf/chunk), nb, 2) scratch when scan. nb = n_fft/2 + 1.
+// Phasor terms of nf frames (nf >= 1) of each of the batch rows of x
+// (x_stride samples apart): mag (batch, nf, nb), t (2, batch, nf, nb) the
+// step terms or, with scan, the scanned phasors P; u (2, batch, nf, nb)
+// the unit phasors or null. spec (batch*nf, 2*nb) scratch; tot and carry
+// (batch*ceil(nf/chunk), nb, 2) scratch when scan. nb = n_fft/2 + 1.
 extern "C" int pvoc_terms(const float* x, float* spec, float* mag, float* t,
                           float* u, float* tot, float* carry,
                           const float* fft, const float* consts, long long nf,
                           int n_fft, int ra, int rs, int p, int q, int alg,
-                          int chunk, float kf, int scan, cudaStream_t stream) {
-  const Geo g = make_geo(nf, n_fft, ra, rs, p, q, alg, chunk, kf);
+                          int chunk, float kf, int scan, int batch,
+                          long long x_stride, cudaStream_t stream) {
+  Geo g = make_geo(nf, n_fft, ra, rs, p, q, alg, chunk, kf);
+  g.batch = batch;
+  g.x_stride = x_stride;
   const size_t smem = 2 * n_fft * sizeof(float);
   cudaError_t err;
-  fft_analysis<<<(unsigned)nf, kThreads, smem, stream>>>(
-      x, fft, fft + n_fft, fft + n_fft + g.nh, spec, g);
+  fft_analysis<<<dim3((unsigned)nf, (unsigned)batch), kThreads, smem,
+                 stream>>>(x, fft, fft + n_fft, fft + n_fft + g.nh, spec, g);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  terms_all<<<blocks_for(nf * g.nb, kThreads), kThreads, 0, stream>>>(
-      spec, consts, mag, t, u, g);
+  terms_all<<<grid_for(nf * g.nb, g), kThreads, 0, stream>>>(spec, consts,
+                                                             mag, t, u, g);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (!scan) return cudaSuccess;
-  const Lanes L = {g.nb, (int64_t)nf * g.nb, 0, g.nb};
+  const Lanes L = {g.nb, (int64_t)batch * nf * g.nb, 0, g.nb};
   if ((err = run_scan(t, tot, carry, nullptr, nullptr, g, L, stream)) !=
       cudaSuccess)
     return err;
-  scan_apply<<<blocks_for(nf * g.nb, kThreads), kThreads, 0, stream>>>(
-      carry, t, g, L);
+  scan_apply<<<grid_for(nf * g.nb, g), kThreads, 0, stream>>>(carry, t, g,
+                                                              L);
+  return cudaGetLastError();
+}
+
+// Synthesis from given phasors, for each of the batch rows: Y = |X| P
+// (times mask, (batch, nf), when not null), the windowed inverse FFT into
+// frames (batch*nf, n_fft) and the gather overlap-add into out (batch,
+// (nf-1)*rs + n_fft) with norm_rows (2m-1, rs): the recording's
+// normalization rows, or ones for the un-normalized sum. mag, pre, pim
+// (batch, nf, nb); y (batch*nf, 2*nb) scratch. Needs rs | n_fft.
+extern "C" int pvoc_phasor_synth(const float* mag, const float* pre,
+                                 const float* pim, const float* mask,
+                                 float* y, float* frames, float* out,
+                                 const float* fft, const float* norm_rows,
+                                 int batch, long long nf, int n_fft, int rs,
+                                 cudaStream_t stream) {
+  Geo g = make_geo(nf, n_fft, 1, rs, 1, 1, 1, 1, 1.f);
+  g.batch = batch;
+  const int m = n_fft / rs;
+  const int64_t out_len = (nf - 1) * (int64_t)rs + n_fft;
+  const size_t smem = 2 * n_fft * sizeof(float);
+  cudaError_t err;
+  phasor_y<<<grid_for(nf * g.nb, g), kThreads, 0, stream>>>(mag, pre, pim,
+                                                            mask, y, g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  fft_synthesis<<<dim3((unsigned)nf, (unsigned)batch), kThreads, smem,
+                  stream>>>(y, fft, fft + n_fft, fft + n_fft + g.nh, frames,
+                            g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ola_gather<<<grid_for(out_len, g), kThreads, 0, stream>>>(
+      frames, norm_rows, nullptr, out, nullptr, out_len, out_len, g, m);
   return cudaGetLastError();
 }

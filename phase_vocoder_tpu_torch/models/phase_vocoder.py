@@ -39,6 +39,20 @@ class PhaseVocoder(nn.Module):
     def pitch_shift(self, x, semitones: float) -> torch.Tensor:
         return pipeline.pitch_shift(x, semitones, self.config, device=self.device)
 
+    def batch_time_stretch(self, xs, stretch: float, mesh=None) -> torch.Tensor:
+        """Data-parallel TSM of a (B, T) batch of equal-length utterances
+        (parallel.batch.batch_time_stretch)."""
+        from ..parallel.batch import batch_time_stretch
+
+        return batch_time_stretch(xs, stretch, self.config, mesh=mesh, device=self.device)
+
+    def chunked_time_stretch(self, x, stretch: float, mesh=None, **kw) -> torch.Tensor:
+        """Sequence-parallel TSM of one long recording over the ranks of a
+        mesh (parallel.chunked.chunked_time_stretch; kw: force)."""
+        from ..parallel.chunked import chunked_time_stretch
+
+        return chunked_time_stretch(x, stretch, self.config, mesh=mesh, device=self.device, **kw)
+
     def stream_time_stretch(self, x, stretch: float, **kw) -> torch.Tensor:
         """Segmented polar TSM for recordings of any length
         (streaming.stream_time_stretch; kw: segment_frames)."""

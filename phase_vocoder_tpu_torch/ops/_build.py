@@ -44,11 +44,21 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,  # started, geometry
         _P,  # stream
     ],
+    "pvoc_fused_batch": [
+        *[_P] * 11,  # x, frame counts, out, scratch and tables
+        _I, _LL, _LL,  # batch, x row stride, frames per row
+        _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,  # geometry
+        _P,  # stream
+    ],
     "pvoc_terms": [
         *[_P] * 9,  # x, spec, mag, t, u, tot, carry, fft, consts
         _LL, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,  # geometry, scan
+        _I, _LL,  # batch, x row stride
         _P,  # stream
     ],
+    # mag, pre, pim, mask, y, frames, out, fft table, norm rows,
+    # batch, nf, n_fft, rs, stream
+    "pvoc_phasor_synth": [*[_P] * 9, _I, _LL, _I, _I, _P],
     "resample_lerp": [_P, _P, _LL, _LL, ctypes.c_double, _P],
     # x, fft table, mag, phi, nf, n_fft, hop, stream
     "stft_polar": [_P, _P, _P, _P, _LL, _I, _I, _P],

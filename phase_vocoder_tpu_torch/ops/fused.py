@@ -10,19 +10,30 @@ is phasor algebra on the unit analysis phasors u_i = X_i/|X_i|:
                      h = e^{-i Ra w_b}, c = e^{+i Rs w_b}
   Y_i = |X_i| P_i; DC passes through, Nyquist times (-1)^(Rs i).
 
-Three wrappers of csrc/pvoc_fused.cu, each with its plain torch version
+Six wrappers of csrc/pvoc_fused.cu, each with its plain torch version
 (`*_reference`) beside it; a CUDA tensor launches the kernel (counting one
 launch in `.launches`) or raises, a CPU tensor runs the plain version:
 
-  fused_time_stretch    the whole TSM of one recording (framing, windowed
-                        DFT, phasors, inverse DFT, overlap-add, COLA
-                        normalization);
-  fused_stream_segment  the same TSM on one F-frame segment, with the
-                        cross-segment state in and out (streaming.py's
-                        fused executor);
-  stft_phasor_terms     framing, windowed DFT, |X|, unit phasors and the
-                        step terms of every bin, optionally scanned (the
-                        general-hop route of pipeline.py).
+  fused_time_stretch       the whole TSM of one recording (framing,
+                           windowed DFT, phasors, inverse DFT, overlap-add,
+                           COLA normalization);
+  fused_time_stretch_batch the same TSM over the rows of a (B, T) batch,
+                           each row with its own frame count
+                           (parallel/batch.py);
+  fused_stream_segment     the same TSM on one F-frame segment, with the
+                           cross-segment state in and out (streaming.py's
+                           fused executor, parallel/chunked.py's
+                           integer-k body);
+  stft_phasor_terms(_batch) framing, windowed DFT, |X|, unit phasors and
+                           the step terms of every bin, optionally scanned
+                           (the general-hop route of pipeline.py, the
+                           chunked bodies), of one recording or a batch;
+  phasor_istft_ola(_batch) Y = mask |X| P from given phasors, inverse
+                           DFT and overlap-add, normalized without a mask
+                           (the chunked bodies' synthesis).
+
+The plain helpers of the chunked bodies (phasor_scan,
+phasor_prefix_exclusive, boundary_step_term) sit beside them.
 
 The static tables (window and FFT twiddles, phasor constants,
 normalization rows) are built in float64 numpy with the JAX package's
@@ -46,20 +57,32 @@ import math
 import numpy as np
 import torch
 
-from . import _build
-from .framing import frame_signal, num_frames, overlap_add
+from . import _build, phase
+from .framing import frame_signal, num_frames
 from .window import _hann_f64, hann_window
 
 __all__ = [
     "phasor_supported",
     "phasor_terms_supported",
+    "synth_supported",
     "fused_time_stretch",
     "fused_time_stretch_reference",
+    "fused_time_stretch_batch",
+    "fused_time_stretch_batch_reference",
     "fused_stream_segment",
     "fused_stream_segment_reference",
     "stream_norm_tables",
     "stft_phasor_terms",
     "stft_phasor_terms_reference",
+    "stft_phasor_terms_batch",
+    "stft_phasor_terms_batch_reference",
+    "phasor_istft_ola",
+    "phasor_istft_ola_reference",
+    "phasor_istft_ola_batch",
+    "phasor_istft_ola_batch_reference",
+    "phasor_scan",
+    "phasor_prefix_exclusive",
+    "boundary_step_term",
 ]
 
 _TINY = 1e-30
@@ -87,6 +110,12 @@ def phasor_terms_supported(n_fft: int, ra: int, rs: int) -> bool:
     """True when the pvoc_terms kernel covers this geometry: the FFT's
     n_fft, Ra | N and any Rs > 0 (the JAX function puts no bound on Rs)."""
     return fft_size_supported(n_fft) and n_fft % ra == 0 and rs > 0
+
+
+def synth_supported(n_fft: int, rs: int) -> bool:
+    """True when phasor_istft_ola(_batch) take this geometry: the FFT's
+    n_fft and the JAX function's exact-fold layout, Rs | N and N/Rs >= 2."""
+    return fft_size_supported(n_fft) and 0 < rs and n_fft % rs == 0 and n_fft // rs >= 2
 
 
 def _rational_k(rs: int, ra: int) -> tuple[int, int]:
@@ -161,10 +190,16 @@ def _norm_rows(n_fft: int, rs: int, nf: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
+def _device_fft_table(n_fft: int, device: str) -> torch.Tensor:
+    """[Hann window | cos | sin] of _fft_tables, float32 on `device`."""
+    return torch.as_tensor(_fft_tables(n_fft), device=device)
+
+
+@functools.lru_cache(maxsize=16)
 def _device_tables(n_fft: int, ra: int, rs: int, device: str) -> dict:
     """The kernel's float32 tables on `device`, built once per geometry."""
     return {
-        "fft": torch.as_tensor(_fft_tables(n_fft), device=device),
+        "fft": _device_fft_table(n_fft, device),
         "consts": torch.as_tensor(_phasor_consts(n_fft, ra, rs), device=device),
     }
 
@@ -172,6 +207,22 @@ def _device_tables(n_fft: int, ra: int, rs: int, device: str) -> dict:
 @functools.lru_cache(maxsize=64)
 def _device_norm_rows(n_fft: int, rs: int, nf_key: int, device: str) -> torch.Tensor:
     return torch.as_tensor(_ola_norm_rows(n_fft, rs, nf_key), device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def _device_norm_stack(n_fft: int, rs: int, device: str) -> torch.Tensor:
+    """(m-1, 2m-1, rs): the normalization rows of every frame count
+    1..m-1 (a count of m-1 or more shares the last), for a ragged batch."""
+    m = -(-n_fft // rs)
+    return torch.as_tensor(
+        np.stack([_ola_norm_rows(n_fft, rs, key) for key in range(1, m)]), device=device
+    )
+
+
+@functools.lru_cache(maxsize=16)
+def _device_unit_rows(n_fft: int, rs: int, device: str) -> torch.Tensor:
+    """(2m-1, rs) ones: the gather's table for an un-normalized sum."""
+    return torch.ones((2 * (-(-n_fft // rs)) - 1, rs), dtype=torch.float32, device=device)
 
 
 # ------------------------------------------- phasor algebra (plain torch)
@@ -340,14 +391,15 @@ def init_carry(n_fft: int, device=None) -> torch.Tensor:
 
 def _tsm_frames_reference(
     x: torch.Tensor, goff: int, n_valid: int, n_fft: int, hop: int, rs: int,
-    carry: torch.Tensor, started: bool,
+    carry: torch.Tensor, started: bool, x_frame0: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain analysis, phase and synthesis of frames goff..goff+n_valid-1
-    of x, from `carry`. Returns (windowed frames (n_valid, n_fft), the carry
-    after them)."""
+    of the recording, whose frame x_frame0 starts at x[0], from `carry`.
+    Returns (windowed frames (n_valid, n_fft), the carry after them)."""
     nh = n_fft // 2
     w = hann_window(n_fft, device=x.device)
-    xs = x[goff * hop : (goff + n_valid - 1) * hop + n_fft]
+    start = (goff - x_frame0) * hop
+    xs = x[start : start + (n_valid - 1) * hop + n_fft]
     spec = torch.fft.rfft(frame_signal(xs, n_fft, hop) * w, dim=-1)
     re, im = spec.real, spec.imag  # (n_valid, nh + 1)
     mag, ure, uim = _unit(re[:, 1:nh], im[:, 1:nh])  # general bins
@@ -477,19 +529,20 @@ def _check_cuda(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} needs a contiguous tensor")
 
 
-def _workspace(frames: int, n_fft: int, q: int, device) -> dict:
-    """Scratch of the TSM passes for `frames` frames: spectra, Y, windowed
-    frames, and the chunk totals and carries of the q >= 2 scan."""
+def _workspace(frames: int, n_fft: int, q: int, device, batch: int = 1) -> dict:
+    """Scratch of the TSM passes for `batch` rows of `frames` frames:
+    spectra, Y, windowed frames, and the chunk totals and carries of the
+    q >= 2 scan."""
     f32 = dict(dtype=torch.float32, device=device)
     work = {
-        "spec": torch.empty((frames, n_fft + 2), **f32),
-        "y": torch.empty((frames, n_fft + 2), **f32),
-        "frames": torch.empty((frames, n_fft), **f32),
+        "spec": torch.empty((batch * frames, n_fft + 2), **f32),
+        "y": torch.empty((batch * frames, n_fft + 2), **f32),
+        "frames": torch.empty((batch * frames, n_fft), **f32),
         "tot": None,
         "carry": None,
     }
     if q > 1:
-        nch = -(-frames // SCAN_CHUNK)
+        nch = batch * -(-frames // SCAN_CHUNK)
         work["tot"] = torch.empty((nch, n_fft // 2 - 1, 2), **f32)
         work["carry"] = torch.empty_like(work["tot"])
     return work
@@ -531,14 +584,14 @@ def _check_segment(x, carry, tail, frame_offset: int, n_fft: int, hop: int, rs: 
 def fused_stream_segment_reference(
     x: torch.Tensor, carry: torch.Tensor, tail: torch.Tensor, started: bool,
     frame_offset: int, nf: int, n_fft: int, hop: int, rs: int, seg_frames: int,
-    out: torch.Tensor | None = None,
+    out: torch.Tensor | None = None, x_frame0: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain torch version of fused_stream_segment, on x's device."""
     _check_segment(x, carry, tail, frame_offset, n_fft, hop, rs, seg_frames)
     n_valid = min(max(nf - frame_offset, 0), seg_frames)
     if n_valid:
         frames, new_carry = _tsm_frames_reference(
-            x, frame_offset, n_valid, n_fft, hop, rs, carry, started
+            x, frame_offset, n_valid, n_fft, hop, rs, carry, started, x_frame0
         )
     else:
         frames, new_carry = x.new_zeros((0, n_fft)), carry
@@ -553,12 +606,14 @@ def fused_stream_segment_reference(
 def fused_stream_segment(
     x: torch.Tensor, carry: torch.Tensor, tail: torch.Tensor, started: bool,
     frame_offset: int, nf: int, n_fft: int, hop: int, rs: int, seg_frames: int,
-    out: torch.Tensor | None = None, work: dict | None = None,
+    out: torch.Tensor | None = None, work: dict | None = None, x_frame0: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One F-frame segment of the streaming fused TSM.
 
-    x: the whole 1-D float32 signal (nf frames); the segment covers frames
-    frame_offset .. frame_offset+F-1, of which those below nf are real.
+    x: the 1-D float32 signal of the recording (nf frames) from the start
+    of its frame x_frame0 on (0: the whole signal); the segment covers
+    frames frame_offset .. frame_offset+F-1, of which those below nf are
+    real.
     carry (4, n_fft/2-1): rows 0-1 the anchor u_0 (integer k) or the unit
     phasor of the previous frame (q >= 2), rows 2-3 the running phasor P;
     tail (m-1, rs): un-normalized partial sums of the segment's first m-1
@@ -575,12 +630,21 @@ def fused_stream_segment(
     """
     if x.device.type == "cpu":
         return fused_stream_segment_reference(
-            x, carry, tail, started, frame_offset, nf, n_fft, hop, rs, seg_frames, out
+            x, carry, tail, started, frame_offset, nf, n_fft, hop, rs, seg_frames, out,
+            x_frame0,
         )
     _check_segment(x, carry, tail, frame_offset, n_fft, hop, rs, seg_frames)
     for t, what in ((x, "x"), (carry, "carry"), (tail, "tail")):
         _check_cuda(t, f"fused_stream_segment ({what})")
     n_valid = min(max(nf - frame_offset, 0), seg_frames)
+    if n_valid and not (
+        x_frame0 <= frame_offset
+        and (frame_offset - x_frame0 + n_valid - 1) * hop + n_fft <= x.shape[0]
+    ):
+        raise ValueError(
+            f"x ({x.shape[0]} samples from frame {x_frame0}) does not hold frames "
+            f"{frame_offset}..{frame_offset + n_valid - 1}"
+        )
     m = -(-n_fft // rs)
     dev = str(x.device)
     tables = _device_tables(n_fft, hop, rs, dev)
@@ -593,7 +657,7 @@ def fused_stream_segment(
     work = segment_workspace(seg_frames, n_fft, hop, rs, x.device) if work is None else work
     tail_out = torch.empty_like(tail)
     carry_out = torch.empty_like(carry)
-    x_seg = x.data_ptr() + (frame_offset * hop * 4 if n_valid else 0)
+    x_seg = x.data_ptr() + ((frame_offset - x_frame0) * hop * 4 if n_valid else 0)
     lib = _build.kernels()
     with torch.cuda.device(x.device):
         rc = lib.pvoc_fused_segment(
@@ -621,9 +685,9 @@ def segment_workspace(seg_frames: int, n_fft: int, hop: int, rs: int, device) ->
 # ------------------------------------------------------------ phasor terms
 
 
-def _check_terms(x: torch.Tensor, n_fft: int, hop: int, rs: int) -> int:
-    if x.dtype != torch.float32 or x.dim() != 1:
-        raise ValueError(f"expected a 1-D float32 tensor, got {x.dtype} {tuple(x.shape)}")
+def _check_terms(x: torch.Tensor, n_fft: int, hop: int, rs: int, dim: int = 1) -> int:
+    if x.dtype != torch.float32 or x.dim() != dim:
+        raise ValueError(f"expected a {dim}-D float32 tensor, got {x.dtype} {tuple(x.shape)}")
     if not phasor_terms_supported(n_fft, hop, rs):
         raise ValueError(
             f"stft_phasor_terms requires n_fft a power of two <= {MAX_N_FFT}, "
@@ -664,6 +728,40 @@ def stft_phasor_terms_reference(
     return mag, tre, tim, nf
 
 
+def _terms_launch(xs: torch.Tensor, nf: int, n_fft: int, hop: int, rs: int, scan: bool,
+                  return_u: bool, what: str) -> tuple:
+    """The pvoc_terms kernel over the rows of xs (B, T): planes (B, nf, nb)."""
+    _check_cuda(xs, what)
+    B, nb = xs.shape[0], n_fft // 2 + 1
+    f32 = dict(dtype=torch.float32, device=xs.device)
+    spec = torch.empty((B * nf, 2 * nb), **f32)
+    mag = torch.empty((B, nf, nb), **f32)
+    t = torch.empty((2, B, nf, nb), **f32)
+    u = torch.empty((2, B, nf, nb), **f32) if return_u else None
+    tot = carry = None
+    if scan:
+        tot = torch.empty((B * -(-nf // SCAN_CHUNK), nb, 2), **f32)
+        carry = torch.empty_like(tot)
+    tables = _device_tables(n_fft, hop, rs, str(xs.device))
+    p, q = _rational_k(rs, hop)
+    lib = _build.kernels()
+    with torch.cuda.device(xs.device):
+        rc = lib.pvoc_terms(
+            xs.data_ptr(), spec.data_ptr(), mag.data_ptr(), t.data_ptr(),
+            None if u is None else u.data_ptr(),
+            None if tot is None else tot.data_ptr(),
+            None if carry is None else carry.data_ptr(),
+            tables["fft"].data_ptr(), tables["consts"].data_ptr(),
+            nf, n_fft, hop, rs, p, q, int(_pow_alg(p, q)), SCAN_CHUNK,
+            float(np.float32(p / q)), int(scan), B, xs.shape[-1],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(rc, what)
+    if return_u:
+        return mag, t[0], t[1], u[0], u[1]
+    return mag, t[0], t[1]
+
+
 def stft_phasor_terms(
     x: torch.Tensor, n_fft: int, hop: int, rs: int, scan: bool = True,
     return_u: bool = False,
@@ -685,35 +783,338 @@ def stft_phasor_terms(
     nf = _check_terms(x, n_fft, hop, rs)
     if x.device.type == "cpu":
         return stft_phasor_terms_reference(x, n_fft, hop, rs, scan, return_u)
-    _check_cuda(x, "stft_phasor_terms")
-    nb = n_fft // 2 + 1
-    f32 = dict(dtype=torch.float32, device=x.device)
-    spec = torch.empty((nf, 2 * nb), **f32)
-    mag = torch.empty((nf, nb), **f32)
-    t = torch.empty((2, nf, nb), **f32)
-    u = torch.empty((2, nf, nb), **f32) if return_u else None
-    tot = carry = None
-    if scan:
-        tot = torch.empty((-(-nf // SCAN_CHUNK), nb, 2), **f32)
-        carry = torch.empty_like(tot)
-    tables = _device_tables(n_fft, hop, rs, str(x.device))
-    p, q = _rational_k(rs, hop)
-    lib = _build.kernels()
-    with torch.cuda.device(x.device):
-        rc = lib.pvoc_terms(
-            x.data_ptr(), spec.data_ptr(), mag.data_ptr(), t.data_ptr(),
-            None if u is None else u.data_ptr(),
-            None if tot is None else tot.data_ptr(),
-            None if carry is None else carry.data_ptr(),
-            tables["fft"].data_ptr(), tables["consts"].data_ptr(),
-            nf, n_fft, hop, rs, p, q, int(_pow_alg(p, q)), SCAN_CHUNK,
-            float(np.float32(p / q)), int(scan), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(rc, "pvoc_terms")
+    planes = _terms_launch(x[None], nf, n_fft, hop, rs, scan, return_u, "stft_phasor_terms")
     stft_phasor_terms.launches += 1
-    if return_u:
-        return mag, t[0], t[1], u[0], u[1], nf
-    return mag, t[0], t[1], nf
+    return (*(p[0] for p in planes), nf)
 
 
 stft_phasor_terms.launches = 0
+
+
+def stft_phasor_terms_batch_reference(
+    xs: torch.Tensor, n_fft: int, hop: int, rs: int, scan: bool = True,
+    return_u: bool = False,
+) -> tuple:
+    """Plain torch version of stft_phasor_terms_batch: the single-recording
+    plain version row by row, stacked."""
+    nf = _check_terms(xs, n_fft, hop, rs, dim=2)
+    rows = [stft_phasor_terms_reference(x, n_fft, hop, rs, scan, return_u) for x in xs]
+    return (*(torch.stack(planes) for planes in zip(*(r[:-1] for r in rows))), nf)
+
+
+def stft_phasor_terms_batch(
+    xs: torch.Tensor, n_fft: int, hop: int, rs: int, scan: bool = True,
+    return_u: bool = False,
+) -> tuple:
+    """stft_phasor_terms of every row of a (B, T) float32 batch, in one
+    launch: the same contract per row, planes (B, nf, n_fft//2+1). The JAX
+    function's (batch, tile) grid reset its carry at each row's first tile;
+    the kernel's passes take the batch row as gridDim.y.
+
+    A CUDA tensor launches the pvoc_terms kernel over the batch and counts
+    one launch in `stft_phasor_terms_batch.launches`; a CPU tensor runs
+    stft_phasor_terms_batch_reference.
+    """
+    nf = _check_terms(xs, n_fft, hop, rs, dim=2)
+    if xs.device.type == "cpu":
+        return stft_phasor_terms_batch_reference(xs, n_fft, hop, rs, scan, return_u)
+    planes = _terms_launch(xs, nf, n_fft, hop, rs, scan, return_u, "stft_phasor_terms_batch")
+    stft_phasor_terms_batch.launches += 1
+    return (*planes, nf)
+
+
+stft_phasor_terms_batch.launches = 0
+
+
+# ------------------------------------------------------ batched fused TSM
+
+
+def _check_batch(xs: torch.Tensor, n_fft: int, hop: int, rs: int, n_valid_frames) -> tuple[int, list]:
+    """(frames of the padded rows, each row's own frame count)."""
+    if xs.dtype != torch.float32 or xs.dim() != 2:
+        raise ValueError(f"expected a (B, T) float32 tensor, got {xs.dtype} {tuple(xs.shape)}")
+    if not phasor_supported(n_fft, hop, rs):
+        raise ValueError(
+            f"fused path requires n_fft a power of two <= {MAX_N_FFT}, "
+            f"hop | n_fft and 0 < rs <= n_fft/2 "
+            f"(got n_fft={n_fft}, hop={hop}, rs={rs})"
+        )
+    nf = num_frames(xs.shape[-1], n_fft, hop)
+    if nf <= 0:
+        raise ValueError("input shorter than one frame")
+    if n_valid_frames is None:
+        return nf, [nf] * xs.shape[0]
+    if isinstance(n_valid_frames, torch.Tensor):
+        n_valid_frames = n_valid_frames.tolist()
+    nfs = [int(v) for v in n_valid_frames]
+    if len(nfs) != xs.shape[0] or not all(0 <= v <= nf for v in nfs):
+        raise ValueError(f"n_valid_frames must be {xs.shape[0]} counts in 0..{nf}, got {nfs}")
+    return nf, nfs
+
+
+def fused_time_stretch_batch_reference(
+    xs: torch.Tensor, n_fft: int, hop: int, rs: int, n_valid_frames=None
+) -> torch.Tensor:
+    """Plain torch version of fused_time_stretch_batch: the single-recording
+    plain version on each row's own frames, zeros after."""
+    nf, nfs = _check_batch(xs, n_fft, hop, rs, n_valid_frames)
+    out = xs.new_zeros((xs.shape[0], (nf + -(-n_fft // rs) - 1) * rs))
+    for b, nf_b in enumerate(nfs):
+        if nf_b:
+            y = fused_time_stretch_reference(xs[b, : (nf_b - 1) * hop + n_fft], n_fft, hop, rs)
+            out[b, : y.shape[0]] = y
+    return out
+
+
+def fused_time_stretch_batch(
+    xs: torch.Tensor, n_fft: int, hop: int, rs: int, n_valid_frames=None
+) -> torch.Tensor:
+    """The fused TSM of every row of a (B, T) float32 batch in one launch.
+
+    Rows are zero-padded to T; row b has n_valid_frames[b] frames (a list,
+    array or tensor of B counts, default all nf = num_frames(T)), its own
+    anchor, scan and normalization. Returns (B, (nf+m-1)*rs), m =
+    ceil(n_fft/rs): row b's stretched waveform in its first
+    (n_b-1)*rs + n_fft samples, normalized at its own frame count, zeros
+    after (the JAX function fixes each row's tail rows after its kernel).
+
+    A CUDA tensor launches the pvoc_fused_batch kernel (the passes of
+    fused_time_stretch with the batch row as gridDim.y and a device array
+    of frame counts) and counts one launch in
+    `fused_time_stretch_batch.launches`; a CPU tensor runs
+    fused_time_stretch_batch_reference.
+    """
+    nf, nfs = _check_batch(xs, n_fft, hop, rs, n_valid_frames)
+    if xs.device.type == "cpu":
+        return fused_time_stretch_batch_reference(xs, n_fft, hop, rs, nfs)
+    _check_cuda(xs, "fused_time_stretch_batch")
+    B, m = xs.shape[0], -(-n_fft // rs)
+    dev = str(xs.device)
+    tables = _device_tables(n_fft, hop, rs, dev)
+    norm = _device_norm_stack(n_fft, rs, dev)
+    counts = torch.tensor(nfs, dtype=torch.int32, device=xs.device)
+    p, q = _rational_k(rs, hop)
+    out = torch.empty((B, (nf + m - 1) * rs), dtype=torch.float32, device=xs.device)
+    work = _workspace(nf, n_fft, q, xs.device, batch=B)
+    lib = _build.kernels()
+    with torch.cuda.device(xs.device):
+        rc = lib.pvoc_fused_batch(
+            xs.data_ptr(), counts.data_ptr(), out.data_ptr(), *_ptrs(work),
+            tables["fft"].data_ptr(), tables["consts"].data_ptr(), norm.data_ptr(),
+            B, xs.shape[1], nf, n_fft, hop, rs, p, q, int(_pow_alg(p, q)), SCAN_CHUNK,
+            float(np.float32(p / q)), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(rc, "pvoc_fused_batch")
+    fused_time_stretch_batch.launches += 1
+    return out
+
+
+fused_time_stretch_batch.launches = 0
+
+
+# ------------------------------------------- synthesis from given phasors
+
+
+def _check_synth(mag, pre, pim, n_fft: int, rs: int, nf: int, dim: int) -> None:
+    if not synth_supported(n_fft, rs):
+        raise ValueError(
+            f"phasor_istft_ola requires n_fft a power of two <= {MAX_N_FFT}, "
+            f"rs | n_fft and n_fft // rs >= 2 (got n_fft={n_fft}, rs={rs})"
+        )
+    nb = n_fft // 2 + 1
+    if any(t.dtype != torch.float32 for t in (mag, pre, pim)):
+        raise ValueError("mag, pre, pim must be float32")
+    if mag.dim() != dim or mag.shape[-1] != nb or pre.shape != mag.shape or pim.shape != mag.shape:
+        raise ValueError(
+            f"mag, pre, pim must be {dim}-D with {nb} bins, got "
+            f"{tuple(mag.shape)} {tuple(pre.shape)} {tuple(pim.shape)}"
+        )
+    if not 0 < nf <= mag.shape[-2]:
+        raise ValueError(f"nf={nf} must be in 1..{mag.shape[-2]} (the frames given)")
+
+
+def _full_mask(frame_mask, lead: tuple, nf: int, like: torch.Tensor) -> torch.Tensor:
+    """The (*lead, nf) mask of frame_mask (*lead, F): its first min(F, nf)
+    frames, zeros after, as the JAX function pads or cuts it."""
+    mask = like.new_zeros(lead + (nf,))
+    keep = min(frame_mask.shape[-1], nf)
+    mask[..., :keep] = frame_mask[..., :keep].to(device=like.device, dtype=like.dtype)
+    return mask
+
+
+def _synth_reference(mag, pre, pim, n_fft: int, rs: int, nf: int, mask) -> torch.Tensor:
+    """One recording: Y = mask |X| P (imaginary DC and Nyquist dropped),
+    windowed irfft, fold overlap-add, normalized when mask is None."""
+    y_re = mag[:nf] * pre[:nf]
+    y_im = mag[:nf] * pim[:nf]
+    y_im[:, 0] = 0.0
+    y_im[:, -1] = 0.0
+    if mask is not None:
+        y_re = y_re * mask[:, None]
+        y_im = y_im * mask[:, None]
+    frames = torch.fft.irfft(torch.complex(y_re, y_im), n=n_fft, dim=-1)
+    ola = _ola_rows_reference(frames * hann_window(n_fft, mag.device), nf, rs, None)
+    if mask is None:
+        ola = _normalize_rows(ola, 0, nf, n_fft, rs)
+    return ola.reshape(-1)[: (nf - 1) * rs + n_fft]
+
+
+def _synth_launch(mag, pre, pim, n_fft: int, rs: int, nf: int, mask, what: str) -> torch.Tensor:
+    """The pvoc_phasor_synth kernel over (B, >= nf, nb) planes; mask (B, nf)
+    or None. Returns (B, (nf-1)*rs + n_fft)."""
+    for t in (mag, pre, pim):
+        if t.device.type != "cuda":
+            raise ValueError(f"{what}: unsupported device {t.device}")
+    mag, pre, pim = (t[:, :nf].contiguous() for t in (mag, pre, pim))
+    B, nb = mag.shape[0], n_fft // 2 + 1
+    dev = str(mag.device)
+    f32 = dict(dtype=torch.float32, device=mag.device)
+    y = torch.empty((B * nf, 2 * nb), **f32)
+    frames = torch.empty((B * nf, n_fft), **f32)
+    out = torch.empty((B, (nf - 1) * rs + n_fft), **f32)
+    if mask is None:
+        norm = _device_norm_rows(n_fft, rs, min(nf, n_fft // rs - 1), dev)
+    else:
+        norm = _device_unit_rows(n_fft, rs, dev)
+    lib = _build.kernels()
+    with torch.cuda.device(mag.device):
+        rc = lib.pvoc_phasor_synth(
+            mag.data_ptr(), pre.data_ptr(), pim.data_ptr(),
+            None if mask is None else mask.data_ptr(), y.data_ptr(), frames.data_ptr(),
+            out.data_ptr(), _device_fft_table(n_fft, dev).data_ptr(), norm.data_ptr(),
+            B, nf, n_fft, rs, torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(rc, what)
+    return out
+
+
+def phasor_istft_ola_reference(
+    mag: torch.Tensor, pre: torch.Tensor, pim: torch.Tensor, n_fft: int, rs: int,
+    nf: int, frame_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain torch version of phasor_istft_ola, on mag's device."""
+    _check_synth(mag, pre, pim, n_fft, rs, nf, 2)
+    mask = None if frame_mask is None else _full_mask(frame_mask, (), nf, mag)
+    return _synth_reference(mag, pre, pim, n_fft, rs, nf, mask)
+
+
+def phasor_istft_ola(
+    mag: torch.Tensor, pre: torch.Tensor, pim: torch.Tensor, n_fft: int, rs: int,
+    nf: int, frame_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Waveform from magnitudes and synthesis phasors (R >= nf, n_fft//2+1)
+    float32, of which the first nf frames count: Y = mask |X| P, the
+    Hann-windowed inverse DFT and the fold overlap-add. Without frame_mask
+    the sum is normalized (head, interior and tail rows, as the fused TSM);
+    with a frame_mask (F,) (its first nf entries, zeros past F) it is
+    not, and the caller normalizes. Returns (nf-1)*rs + n_fft samples.
+    Needs rs | n_fft and n_fft/rs >= 2, as the JAX function.
+
+    A CUDA tensor launches the pvoc_phasor_synth kernel and counts one
+    launch in `phasor_istft_ola.launches`; a CPU tensor runs
+    phasor_istft_ola_reference.
+    """
+    _check_synth(mag, pre, pim, n_fft, rs, nf, 2)
+    if mag.device.type == "cpu":
+        return phasor_istft_ola_reference(mag, pre, pim, n_fft, rs, nf, frame_mask)
+    mask = None if frame_mask is None else _full_mask(frame_mask, (1,), nf, mag)
+    out = _synth_launch(mag[None], pre[None], pim[None], n_fft, rs, nf, mask, "phasor_istft_ola")
+    phasor_istft_ola.launches += 1
+    return out[0]
+
+
+phasor_istft_ola.launches = 0
+
+
+def phasor_istft_ola_batch_reference(
+    mag: torch.Tensor, pre: torch.Tensor, pim: torch.Tensor, n_fft: int, rs: int,
+    nf: int, frame_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain torch version of phasor_istft_ola_batch: the single-recording
+    plain version row by row."""
+    _check_synth(mag, pre, pim, n_fft, rs, nf, 3)
+    mask = None if frame_mask is None else _full_mask(frame_mask, (mag.shape[0],), nf, mag)
+    return torch.stack([
+        _synth_reference(mag[b], pre[b], pim[b], n_fft, rs, nf, None if mask is None else mask[b])
+        for b in range(mag.shape[0])
+    ])
+
+
+def phasor_istft_ola_batch(
+    mag: torch.Tensor, pre: torch.Tensor, pim: torch.Tensor, n_fft: int, rs: int,
+    nf: int, frame_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """phasor_istft_ola of every row of (B, R >= nf, n_fft//2+1) planes in
+    one launch, with an optional (B, F) frame mask (then un-normalized).
+    Returns (B, (nf-1)*rs + n_fft).
+
+    A CUDA tensor launches the pvoc_phasor_synth kernel over the batch and
+    counts one launch in `phasor_istft_ola_batch.launches`; a CPU tensor
+    runs phasor_istft_ola_batch_reference.
+    """
+    _check_synth(mag, pre, pim, n_fft, rs, nf, 3)
+    if mag.device.type == "cpu":
+        return phasor_istft_ola_batch_reference(mag, pre, pim, n_fft, rs, nf, frame_mask)
+    mask = None if frame_mask is None else _full_mask(frame_mask, (mag.shape[0],), nf, mag)
+    out = _synth_launch(mag, pre, pim, n_fft, rs, nf, mask, "phasor_istft_ola_batch")
+    phasor_istft_ola_batch.launches += 1
+    return out
+
+
+phasor_istft_ola_batch.launches = 0
+
+
+# ------------------------------------ phasor helpers of the chunked bodies
+
+
+def _cmul_norm(a: tuple, b: tuple) -> tuple:
+    """Renormalized complex product of (re, im) pairs: associative in exact
+    arithmetic (the projective U(1) product), so scan-safe; the rsqrt
+    renormalization, as the JAX helper's, stops magnitude drift."""
+    re = a[0] * b[0] - a[1] * b[1]
+    im = a[0] * b[1] + a[1] * b[0]
+    inv = torch.rsqrt(torch.clamp_min(re * re + im * im, _TINY))
+    return re * inv, im * inv
+
+
+def phasor_scan(tre: torch.Tensor, tim: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """P = renormalized inclusive prefix product of the step phasors over
+    dim 0, in the JAX package's blocked tree (ops/phase.blocked_scan) with
+    the phasor 1 as the identity. (The JAX helper pads and seeds its block
+    prefix with zeros, which annihilate under the product: past 1024 rows
+    its first block comes out 0.)"""
+    return phase.blocked_scan(_cmul_norm, (tre, tim), identity=(1.0, 0.0))
+
+
+def phasor_prefix_exclusive(
+    tre: torch.Tensor, tim: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exclusive renormalized prefix product over dim 0 (the identity
+    first): row d is the product of the per-rank phasor totals of rows < d,
+    the carry of the chunked bodies."""
+    pre, pim = phasor_scan(tre, tim)
+    return (torch.cat([torch.ones_like(tre[:1]), pre[:-1]]),
+            torch.cat([torch.zeros_like(tim[:1]), pim[:-1]]))
+
+
+def boundary_step_term(
+    u0re: torch.Tensor, u0im: torch.Tensor, upre: torch.Tensor, upim: torch.Tensor,
+    n_fft: int, ra: int, rs: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The step phasor crossing a chunk boundary: u0 a chunk's first unit
+    analysis phasor, uprev the previous chunk's last, each (..., n_fft//2+1).
+    General bins take c (u0 conj(uprev) h)^k (for integer k, where c h^k is
+    1, (u0 conj(uprev))^k, as the JAX helper), the forced-real bins
+    u0 conj(uprev) times (-1)^Rs at Nyquist."""
+    nh = n_fft // 2
+    dre = u0re * upre + u0im * upim
+    dim = u0im * upre - u0re * upim
+    if rs % ra == 0:
+        gre, gim = _pow_k(dre[..., 1:nh], dim[..., 1:nh], rs, ra)
+    else:
+        c = torch.as_tensor(_phasor_consts(n_fft, ra, rs)[:, 1:], device=u0re.device)
+        gre, gim = _step_terms(u0re[..., 1:nh], u0im[..., 1:nh], upre[..., 1:nh],
+                               upim[..., 1:nh], c, rs, ra)
+    spin = -1.0 if rs % 2 else 1.0
+    return (torch.cat([dre[..., :1], gre, dre[..., nh:] * spin], dim=-1),
+            torch.cat([dim[..., :1], gim, dim[..., nh:] * spin], dim=-1))

@@ -248,16 +248,17 @@ def _associative_scan(fn, elems: tuple) -> tuple:
     return tuple(out)
 
 
-def blocked_scan(fn, terms: tuple, block: int = 1024) -> tuple:
+def blocked_scan(fn, terms: tuple, block: int = 1024, identity: tuple | None = None) -> tuple:
     """Inclusive associative scan over dim 0 in the JAX package's two-level
     block structure.
 
-    Up to `block` rows: pad with zeros to the next power of two and scan.
-    Beyond: pad to B full blocks, scan within blocks, scan the B block
-    totals, and combine the exclusive block prefix with each block's
-    inclusive scan. `fn` must be associative with zeros as identity under
-    padding (wrap_add, wrap_add_c and plain add qualify). `terms` is a tuple
-    of tensors sharing the leading dim (e.g. the (hi, lo) pair).
+    Up to `block` rows: pad with the identity to the next power of two and
+    scan. Beyond: pad to B full blocks, scan within blocks, scan the B
+    block totals, and combine the exclusive block prefix (the identity
+    first) with each block's inclusive scan. `fn` must be associative;
+    `identity` holds its identity element, one scalar per term (default
+    zeros: wrap_add, wrap_add_c and plain add). `terms` is a tuple of
+    tensors sharing the leading dim (e.g. the (hi, lo) pair).
     """
     single = not isinstance(terms, tuple)
     if single:
@@ -265,12 +266,14 @@ def blocked_scan(fn, terms: tuple, block: int = 1024) -> tuple:
         fn_t = lambda a, b: (fn(a[0], b[0]),)  # noqa: E731
     else:
         fn_t = fn
+    if identity is None:
+        identity = (0.0,) * len(terms)
     nf = terms[0].shape[0]
 
     def pad_to(ts, rows):
         return tuple(
-            torch.cat([t, t.new_zeros((rows - nf,) + t.shape[1:])]) if rows > nf else t
-            for t in ts
+            torch.cat([t, t.new_full((rows - nf,) + t.shape[1:], v)]) if rows > nf else t
+            for t, v in zip(ts, identity)
         )
 
     if nf <= block:
@@ -286,7 +289,9 @@ def blocked_scan(fn, terms: tuple, block: int = 1024) -> tuple:
         incl = tuple(t.transpose(0, 1) for t in incl)  # (nb, block, ...)
         totals = tuple(t[:, -1] for t in incl)
         prefix = _associative_scan(fn_t, totals)
-        excl = tuple(torch.cat([torch.zeros_like(t[:1]), t[:-1]]) for t in prefix)
+        excl = tuple(
+            torch.cat([torch.full_like(t[:1], v), t[:-1]]) for t, v in zip(prefix, identity)
+        )
         out = fn_t(tuple(t.unsqueeze(1) for t in excl), incl)
         out = tuple(t.reshape((nb * block,) + t.shape[2:])[:nf] for t in out)
     return out[0] if single else out

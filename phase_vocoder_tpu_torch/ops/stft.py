@@ -16,13 +16,11 @@ caller's fold serves any synthesis hop.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from . import _build
 from .framing import frame_signal, num_frames, overlap_add
-from .fused import MAX_N_FFT, _fft_tables, fft_size_supported
+from .fused import MAX_N_FFT, _device_fft_table, fft_size_supported
 from .window import hann_window
 
 __all__ = [
@@ -49,12 +47,6 @@ def istft_ola_supported(n_fft: int, rs: int) -> bool:
     """True when the istft_ola kernel covers (n_fft, rs): the FFT's n_fft,
     and rs | n_fft with overlap >= 2, as the JAX kernel requires."""
     return fft_size_supported(n_fft) and 0 < rs and n_fft % rs == 0 and n_fft // rs >= 2
-
-
-@functools.lru_cache(maxsize=16)
-def _device_fft_table(n_fft: int, device: str) -> torch.Tensor:
-    """[Hann window | cos | sin] of ops/fused.py, float32 on `device`."""
-    return torch.as_tensor(_fft_tables(n_fft), device=device)
 
 
 def _check_cuda(t: torch.Tensor, what: str) -> None:

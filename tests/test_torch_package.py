@@ -42,6 +42,11 @@ def test_import_does_not_pull_in_jax():
     "phase_vocoder_tpu_torch.models.phase_vocoder",
     "phase_vocoder_tpu_torch.ops.fused",
     "phase_vocoder_tpu_torch.ops.stft",
+    "phase_vocoder_tpu_torch.parallel",
+    "phase_vocoder_tpu_torch.parallel.batch",
+    "phase_vocoder_tpu_torch.parallel.chunked",
+    "phase_vocoder_tpu_torch.parallel.mesh",
+    "phase_vocoder_tpu_torch.parallel.distributed",
 ])
 def test_module_imports_no_jax_orbax_or_ml_dtypes(module):
     """Neither jax, orbax nor ml_dtypes exists on the card's machine: the
