@@ -68,9 +68,30 @@ each; any failure raises and the script exits non-zero:
       batch_time_stretch_varied at 0.5/1.0/1.5/2.0, chunked_time_stretch
       (force=True) at 0.5x/2.0x, batched_chunked_time_stretch on a (1, 1)
       mesh;
+  6. (run after 4e) the select variants of the resampler, the fold
+     analysis and the FFT sizes that are not powers of two:
+     6a. kernels against their plain versions (60 s): resample_blocked,
+         select_lerp and select_lerp_two_level at -13 to +14 st and on an
+         output far past the input's end (each also <= 1e-6 from the
+         float64 resample_lerp); pvoc_fused_zrev at Rs 512/128/171, against
+         zrev=False, reruns bitwise; every FFT kernel at N = 768, 1000,
+         1536, 896 (pvoc_fused at 2.0x, 0.5x and the -7 st hop, stft_polar,
+         istft_ola, istft_frames, pvoc_terms, phasor_istft_ola); at N = 768
+         the stream bitwise equal to the monolithic kernel and the
+         64-utterance batch bitwise equal to the single kernel;
+     6b. the golden gate (60 s): time_stretch 2.0x / 0.5x and pitch_shift
+         -7 st at those four N, fused_time_stretch(zrev=True), pitch_shift
+         -7 st under each _SEL_IMPL, and (N, hop) = (1024, 320) through the
+         matmul-analysis fallback;
+     6c. at real size, with launch counts: pitch_shift -7 st on 300 s
+         under "fused", "roll2", "roll" and "matmul" (each against the
+         "mxu" result), fused_time_stretch(zrev=True) at 2.0x on 3600 s and
+         at Rs = 171 on 300 s, time_stretch 2.0x on 3600 s at N = 1536 and
+         the other three sizes beside N = 1024; then the four new kernels
+         against their plain versions at those shapes, timed;
   5. determinism: two 2.0x runs, two faithful 0.5x runs, two 3.0x
-     general-hop runs, two batch runs and two chunked 0.5x runs are
-     bitwise equal.
+     general-hop runs, two batch runs, two chunked 0.5x runs, two zrev
+     runs and two N = 1000 runs are bitwise equal.
 
 The line before the last holds the per-kernel JSON record: each kernel's
 launches on its main path, its agreement with its plain version, its time,
@@ -429,6 +450,7 @@ def main() -> int:
         fused_time_stretch_batch,
         fused_time_stretch_batch_reference,
         fused_time_stretch_reference,
+        fused_time_stretch_zrev,
         phasor_istft_ola,
         phasor_istft_ola_batch,
         phasor_istft_ola_batch_reference,
@@ -440,9 +462,17 @@ def main() -> int:
     )
     from phase_vocoder_tpu_torch.parallel import chunked
     from phase_vocoder_tpu_torch.parallel.mesh import make_mesh_2d
+    from phase_vocoder_tpu_torch.ops import resample as resample_mod
     from phase_vocoder_tpu_torch.ops.resample import (
+        block_tables,
+        resample_blocked,
+        resample_blocked_reference,
         resample_linear,
         resample_linear_reference,
+        select_lerp,
+        select_lerp_reference,
+        select_lerp_two_level,
+        select_tables,
     )
     from phase_vocoder_tpu_torch.ops.stft import (
         istft_frames,
@@ -466,6 +496,8 @@ def main() -> int:
         "istft_frames": istft_frames, "istft_frames_cart": istft_frames_cart,
         "pvoc_fused_batch": fused_time_stretch_batch, "pvoc_terms_batch": stft_phasor_terms_batch,
         "phasor_istft_ola": phasor_istft_ola, "phasor_istft_ola_batch": phasor_istft_ola_batch,
+        "pvoc_fused_zrev": fused_time_stretch_zrev, "resample_blocked": resample_blocked,
+        "select_lerp_roll2": select_lerp_two_level, "select_lerp": select_lerp,
     }
 
     # ---- 1. card, versions, build
@@ -1283,6 +1315,274 @@ def main() -> int:
                for r in ranks), f"two-rank launches: {two}")
     _emit("4e_two_ranks_one_card", card=smi, seconds=60, **two)
 
+
+    # ---- 6a. the select variants, the fold analysis and general N vs plain, 60 s
+    def sel_impl(impl, fn):
+        """fn() with the resampler's _SEL_IMPL set to impl, then restored."""
+        resample_mod._SEL_IMPL = impl
+        try:
+            return fn()
+        finally:
+            resample_mod._SEL_IMPL = "mxu"
+
+    def select_runs(y, factor, out_len):
+        """{variant: (kernel output, plain output)} of the three explicit
+        resamplers on y, each from its own tables."""
+        bt = block_tables(factor, out_len, dev)
+        t1 = select_tables(factor, out_len, len(y), "roll", dev)
+        t2 = select_tables(factor, out_len, len(y), "roll2", dev)
+        runs = {
+            "resample_blocked": (resample_blocked(y, *bt, out_len),
+                                 resample_blocked_reference(y, *bt, out_len)),
+            "select_lerp": (select_lerp(y, t1["origin"], t1["k"], t1["fr"], t1["c"]),
+                            select_lerp_reference(y, t1["origin"], t1["k"], t1["fr"], t1["c"])),
+        }
+        if "bases" in t2:
+            runs["select_lerp_roll2"] = (
+                select_lerp_two_level(y, t2["origin"], t2["bases"], t2["k"], t2["fr"], t2["c"]),
+                select_lerp_reference(y, t2["origin"], t2["k"], t2["fr"], t2["c"], t2["bases"]))
+        return runs
+
+    sel60 = {}
+    for st in (-13, -7, -5, 3.5, 5, 7, 14):
+        fac = 2.0 ** (-st / 12.0)  # what pitch_shift passes for +st
+        n_out = int(round(len(x60) * fac))
+        rec = {name: float((a - b).abs().max()) for name, (a, b) in select_runs(x60, fac, n_out).items()}
+        f64 = resample_linear_reference(x60, fac, n_out)
+        for impl in ("fused", "roll2", "roll", "matmul"):
+            a = sel_impl(impl, lambda: resample_mod._resample_strided_select(x60, fac, n_out))
+            rec[f"{impl}_vs_f64"] = float((a - f64).abs().max())
+        _check(max(rec.values()) <= 1e-6, f"select variants at {st} st: {rec}")
+        sel60[st] = rec
+    # Outputs far past the input's end: the edge clamp.
+    x_short = x60[:4000]
+    rec = {name: float((a - b).abs().max()) for name, (a, b) in select_runs(x_short, 0.75, 40000).items()}
+    f64 = resample_linear_reference(x_short, 0.75, 40000)
+    for impl in ("fused", "roll2", "roll", "matmul"):
+        a = sel_impl(impl, lambda: resample_mod._resample_strided_select(x_short, 0.75, 40000))
+        rec[f"{impl}_vs_f64"] = float((a - f64).abs().max())
+        _check(bool((a[6000:] == x_short[-1]).all()), f"{impl}: outputs past the end are not the last sample")
+    _check(max(rec.values()) <= 1e-6, f"select variants past the input's end: {rec}")
+    sel60["past_the_end"] = rec
+
+    zrev60 = {}
+    for rs in (512, 128, 171):
+        z = fused_time_stretch(x60, N_FFT, HOP, rs, zrev=True)
+        rec = {"vs_plain_rel": _rel(z, fused_time_stretch_reference(x60, N_FFT, HOP, rs, zrev=True)),
+               "vs_zrev_false_rel": _rel(z, fused_time_stretch(x60, N_FFT, HOP, rs)),
+               "rerun_bitwise": bool(torch.equal(z, fused_time_stretch(x60, N_FFT, HOP, rs, zrev=True)))}
+        _check(rec["vs_plain_rel"] < 1e-5 and rec["vs_zrev_false_rel"] < 1e-5 and rec["rerun_bitwise"],
+               f"pvoc_fused_zrev at Rs={rs}: {rec}")
+        zrev60[rs] = rec
+    _check(bool(torch.equal(fused_time_stretch(x60, 768, 256, 128, zrev=True),
+                            fused_time_stretch(x60, 768, 256, 128))), "zrev at an odd overlap is not a no-op")
+
+    # Every FFT kernel at sizes that are not powers of two. Against the
+    # plain version (cuFFT's transform of that size) the fused TSM is held
+    # to 5e-5 at every k: at integer k it reads up to 1.5e-5 on an H100
+    # (anchor phases of quiet bins), 3.6e-6 at N = 1024.
+    SIZES = ((768, 192), (1000, 250), (1536, 384), (896, 224))
+    gen_n = {}
+    for n, ra in SIZES:
+        rec = {}
+        for rs in (2 * ra, ra // 2, int(round(ra * 2.0 ** (-7 / 12)))):
+            rec[f"pvoc_fused_rs{rs}"] = _rel(fused_time_stretch(x60, n, ra, rs),
+                                             fused_time_stretch_reference(x60, n, ra, rs), n)
+            _check(rec[f"pvoc_fused_rs{rs}"] < 5e-5, f"pvoc_fused vs plain at N={n}, Rs={rs}: {rec}")
+        if n % 4 == 0:
+            rec["pvoc_fused_zrev"] = _rel(fused_time_stretch(x60, n, ra, 2 * ra, zrev=True),
+                                          fused_time_stretch_reference(x60, n, ra, 2 * ra, zrev=True), n)
+            _check(rec["pvoc_fused_zrev"] < 5e-5, f"pvoc_fused_zrev vs plain at N={n}: {rec}")
+        mp_, pp_ = stft_polar_reference(x60, n, ra)
+        rec["stft_polar"] = _spec_errors(stft_polar(x60, n, ra), (mp_, pp_))
+        _check(rec["stft_polar"]["spec_rel"] < 1e-5 and rec["stft_polar"]["mag_rel"] < 1e-5,
+               f"stft_polar vs plain at N={n}: {rec}")
+        rec["istft_ola"] = _rel(istft_ola(mp_, pp_, n, ra // 2), istft_ola_reference(mp_, pp_, n, ra // 2), n)
+        a, b = istft_frames(mp_, pp_, n), istft_frames_reference(mp_, pp_, n)
+        rec["istft_frames"] = float((a - b).abs().max() / b.abs().max())
+        kt, pt = stft_phasor_terms(x60, n, ra, 3 * ra), stft_phasor_terms_reference(x60, n, ra, 3 * ra)
+        rec["pvoc_terms"] = _weighted_phasor_err(kt, pt)
+        _check(rec["pvoc_terms"]["mag_rel"] < 1e-5 and rec["pvoc_terms"]["p_weighted"] < 1e-4,
+               f"pvoc_terms vs plain at N={n}: {rec}")
+        rec["phasor_istft_ola"] = _rel(phasor_istft_ola(*kt[:3], n, ra // 2, kt[3]),
+                                       phasor_istft_ola_reference(*kt[:3], n, ra // 2, kt[3]), n)
+        _check(max(rec["istft_ola"], rec["istft_frames"], rec["phasor_istft_ola"]) < 1e-5,
+               f"synthesis kernels vs plain at N={n}: {rec}")
+        gen_n[n] = rec
+        del mp_, pp_, a, b, kt, pt
+    # The bitwise contracts at N = 768: stream = monolithic kernel, and the
+    # 64-utterance batch's rows = the single-recording kernel.
+    cfg768 = pv.PvocConfig(n_fft=768, hop=192)
+    for s in (2.0, 0.5, 171 / 256):
+        same = torch.equal(streaming.fused_stream_time_stretch(x60, s, cfg768, segment_frames=256),
+                           fused_time_stretch(x60, 768, 192, cfg768.synthesis_hop(s)))
+        _check(same, f"kernel stream differs from the monolithic kernel at N=768, {s}x")
+    rng = np.random.default_rng(64)
+    ratios64 = [(0.5, 0.75, 1.0, 1.25, 1.5, 2.0)[i % 6] for i in range(64)]
+    xs64 = [torch.as_tensor(_signal(float(sec), seed=200 + i), dtype=torch.float32, device=dev)
+            for i, sec in enumerate(rng.uniform(5.0, 30.0, 64))]
+    for x, r, y in zip(xs64, ratios64, pv.batch_time_stretch_varied(xs64, ratios64, cfg768)):
+        _check(bool(torch.equal(y, fused_time_stretch(x, 768, 192, cfg768.synthesis_hop(r)))),
+               f"64-utterance batch at N=768: a {r}x row differs from the single kernel")
+    gen_n["bitwise_at_768"] = {"stream_vs_monolithic": True, "batch_64_rows_vs_single_kernel": True}
+    del xs64
+    _emit("6a_new_kernels_vs_plain", seconds=60, select_max_abs=sel60, pvoc_fused_zrev=zrev60,
+          general_n=gen_n, bounds={"select": 1e-6, "zrev": 1e-5, "general_n_fused": 5e-5,
+                                   "general_n_stft_and_synthesis": 1e-5})
+
+    # ---- 6b. their golden gate, 60 s
+    ngate = {}
+    for n, ra in SIZES:
+        cfg_n = pv.PvocConfig(n_fft=n, hop=ra)
+        for s in (2.0, 0.5):
+            y = pv.time_stretch(x60_np, s, cfg_n)
+            ngate[f"N{n}_stretch_{s}"] = _rel(y, pv_ref.phase_vocoder(x60_np, s, n, ra), n)
+            _check(ngate[f"N{n}_stretch_{s}"] < 1e-4, f"time_stretch {s} at N={n} vs golden: {ngate}")
+        y = pv.pitch_shift(x60_np, -7.0, cfg_n)
+        ref = pv_ref.pitch_shift(x60_np, -7.0, n, ra)
+        _check(abs(len(y) - len(ref)) <= 1, f"pitch -7 at N={n}: length {len(y)} vs {len(ref)}")
+        m_ = min(len(y), len(ref))
+        ngate[f"N{n}_pitch_-7"] = _rel(y[:m_], torch.as_tensor(ref[:m_]), n)
+        _check(ngate[f"N{n}_pitch_-7"] < 1e-3, f"pitch_shift -7 at N={n} vs golden: {ngate}")
+    for rs in (512, 128):
+        ngate[f"zrev_rs{rs}"] = _rel(fused_time_stretch(x60, N_FFT, HOP, rs, zrev=True),
+                                     pv_ref.phase_vocoder(x60_np, rs / HOP, N_FFT, HOP))
+        _check(ngate[f"zrev_rs{rs}"] < 1e-4, f"fused_time_stretch(zrev=True) at Rs={rs} vs golden: {ngate}")
+    ref = pv_ref.pitch_shift(x60_np, -7.0, N_FFT, HOP)
+    for impl in ("fused", "roll2", "roll", "matmul"):
+        y = sel_impl(impl, lambda: pv.pitch_shift(x60_np, -7.0, cfg))
+        m_ = min(len(y), len(ref))
+        ngate[f"pitch_-7_{impl}"] = _rel(y[:m_], torch.as_tensor(ref[:m_]))
+        _check(ngate[f"pitch_-7_{impl}"] < 1e-3, f"pitch_shift -7 under {impl} vs golden: {ngate}")
+    # hop does not divide N: the matmul analysis, the synthesis kernels.
+    cfg320 = pv.PvocConfig(n_fft=1024, hop=320)
+    fb_launches = {}
+    for s, expect in ((1.6, {"istft_ola": 1}), (0.5, {"istft_frames": 1})):
+        got = {}
+        fb_launches[s] = _counted(counters, lambda: got.update(y=pv.time_stretch(x60_np, s, cfg320)), expect,
+                                  f"time_stretch {s}x at (1024, 320)")
+        ngate[f"hop320_stretch_{s}"] = _rel(got["y"], pv_ref.phase_vocoder(
+            x60_np, cfg320.synthesis_hop(s) / 320, 1024, 320))
+        _check(ngate[f"hop320_stretch_{s}"] < 1e-4, f"time_stretch {s} at (1024, 320) vs golden: {ngate}")
+    _emit("6b_new_paths_golden_gate", seconds=60, rel_err=ngate, hop320_launches=fb_launches,
+          bounds={"stretch": 1e-4, "pitch": 1e-3})
+
+    # ---- 6c. the new paths at real size
+    y_mxu = pv.pitch_shift(x_pitch, -7.0, cfg)
+    own = {"fused": "resample_blocked", "roll2": "select_lerp_roll2", "roll": "select_lerp",
+           "matmul": "select_lerp"}
+    sel_main, sel_launches = {}, {}
+    for impl, kernel in own.items():
+        rec = {}
+        run = lambda: sel_impl(impl, lambda: pv.pitch_shift(x_pitch, -7.0, cfg))  # noqa: E731
+        sel_launches[impl] = _counted(counters, lambda: rec.update(ms=_time_calls(run, reps=3)),
+                                      {"pvoc_fused": 4, kernel: 4}, f"pitch_shift -7 st under {impl}")
+        rec["audio_s_per_s"] = [300.0 / (ms / 1e3) for ms in rec["ms"]]
+        rec["max_abs_vs_mxu"] = _max_abs(run(), y_mxu)
+        _check(rec["max_abs_vs_mxu"] <= 1e-6, f"pitch_shift -7 st under {impl} vs mxu: {rec}")
+        sel_main[impl] = rec
+    sel_main["mxu_ms"] = _time_calls(lambda: pv.pitch_shift(x_pitch, -7.0, cfg), reps=3)
+    del y_mxu
+
+    zr = {}
+    zr_launches = {}
+    for name, x, rs, secs in (("2x_3600s", x_long, 512, 3600.0), ("rs171_300s", x_pitch, rs_pitch, 300.0)):
+        rec = {}
+        run = lambda: fused_time_stretch(x, N_FFT, HOP, rs, zrev=True)  # noqa: E731
+        zr_launches[name] = _counted(counters, lambda: rec.update(ms=_time_calls(run, reps=3)),
+                                     {"pvoc_fused_zrev": 4}, f"fused_time_stretch(zrev=True) {name}")
+        z = run()
+        zp = fused_time_stretch_reference(x, N_FFT, HOP, rs, zrev=True)
+        rec.update(audio_s_per_s=[secs / (ms / 1e3) for ms in rec["ms"]],
+                   rel=_rel(z, zp), max_abs=_max_abs(z, zp),
+                   vs_zrev_false_rel=_rel(z, fused_time_stretch(x, N_FFT, HOP, rs)),
+                   zrev_false_ms=_time_calls(lambda: fused_time_stretch(x, N_FFT, HOP, rs), reps=3),
+                   rerun_bitwise=bool(torch.equal(z, run())))
+        del z, zp
+        rec["plain_ms"] = _time_ms(lambda: fused_time_stretch_reference(x, N_FFT, HOP, rs, zrev=True), reps=1)
+        rec.update(_bound(4 * (len(x) + (((len(x) - N_FFT) // HOP) * rs + N_FFT)),
+                          2 * ((len(x) - N_FFT) // HOP + 1) * _FFT_FLOP))
+        bound = 1e-5 if rs % HOP == 0 else 5e-5
+        _check(rec["vs_zrev_false_rel"] < bound and rec["rerun_bitwise"], f"pvoc_fused_zrev, {name}: {rec}")
+        if rs % HOP:
+            # q >= 2 at 300 s: on the chirp two f32 analyses part at a branch
+            # choice of a quiet bin that later turns loud (as in 4c), so the
+            # plain version's distance there is recorded, and the kernel is
+            # held to it on stationary tones. There P is a product over
+            # 18,747 frames whose step terms differ by ~1e-7 rad between two
+            # f32 analyses, a walk like sqrt(frames) (as pvoc_terms in 4d):
+            # 8.1e-5 read on an H100, so 2e-4, with the zrev=False pair's
+            # distance on the same tones beside it.
+            rec["chirp_plain_rel_recorded"] = rec.pop("rel")
+            x_t = torch.as_tensor(_tones(secs), dtype=torch.float32, device=dev)
+            rec["rel"] = _rel(fused_time_stretch(x_t, N_FFT, HOP, rs, zrev=True),
+                              fused_time_stretch_reference(x_t, N_FFT, HOP, rs, zrev=True))
+            rec["tones_zrev_false_vs_plain_rel"] = _rel(fused_time_stretch(x_t, N_FFT, HOP, rs),
+                                                        fused_time_stretch_reference(x_t, N_FFT, HOP, rs))
+            bound = 2e-4
+            del x_t
+        _check(rec["rel"] < bound, f"pvoc_fused_zrev vs plain, {name}: {rec}")
+        rec["ms"] = sum(rec["ms"]) / len(rec["ms"])
+        zr[name] = rec
+
+    # 2.0x on 3600 s at each FFT size, hop N/4, through time_stretch.
+    sizes_main, sizes_launches = {}, {}
+    for n, ra in ((1024, 256),) + SIZES:
+        cfg_n = pv.PvocConfig(n_fft=n, hop=ra)
+        rec = {"frames": (len(x_long) - n) // ra + 1, "radices": "2" if n == 1024 else "mixed"}
+        sizes_launches[n] = _counted(
+            counters, lambda: rec.update(ms=_time_calls(lambda: pv.time_stretch(x_long, 2.0, cfg_n), reps=3)),
+            {"pvoc_fused": 4}, f"time_stretch 2.0x on 3600 s at N={n}")
+        rec["audio_s_per_s"] = [3600.0 / (ms / 1e3) for ms in rec["ms"]]
+        rec["ns_per_frame"] = min(rec["ms"]) * 1e6 / rec["frames"]
+        y = pv.time_stretch(x_long, 2.0, cfg_n)
+        _check(len(y) == pv.stretch_output_length(len(x_long), cfg_n, 2.0) and bool(torch.isfinite(y).all()),
+               f"time_stretch 2.0x on 3600 s at N={n}: output")
+        if n == 1536:
+            rec["rel_vs_plain"] = _rel(y, fused_time_stretch_reference(x_long, n, ra, 2 * ra), n)
+            _check(rec["rel_vs_plain"] < 5e-5, f"pvoc_fused vs plain at N=1536 / 3600 s: {rec}")
+        del y
+        sizes_main[n] = rec
+
+    # The three explicit resamplers at the -7 st / 300 s shape, timed.
+    y_st = fused_time_stretch(x_pitch, N_FFT, HOP, rs_pitch)
+    out_len = int(round(len(y_st) / factor))
+    bt = block_tables(1.0 / factor, out_len, dev)
+    t1 = select_tables(1.0 / factor, out_len, len(y_st), "roll", dev)
+    t2 = select_tables(1.0 / factor, out_len, len(y_st), "roll2", dev)
+    nb_sel = t1["k"].shape[0]
+    lib_ms = _time_ms(lambda: torch.nn.functional.interpolate(
+        y_st[None, None], size=out_len, mode="linear", align_corners=True), reps=20)
+    sel_k = {}
+    for name, kern, plain, moved in (
+        ("resample_blocked", lambda: resample_blocked(y_st, *bt, out_len),
+         lambda: resample_blocked_reference(y_st, *bt, out_len),
+         4 * (len(y_st) + out_len) + 12 * nb_sel + 8 * 512),
+        ("select_lerp", lambda: select_lerp(y_st, t1["origin"], t1["k"], t1["fr"], t1["c"]),
+         lambda: select_lerp_reference(y_st, t1["origin"], t1["k"], t1["fr"], t1["c"]),
+         4 * (len(y_st) + 3 * t1["k"].numel()) + 8 * nb_sel),
+        ("select_lerp_roll2",
+         lambda: select_lerp_two_level(y_st, t2["origin"], t2["bases"], t2["k"], t2["fr"], t2["c"]),
+         lambda: select_lerp_reference(y_st, t2["origin"], t2["k"], t2["fr"], t2["c"], t2["bases"]),
+         4 * (len(y_st) + 3 * t2["k"].numel() + t2["bases"].numel()) + 8 * nb_sel),
+    ):
+        a, b = kern().reshape(-1)[:out_len], plain().reshape(-1)[:out_len]
+        rec = {"max_abs": _max_abs(a, b), "bitwise_vs_plain": bool(torch.equal(a, b)),
+               "ms": _time_ms(kern, reps=20), "plain_ms": _time_ms(plain, reps=5), "library_ms": lib_ms,
+               **_bound(moved, 3 * out_len), "n_in": len(y_st), "n_out": out_len}
+        _check(rec["max_abs"] <= 1e-6, f"{name} vs plain at the -7 st shape: {rec}")
+        sel_k[name] = rec
+        del a, b
+    sel_k["tables_ms"] = {"block_tables": _time_ms(lambda: block_tables(1.0 / factor, out_len, dev), reps=5),
+                          "select_tables_roll": _time_ms(
+                              lambda: select_tables(1.0 / factor, out_len, len(y_st), "roll", dev), reps=5),
+                          "select_tables_roll2": _time_ms(
+                              lambda: select_tables(1.0 / factor, out_len, len(y_st), "roll2", dev), reps=5)}
+    del y_st, bt, t1, t2
+    _emit("6c_new_paths_main_size", card=smi, pitch_m7_300s_by_select=sel_main, select_launches=sel_launches,
+          zrev=zr, zrev_launches=zr_launches, stretch_2x_3600s_by_n_fft=sizes_main,
+          sizes_launches=sizes_launches, select_kernels_m7_300s=sel_k)
+
     # ---- 5. determinism
     a = pv.time_stretch(x60, 2.0, cfg)
     b = pv.time_stretch(x60, 2.0, cfg)
@@ -1300,9 +1600,17 @@ def main() -> int:
     a = chunked.chunked_time_stretch(x60, 0.5, cfg, force=True)
     b = chunked.chunked_time_stretch(x60, 0.5, cfg, force=True)
     _check(bool(torch.equal(a, b)), "two chunked 0.5x runs differ")
+    a = fused_time_stretch(x60, N_FFT, HOP, 171, zrev=True)
+    b = fused_time_stretch(x60, N_FFT, HOP, 171, zrev=True)
+    _check(bool(torch.equal(a, b)), "two zrev runs differ")
+    cfg1000 = pv.PvocConfig(n_fft=1000, hop=250)
+    a = pv.time_stretch(x60, 0.5, cfg1000)
+    b = pv.time_stretch(x60, 0.5, cfg1000)
+    _check(bool(torch.equal(a, b)), "two N = 1000 runs differ")
     _emit("5_determinism", bitwise_equal={"fused_2.0x": True, "faithful_0.5x": True,
                                           "general_3.0x": True, "batch_varied": True,
-                                          "chunked_0.5x": True})
+                                          "chunked_0.5x": True, "zrev_rs171": True,
+                                          "n1000_0.5x": True})
 
     def _row(name, source, replaces, launches, rec, max_abs, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"phase_vocoder_tpu_torch/csrc/{source}",
@@ -1339,6 +1647,16 @@ def main() -> int:
              ch["0.5x_3600s"]["launches"]["phasor_istft_ola"], synth_main, synth_main["max_abs"]),
         _row("phasor_istft_ola_batch", "pvoc_fused.cu", "ops/pallas/fused.py:1021",
              bc["0.5x"]["launches"]["phasor_istft_ola_batch"], sb_main, sb_main["max_abs"]),
+        _row("pvoc_fused_zrev", "pvoc_fused.cu", "ops/pallas/fused.py:1569",
+             zr_launches["2x_3600s"]["pvoc_fused_zrev"], zr["2x_3600s"], zr["2x_3600s"]["max_abs"]),
+        _row("resample_blocked", "resample.cu", "ops/resample.py:715",
+             sel_launches["fused"]["resample_blocked"], sel_k["resample_blocked"],
+             sel_k["resample_blocked"]["max_abs"]),
+        _row("select_lerp_roll2", "resample.cu", "ops/resample.py:786",
+             sel_launches["roll2"]["select_lerp_roll2"], sel_k["select_lerp_roll2"],
+             sel_k["select_lerp_roll2"]["max_abs"]),
+        _row("select_lerp", "resample.cu", "ops/resample.py:662",
+             sel_launches["matmul"]["select_lerp"], sel_k["select_lerp"], sel_k["select_lerp"]["max_abs"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,7 @@ from .utils.metrics import audio_seconds_per_second, emit_metric
 
 
 def _add_dsp_args(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--n-fft", type=int, default=1024, help="FFT size N")
+    p.add_argument("--n-fft", type=int, default=1024, help="FFT size N (even; up to 4096 on the fused backend)")
     p.add_argument("--hop", type=int, default=256, help="analysis hop Ra")
     p.add_argument(
         "--float32", action="store_true",

@@ -6,8 +6,12 @@
 //   * _pvoc_kernel (the single-recording Pallas kernel) and its tile body
 //     _pvoc_tile, as wrapped by fused_time_stretch -> pvoc_fused below.
 //     Raw samples in, normalized stretched waveform of length
-//     (nf-1)*Rs + N out, for Ra | N and any 0 < Rs <= N/2; N a power of
-//     two up to 4096;
+//     (nf-1)*Rs + N out, for Ra | N and any 0 < Rs <= N/2; N even, up to
+//     4096;
+//   * _pvoc_kernel_z (fused_time_stretch(zrev=True)) -> pvoc_fused_zrev
+//     below: the same TSM with the analysis through the fold pass (a'),
+//     which uses the frame's real symmetry to halve the transform, where
+//     the TPU body's even/odd fold halves its DFT matrices;
 //   * _pvoc_kernel_batched, as wrapped by fused_time_stretch_batch ->
 //     pvoc_fused_batch below: the same TSM over the rows of a (B, T)
 //     batch, each row with its own frame count (ragged), its own anchor,
@@ -30,9 +34,10 @@
 //     frame mask) not.
 //
 // What bounds it here: device memory traffic. The TPU kernel spends its
-// time in DFT matrix products on the MXU; here each frame's DFT is a
-// radix-2 FFT in shared memory in FP32 (~5 N log2 N FLOP per transform,
-// about a hundredth of a matrix DFT), so the passes are bound by the
+// time in DFT matrix products on the MXU; here each frame's DFT is an FFT
+// in shared memory in FP32 (fft_common.cuh: radix 2 for a power-of-two N,
+// ~5 N log2 N FLOP per transform, about a hundredth of a matrix DFT; mixed
+// radix for any other even N), so the passes are bound by the
 // spectra (nf x (N+2) floats, written and read twice) and the windowed
 // frames (nf x N floats) that go through device memory between launches.
 // FP32 FMA, no tensor cores: the forward transform feeds the unit phasors,
@@ -47,6 +52,18 @@
 //       the load), multiplies by the Hann window and runs the FFT of
 //       fft_common.cuh with f64-built twiddles; bins 0..N/2 go to the
 //       spectrum row;
+//   (a') fold analysis (pvoc_fused_zrev, N a multiple of 4): the windowed
+//       frame's even- and odd-indexed samples are packed as one complex
+//       sequence z[n] = g[2n] + i g[2n+1] of length N/2, transformed by an
+//       N/2-point FFT, and split with a post-twiddle:
+//       X[k] = (Z[k] + conj Z[N/2-k])/2 - i W^k (Z[k] - conj Z[N/2-k])/2,
+//       W = e^{-2 pi i / N}. The TPU body folds with E = w (f[t] + f[N-t])
+//       and O = w (f[t] - f[N-t]) because that halves its cos and sin
+//       matrices; an FFT gains nothing from E and O (each still needs a
+//       full-length transform), while the packed form halves the butterfly
+//       work and the shared memory, so the packed form is the one used.
+//       The frame is read straight from x: no reversed or packed copy of
+//       the signal reaches device memory;
 //   (b) phase: elementwise per (frame, bin). Integer k = Rs/Ra uses the
 //       closed form P_i = u_0 (u_i conj u_0)^k, which needs only frame 0.
 //       q >= 2 builds the step terms, then a three-pass chunked prefix
@@ -94,7 +111,8 @@ struct Geo {
   int64_t nf_total;  // frames of the recording (normalization rows)
   int started;       // 0 only before the recording's first frame
   int n_fft;
-  int log2n;
+  FftPlan fft;   // the N-point transform
+  FftPlan half;  // the N/2-point transform of the fold analysis
   int nh;     // N/2: general bins are 1..nh-1, Nyquist is nh
   int nb;     // bins per row, nh+1; a spectrum row is [re(nb) | im(nb)]
   int ra, rs;
@@ -123,6 +141,7 @@ struct Lanes {
 };
 
 // (a) One block per frame: spec[i] = rfft(x[i*Ra : i*Ra+N] * w).
+template <bool kPow2>
 __global__ void __launch_bounds__(kThreads)
 fft_analysis(const float* __restrict__ x, const float* __restrict__ win,
              const float* __restrict__ twc, const float* __restrict__ tws,
@@ -135,12 +154,12 @@ fft_analysis(const float* __restrict__ x, const float* __restrict__ win,
   if (i >= row_frames(g, bat)) return;
   const float* xf = x + bat * g.x_stride + i * g.ra;
   for (int t = threadIdx.x; t < g.n_fft; t += blockDim.x) {
-    const int r = bitrev(t, g.log2n);
+    const int r = fft_slot<kPow2>(t, g.fft);
     sr[r] = xf[t] * win[t];
     si[r] = 0.f;
   }
   __syncthreads();
-  fft_shared(sr, si, g.n_fft, twc, tws, -1.f);
+  fft_run<kPow2>(sr, si, g.fft, twc, tws, -1.f);
   float* row = spec + (bat * g.nf + i) * 2 * g.nb;
   for (int k = threadIdx.x; k < g.nb; k += blockDim.x) {
     row[k] = sr[k];
@@ -148,8 +167,51 @@ fft_analysis(const float* __restrict__ x, const float* __restrict__ win,
   }
 }
 
+// (a') One block per frame, the fold analysis: the same spectrum row from
+// an N/2-point transform of z[n] = g[2n] + i g[2n+1], g = x w, split with
+// the post-twiddle W^k = twc[k] - i tws[k] (k < N/2; W^(N/2) = -1).
+// hwc/hws are the twiddles of the N/2-point transform.
+template <bool kPow2>
+__global__ void __launch_bounds__(kThreads)
+fft_analysis_fold(const float* __restrict__ x, const float* __restrict__ win,
+                  const float* __restrict__ twc,
+                  const float* __restrict__ tws,
+                  const float* __restrict__ hwc,
+                  const float* __restrict__ hws, float* __restrict__ spec,
+                  Geo g) {
+  extern __shared__ float sm[];
+  const int L = g.nh;
+  float* sr = sm;
+  float* si = sm + L;
+  const int bat = blockIdx.y;
+  const int64_t i = blockIdx.x;
+  if (i >= row_frames(g, bat)) return;
+  const float* xf = x + bat * g.x_stride + i * g.ra;
+  for (int t = threadIdx.x; t < L; t += blockDim.x) {
+    const int r = fft_slot<kPow2>(t, g.half);
+    sr[r] = xf[2 * t] * win[2 * t];
+    si[r] = xf[2 * t + 1] * win[2 * t + 1];
+  }
+  __syncthreads();
+  fft_run<kPow2>(sr, si, g.half, hwc, hws, -1.f);
+  float* row = spec + (bat * g.nf + i) * 2 * g.nb;
+  for (int k = threadIdx.x; k <= L; k += blockDim.x) {
+    const int a = k == L ? 0 : k;
+    const int b = k == 0 ? 0 : L - k;
+    const float zr = sr[a], zi = si[a];
+    const float mr = sr[b], mi = -si[b];  // conj Z[N/2 - k]
+    const float er = 0.5f * (zr + mr), ei = 0.5f * (zi + mi);
+    const float pr = 0.5f * (zi - mi), pi = -0.5f * (zr - mr);
+    const float wr = k < L ? twc[k] : -1.f;
+    const float wi = k < L ? -tws[k] : 0.f;
+    row[k] = er + (pr * wr - pi * wi);
+    row[g.nb + k] = ei + (pr * wi + pi * wr);
+  }
+}
+
 // (c) One block per frame: frames[i] = w * irfft(Y_i) (imaginary parts of
 // DC and Nyquist are zero by construction).
+template <bool kPow2>
 __global__ void __launch_bounds__(kThreads)
 fft_synthesis(const float* __restrict__ y, const float* __restrict__ win,
               const float* __restrict__ twc, const float* __restrict__ tws,
@@ -163,7 +225,7 @@ fft_synthesis(const float* __restrict__ y, const float* __restrict__ win,
   const int64_t fr = bat * g.nf + i;
   const float* row = y + fr * 2 * g.nb;
   for (int k = threadIdx.x; k < g.n_fft; k += blockDim.x) {
-    const int r = bitrev(k, g.log2n);
+    const int r = fft_slot<kPow2>(k, g.fft);
     if (k <= g.nh) {
       sr[r] = row[k];
       si[r] = row[g.nb + k];
@@ -173,7 +235,7 @@ fft_synthesis(const float* __restrict__ y, const float* __restrict__ win,
     }
   }
   __syncthreads();
-  fft_shared(sr, si, g.n_fft, twc, tws, 1.f);
+  fft_run<kPow2>(sr, si, g.fft, twc, tws, 1.f);
   const float scale = 1.f / g.n_fft;
   float* out = frames + fr * g.n_fft;
   for (int t = threadIdx.x; t < g.n_fft; t += blockDim.x) {
@@ -632,6 +694,48 @@ __global__ void ola_gather(const float* __restrict__ frames,
   ob[n] = acc * norm[nrow * g.rs + t];
 }
 
+// The analysis (the fold pass when fft_half, the table of the N/2-point
+// transform, is given) and the synthesis over `grid` frames, each in the
+// instantiation of its plan's body.
+void launch_analysis(const float* x, const float* fft, const float* fft_half,
+                     float* spec, const Geo& g, dim3 grid,
+                     cudaStream_t stream) {
+  const float* twc = fft + g.n_fft;
+  const float* tws = fft + g.n_fft + g.nh;
+  const size_t smem = 2 * g.n_fft * sizeof(float);
+  if (fft_half != nullptr) {
+    const float* hwc = fft_half + g.nh;
+    const float* hws = fft_half + g.nh + g.nh / 2;
+    if (g.half.log2n > 0) {
+      fft_analysis_fold<true><<<grid, kThreads, smem / 2, stream>>>(
+          x, fft, twc, tws, hwc, hws, spec, g);
+    } else {
+      fft_analysis_fold<false><<<grid, kThreads, smem / 2, stream>>>(
+          x, fft, twc, tws, hwc, hws, spec, g);
+    }
+  } else if (g.fft.log2n > 0) {
+    fft_analysis<true><<<grid, kThreads, smem, stream>>>(x, fft, twc, tws,
+                                                         spec, g);
+  } else {
+    fft_analysis<false><<<grid, kThreads, smem, stream>>>(x, fft, twc, tws,
+                                                          spec, g);
+  }
+}
+
+void launch_synthesis(const float* y, const float* fft, float* frames,
+                      const Geo& g, dim3 grid, cudaStream_t stream) {
+  const float* twc = fft + g.n_fft;
+  const float* tws = fft + g.n_fft + g.nh;
+  const size_t smem = 2 * g.n_fft * sizeof(float);
+  if (g.fft.log2n > 0) {
+    fft_synthesis<true><<<grid, kThreads, smem, stream>>>(y, fft, twc, tws,
+                                                          frames, g);
+  } else {
+    fft_synthesis<false><<<grid, kThreads, smem, stream>>>(y, fft, twc, tws,
+                                                           frames, g);
+  }
+}
+
 unsigned blocks_for(int64_t n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
@@ -650,7 +754,8 @@ Geo make_geo(long long nf, int n_fft, int ra, int rs, int p, int q, int alg,
   g.nf_total = nf;
   g.started = 0;
   g.n_fft = n_fft;
-  g.log2n = log2_int(n_fft);
+  g.fft = make_fft_plan(n_fft);
+  g.half = make_fft_plan(n_fft % 4 == 0 ? n_fft / 2 : 1);
   g.nh = n_fft / 2;
   g.nb = g.nh + 1;
   g.ra = ra;
@@ -681,26 +786,23 @@ cudaError_t run_scan(float* y, float* tot, float* carry,
 
 // The TSM passes over g.nf frames of each batch row of x (any of them may
 // be 0), then the gather of n_out samples per row. carry_in/carry_out/
-// tail_in/tail_out are null for whole recordings.
+// tail_in/tail_out are null for whole recordings. With fft_half (the table
+// of the N/2-point transform) the analysis is the fold pass.
 cudaError_t run_tsm(const float* x, float* out, float* tail_out,
                     float* carry_out, float* spec, float* y, float* frames,
                     float* tot, float* carry, const float* fft,
-                    const float* consts, const float* norm_rows,
+                    const float* fft_half, const float* consts,
+                    const float* norm_rows,
                     const float* carry_in, const float* tail_in,
                     int64_t n_out, int64_t n_main, const Geo& g,
                     cudaStream_t stream) {
-  const float* win = fft;
-  const float* twc = fft + g.n_fft;
-  const float* tws = fft + g.n_fft + g.nh;
   const int m = (g.n_fft + g.rs - 1) / g.rs;
   const int ng = g.nh - 1;
-  const size_t smem = 2 * g.n_fft * sizeof(float);
   const dim3 per_frame((unsigned)g.nf, (unsigned)g.batch);
   cudaError_t err;
 
   if (g.nf > 0) {
-    fft_analysis<<<per_frame, kThreads, smem, stream>>>(x, win, twc, tws,
-                                                        spec, g);
+    launch_analysis(x, fft, fft_half, spec, g, per_frame, stream);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     if (carry_out != nullptr) {
       carry_phasor<<<blocks_for(ng, kThreads), kThreads, 0, stream>>>(
@@ -723,8 +825,7 @@ cudaError_t run_tsm(const float* x, float* out, float* tail_out,
           spec, carry, y, g, L);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
-    fft_synthesis<<<per_frame, kThreads, smem, stream>>>(y, win, twc, tws,
-                                                         frames, g);
+    launch_synthesis(y, fft, frames, g, per_frame, stream);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   } else if (carry_out != nullptr) {  // a segment past the last frame
     err = cudaMemcpyAsync(carry_out, carry_in, 4 * ng * sizeof(float),
@@ -759,8 +860,27 @@ extern "C" int pvoc_fused(const float* x, float* out, float* spec, float* y,
   const Geo g = make_geo(nf, n_fft, ra, rs, p, q, alg, chunk, kf);
   const int64_t out_len = (nf - 1) * (int64_t)rs + n_fft;
   return run_tsm(x, out, nullptr, nullptr, spec, y, frames, tot, carry, fft,
-                 consts, norm_rows, nullptr, nullptr, out_len, out_len, g,
-                 stream);
+                 nullptr, consts, norm_rows, nullptr, nullptr, out_len,
+                 out_len, g, stream);
+}
+
+// pvoc_fused with the fold analysis: fft_half (n_fft) = [Hann window
+// (n_fft/2, unused) | cos (n_fft/4) | sin (n_fft/4)], the table of the
+// n_fft/2-point transform. n_fft a multiple of 4.
+extern "C" int pvoc_fused_zrev(const float* x, float* out, float* spec,
+                               float* y, float* frames, float* tot,
+                               float* carry, const float* fft,
+                               const float* fft_half, const float* consts,
+                               const float* norm_rows, long long nf,
+                               int n_fft, int ra, int rs, int p, int q,
+                               int alg, int chunk, float kf,
+                               cudaStream_t stream) {
+  if (n_fft % 4 != 0 || fft_half == nullptr) return cudaErrorInvalidValue;
+  const Geo g = make_geo(nf, n_fft, ra, rs, p, q, alg, chunk, kf);
+  const int64_t out_len = (nf - 1) * (int64_t)rs + n_fft;
+  return run_tsm(x, out, nullptr, nullptr, spec, y, frames, tot, carry, fft,
+                 fft_half, consts, norm_rows, nullptr, nullptr, out_len,
+                 out_len, g, stream);
 }
 
 // The TSM of every row of a (batch, x_stride) signal, row b's first
@@ -782,8 +902,8 @@ extern "C" int pvoc_fused_batch(
   const int m = (n_fft + rs - 1) / rs;
   const int64_t out_len = (nf + m - 1) * (int64_t)rs;
   return run_tsm(x, out, nullptr, nullptr, spec, y, frames, tot, carry, fft,
-                 consts, norm_stack, nullptr, nullptr, out_len, out_len, g,
-                 stream);
+                 nullptr, consts, norm_stack, nullptr, nullptr, out_len,
+                 out_len, g, stream);
 }
 
 // One segment of F frames starting at global frame goff, of which
@@ -813,7 +933,7 @@ extern "C" int pvoc_fused_segment(
   const int m = (n_fft + rs - 1) / rs;
   const int64_t n_main = seg_frames * (int64_t)rs;
   return run_tsm(x_seg, out, tail_out, carry_out, spec, y, frames, tot,
-                 carry, fft, consts, norm_rows, carry_in, tail_in,
+                 carry, fft, nullptr, consts, norm_rows, carry_in, tail_in,
                  n_main + (int64_t)(m - 1) * rs, n_main, g, stream);
 }
 
@@ -831,10 +951,9 @@ extern "C" int pvoc_terms(const float* x, float* spec, float* mag, float* t,
   Geo g = make_geo(nf, n_fft, ra, rs, p, q, alg, chunk, kf);
   g.batch = batch;
   g.x_stride = x_stride;
-  const size_t smem = 2 * n_fft * sizeof(float);
   cudaError_t err;
-  fft_analysis<<<dim3((unsigned)nf, (unsigned)batch), kThreads, smem,
-                 stream>>>(x, fft, fft + n_fft, fft + n_fft + g.nh, spec, g);
+  launch_analysis(x, fft, nullptr, spec, g,
+                  dim3((unsigned)nf, (unsigned)batch), stream);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   terms_all<<<grid_for(nf * g.nb, g), kThreads, 0, stream>>>(spec, consts,
                                                              mag, t, u, g);
@@ -865,14 +984,12 @@ extern "C" int pvoc_phasor_synth(const float* mag, const float* pre,
   g.batch = batch;
   const int m = n_fft / rs;
   const int64_t out_len = (nf - 1) * (int64_t)rs + n_fft;
-  const size_t smem = 2 * n_fft * sizeof(float);
   cudaError_t err;
   phasor_y<<<grid_for(nf * g.nb, g), kThreads, 0, stream>>>(mag, pre, pim,
                                                             mask, y, g);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  fft_synthesis<<<dim3((unsigned)nf, (unsigned)batch), kThreads, smem,
-                  stream>>>(y, fft, fft + n_fft, fft + n_fft + g.nh, frames,
-                            g);
+  launch_synthesis(y, fft, frames, g, dim3((unsigned)nf, (unsigned)batch),
+                   stream);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   ola_gather<<<grid_for(out_len, g), kThreads, 0, stream>>>(
       frames, norm_rows, nullptr, out, nullptr, out_len, out_len, g, m);

@@ -15,8 +15,9 @@
 //     a flag for the input form).
 //
 // What bounds them here: device memory traffic. Each frame's DFT is the
-// radix-2 FFT of fft_common.cuh in shared memory (~5 N log2 N FLOP, a
-// hundredth of the TPU kernels' matrix DFTs), so the time goes to reading
+// FFT of fft_common.cuh in shared memory (radix 2 for a power-of-two N,
+// ~5 N log2 N FLOP, a hundredth of the TPU kernels' matrix DFTs; mixed
+// radix for any other even N up to 4096), so the time goes to reading
 // the signal or the (nf, N/2+1) magnitude and phase tensors and writing
 // their counterparts. FP32 FMA, no tensor cores: the phases feed the
 // branch-faithful phase scan, whose point is to follow the float64 golden
@@ -53,23 +54,25 @@ namespace {
 constexpr int kThreads = 256;
 
 // One block per frame: (mag, phi)[i] = polar(rfft(x[i*hop : i*hop+N] * w)).
+template <bool kPow2>
 __global__ void __launch_bounds__(kThreads)
 stft_polar_kernel(const float* __restrict__ x, const float* __restrict__ win,
                   const float* __restrict__ twc,
                   const float* __restrict__ tws, float* __restrict__ mag,
-                  float* __restrict__ phi, int n_fft, int log2n, int hop) {
+                  float* __restrict__ phi, FftPlan plan, int hop) {
   extern __shared__ float sm[];
+  const int n_fft = plan.n;
   float* sr = sm;
   float* si = sm + n_fft;
   const int64_t i = blockIdx.x;
   const float* xf = x + i * hop;
   for (int t = threadIdx.x; t < n_fft; t += blockDim.x) {
-    const int r = bitrev(t, log2n);
+    const int r = fft_slot<kPow2>(t, plan);
     sr[r] = xf[t] * win[t];
     si[r] = 0.f;
   }
   __syncthreads();
-  fft_shared(sr, si, n_fft, twc, tws, -1.f);
+  fft_run<kPow2>(sr, si, plan, twc, tws, -1.f);
   const int nb = n_fft / 2 + 1;
   float* mrow = mag + i * nb;
   float* prow = phi + i * nb;
@@ -84,6 +87,7 @@ stft_polar_kernel(const float* __restrict__ x, const float* __restrict__ win,
 // frames[i] = w * irfft(Y_i) with the imaginary parts of DC and Nyquist
 // dropped, where Y_i = mask_i * a_i * e^{i b_i} (polar: a = mag, b = psi)
 // or mask_i * (a_i + i b_i) (cartesian: a = re, b = im).
+template <bool kPow2>
 __global__ void __launch_bounds__(kThreads)
 istft_frames_kernel(const float* __restrict__ a,
                     const float* __restrict__ b,
@@ -91,9 +95,9 @@ istft_frames_kernel(const float* __restrict__ a,
                     const float* __restrict__ win,
                     const float* __restrict__ twc,
                     const float* __restrict__ tws,
-                    float* __restrict__ frames, int n_fft, int log2n,
-                    int polar) {
+                    float* __restrict__ frames, FftPlan plan, int polar) {
   extern __shared__ float sm[];
+  const int n_fft = plan.n;
   float* sr = sm;
   float* si = sm + n_fft;
   const int64_t i = blockIdx.x;
@@ -114,19 +118,19 @@ istft_frames_kernel(const float* __restrict__ a,
       re = arow[k] * mk;
       im = brow[k] * mk;
     }
-    const int r = bitrev(k, log2n);
+    const int r = fft_slot<kPow2>(k, plan);
     sr[r] = re;
     if (k == 0 || k == nh) {
       si[r] = 0.f;
     } else {
       si[r] = im;
-      const int rm = bitrev(n_fft - k, log2n);  // Hermitian half: conj(Y[k])
+      const int rm = fft_slot<kPow2>(n_fft - k, plan);  // Hermitian half: conj(Y[k])
       sr[rm] = re;
       si[rm] = -im;
     }
   }
   __syncthreads();
-  fft_shared(sr, si, n_fft, twc, tws, 1.f);
+  fft_run<kPow2>(sr, si, plan, twc, tws, 1.f);
   const float scale = 1.f / n_fft;
   float* out = frames + i * n_fft;
   for (int t = threadIdx.x; t < n_fft; t += blockDim.x) {
@@ -157,18 +161,43 @@ unsigned blocks_for(int64_t n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
+// istft_frames_kernel over nf frames, in the instantiation of n_fft's plan.
+cudaError_t launch_frames(const float* a, const float* b, const float* mask,
+                          const float* fft, float* frames, long long nf,
+                          int n_fft, int polar, cudaStream_t stream) {
+  const size_t smem = 2 * n_fft * sizeof(float);
+  const FftPlan plan = make_fft_plan(n_fft);
+  const float* twc = fft + n_fft;
+  const float* tws = fft + n_fft + n_fft / 2;
+  if (plan.log2n > 0) {
+    istft_frames_kernel<true><<<(unsigned)nf, kThreads, smem, stream>>>(
+        a, b, mask, fft, twc, tws, frames, plan, polar);
+  } else {
+    istft_frames_kernel<false><<<(unsigned)nf, kThreads, smem, stream>>>(
+        a, b, mask, fft, twc, tws, frames, plan, polar);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x holds >= (nf-1)*hop + n_fft float32 samples; fft (2*n_fft) =
 // [Hann window (n_fft) | cos (n_fft/2) | sin (n_fft/2)]; mag and phi are
-// (nf, n_fft/2+1). n_fft a power of two up to 4096.
+// (nf, n_fft/2+1). n_fft even, up to 4096.
 extern "C" int stft_polar(const float* x, const float* fft, float* mag,
                           float* phi, long long nf, int n_fft, int hop,
                           cudaStream_t stream) {
   const size_t smem = 2 * n_fft * sizeof(float);
-  stft_polar_kernel<<<(unsigned)nf, kThreads, smem, stream>>>(
-      x, fft, fft + n_fft, fft + n_fft + n_fft / 2, mag, phi, n_fft,
-      log2_int(n_fft), hop);
+  const FftPlan plan = make_fft_plan(n_fft);
+  const float* twc = fft + n_fft;
+  const float* tws = fft + n_fft + n_fft / 2;
+  if (plan.log2n > 0) {
+    stft_polar_kernel<true><<<(unsigned)nf, kThreads, smem, stream>>>(
+        x, fft, twc, tws, mag, phi, plan, hop);
+  } else {
+    stft_polar_kernel<false><<<(unsigned)nf, kThreads, smem, stream>>>(
+        x, fft, twc, tws, mag, phi, plan, hop);
+  }
   return cudaGetLastError();
 }
 
@@ -179,11 +208,8 @@ extern "C" int istft_ola(const float* mag, const float* psi,
                          const float* mask, const float* fft, float* frames,
                          float* out, long long nf, int n_fft, int rs,
                          cudaStream_t stream) {
-  const size_t smem = 2 * n_fft * sizeof(float);
-  istft_frames_kernel<<<(unsigned)nf, kThreads, smem, stream>>>(
-      mag, psi, mask, fft, fft + n_fft, fft + n_fft + n_fft / 2, frames,
-      n_fft, log2_int(n_fft), 1);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      launch_frames(mag, psi, mask, fft, frames, nf, n_fft, 1, stream);
   if (err != cudaSuccess) return err;
   const int64_t out_len = (nf - 1) * (int64_t)rs + n_fft;
   const int m = (n_fft + rs - 1) / rs;
@@ -199,9 +225,5 @@ extern "C" int istft_frames(const float* a, const float* b,
                             const float* mask, const float* fft,
                             float* frames, long long nf, int n_fft,
                             int polar, cudaStream_t stream) {
-  const size_t smem = 2 * n_fft * sizeof(float);
-  istft_frames_kernel<<<(unsigned)nf, kThreads, smem, stream>>>(
-      a, b, mask, fft, fft + n_fft, fft + n_fft + n_fft / 2, frames, n_fft,
-      log2_int(n_fft), polar);
-  return cudaGetLastError();
+  return launch_frames(a, b, mask, fft, frames, nf, n_fft, polar, stream);
 }

@@ -38,6 +38,11 @@ _SIGNATURES = {
         _LL, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,  # geometry
         _P,  # stream
     ],
+    "pvoc_fused_zrev": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # ... and the half table
+        _LL, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+        _P,
+    ],
     "pvoc_fused_segment": [
         *[_P] * 14,  # signal, outputs, state, scratch and tables
         _LL, _LL, _LL, _LL,  # n_valid, seg_frames, goff, nf_total
@@ -60,6 +65,10 @@ _SIGNATURES = {
     # batch, nf, n_fft, rs, stream
     "pvoc_phasor_synth": [*[_P] * 9, _I, _LL, _I, _I, _P],
     "resample_lerp": [_P, _P, _LL, _LL, ctypes.c_double, _P],
+    # x, start_int, start_frac, jo_int, jo_frac, out, n, out_len, stream
+    "resample_blocked": [_P, _P, _P, _P, _P, _P, _LL, _LL, _P],
+    # x, origin, bases, k, fr, out, n, nb, B, c, stream
+    "select_lerp": [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P],
     # x, fft table, mag, phi, nf, n_fft, hop, stream
     "stft_polar": [_P, _P, _P, _P, _LL, _I, _I, _P],
     # mag, psi, mask, fft table, frames, out, nf, n_fft, rs, stream

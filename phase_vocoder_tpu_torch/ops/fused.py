@@ -16,7 +16,11 @@ launch in `.launches`) or raises, a CPU tensor runs the plain version:
 
   fused_time_stretch       the whole TSM of one recording (framing,
                            windowed DFT, phasors, inverse DFT, overlap-add,
-                           COLA normalization);
+                           COLA normalization); with zrev=True the analysis
+                           runs the fold pass (a half-length transform of
+                           the frame's packed even and odd samples), a
+                           measurement variant kept for parity with the JAX
+                           package, not a user option;
   fused_time_stretch_batch the same TSM over the rows of a (B, T) batch,
                            each row with its own frame count
                            (parallel/batch.py);
@@ -67,6 +71,8 @@ __all__ = [
     "synth_supported",
     "fused_time_stretch",
     "fused_time_stretch_reference",
+    "fused_time_stretch_zrev",
+    "fold_analysis_applies",
     "fused_time_stretch_batch",
     "fused_time_stretch_batch_reference",
     "fused_stream_segment",
@@ -95,9 +101,23 @@ MAX_N_FFT = 4096
 
 
 def fft_size_supported(n_fft: int) -> bool:
-    """True when the kernels' radix-2 FFT (csrc/fft_common.cuh) takes
-    n_fft: a power of two up to MAX_N_FFT."""
-    return 2 <= n_fft <= MAX_N_FFT and n_fft & (n_fft - 1) == 0
+    """True when the kernels' FFT (csrc/fft_common.cuh) takes n_fft: even,
+    2 <= n_fft <= MAX_N_FFT (radix 2 for a power of two, mixed radix for
+    any other even size). Even, because bin n_fft/2 goes through the
+    forced-real Nyquist pass-through, as in the JAX package."""
+    return 2 <= n_fft <= MAX_N_FFT and n_fft % 2 == 0
+
+
+# The limit on n_fft, for error texts.
+_FFT_LIMIT = f"n_fft even and 2 <= n_fft <= {MAX_N_FFT}"
+
+
+def fold_analysis_applies(n_fft: int, hop: int) -> bool:
+    """True when fused_time_stretch(zrev=True) runs the fold analysis: an
+    even overlap n_fft/hop, the JAX package's rule for its pre-reversed
+    view, and n_fft a multiple of 4, what the fold pass needs for its
+    n_fft/2-point transform. Otherwise zrev changes nothing."""
+    return n_fft % hop == 0 and (n_fft // hop) % 2 == 0 and n_fft % 4 == 0
 
 
 def phasor_supported(n_fft: int, ra: int, rs: int) -> bool:
@@ -369,7 +389,7 @@ def _check_args(x: torch.Tensor, n_fft: int, hop: int, rs: int) -> int:
         raise ValueError(f"expected a 1-D float32 tensor, got {x.dtype} {tuple(x.shape)}")
     if not phasor_supported(n_fft, hop, rs):
         raise ValueError(
-            f"fused path requires n_fft a power of two <= {MAX_N_FFT}, "
+            f"fused path requires {_FFT_LIMIT}, "
             f"hop | n_fft and 0 < rs <= n_fft/2 "
             f"(got n_fft={n_fft}, hop={hop}, rs={rs})"
         )
@@ -389,18 +409,37 @@ def init_carry(n_fft: int, device=None) -> torch.Tensor:
     return carry
 
 
+def _rfft_fold(g: torch.Tensor) -> torch.Tensor:
+    """Bins 0..N/2 of the DFT of real frames g (nf, N), N a multiple of 4,
+    from a transform of half the length (the fold analysis of the kernel):
+    z[n] = g[2n] + i g[2n+1], Z = FFT_{N/2}(z), and with M[k] =
+    conj Z[(N/2-k) mod N/2] (a flip), X[k] = (Z[k] + M[k])/2 -
+    i W^k (Z[k] - M[k])/2, W = e^{-2 pi i / N} built in float64."""
+    n_fft = g.shape[-1]
+    half = n_fft // 2
+    z = torch.fft.fft(torch.complex(g[:, 0::2], g[:, 1::2]), dim=-1)
+    zk = torch.cat([z, z[:, :1]], dim=1)  # Z[k mod N/2], k = 0..N/2
+    zm = torch.conj(torch.flip(zk, dims=[1]))
+    ang = -2.0 * np.pi * np.arange(half + 1, dtype=np.float64) / n_fft
+    w = torch.as_tensor((np.cos(ang) + 1j * np.sin(ang)).astype(np.complex64), device=g.device)
+    w[half] = -1.0
+    return 0.5 * (zk + zm) + w * (-0.5j * (zk - zm))
+
+
 def _tsm_frames_reference(
     x: torch.Tensor, goff: int, n_valid: int, n_fft: int, hop: int, rs: int,
-    carry: torch.Tensor, started: bool, x_frame0: int = 0,
+    carry: torch.Tensor, started: bool, x_frame0: int = 0, fold: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain analysis, phase and synthesis of frames goff..goff+n_valid-1
-    of the recording, whose frame x_frame0 starts at x[0], from `carry`.
-    Returns (windowed frames (n_valid, n_fft), the carry after them)."""
+    of the recording, whose frame x_frame0 starts at x[0], from `carry`;
+    fold: the analysis through _rfft_fold. Returns (windowed frames
+    (n_valid, n_fft), the carry after them)."""
     nh = n_fft // 2
     w = hann_window(n_fft, device=x.device)
     start = (goff - x_frame0) * hop
     xs = x[start : start + (n_valid - 1) * hop + n_fft]
-    spec = torch.fft.rfft(frame_signal(xs, n_fft, hop) * w, dim=-1)
+    windowed = frame_signal(xs, n_fft, hop) * w
+    spec = _rfft_fold(windowed) if fold else torch.fft.rfft(windowed, dim=-1)
     re, im = spec.real, spec.imag  # (n_valid, nh + 1)
     mag, ure, uim = _unit(re[:, 1:nh], im[:, 1:nh])  # general bins
     p, q = _rational_k(rs, hop)
@@ -474,32 +513,73 @@ def stream_norm_tables(n_fft: int, rs: int, nf: int) -> np.ndarray:
 
 
 def fused_time_stretch_reference(
-    x: torch.Tensor, n_fft: int, hop: int, rs: int
+    x: torch.Tensor, n_fft: int, hop: int, rs: int, zrev: bool = False
 ) -> torch.Tensor:
     """Plain torch version of the fused TSM, on x's device.
 
     torch.fft in float32 for the DFTs, the phasor algebra above, the
-    chunked prefix product for q >= 2, and fold overlap-add. Returns
-    (nf-1)*rs + n_fft samples.
+    chunked prefix product for q >= 2, and fold overlap-add. With zrev
+    (where fold_analysis_applies) the analysis is _rfft_fold, the algebra
+    of the kernel's fold pass. Returns (nf-1)*rs + n_fft samples.
     """
     nf = _check_args(x, n_fft, hop, rs)
-    frames, _ = _tsm_frames_reference(x, 0, nf, n_fft, hop, rs, init_carry(n_fft, x.device), False)
+    fold = zrev and fold_analysis_applies(n_fft, hop)
+    frames, _ = _tsm_frames_reference(
+        x, 0, nf, n_fft, hop, rs, init_carry(n_fft, x.device), False, fold=fold
+    )
     ola = _normalize_rows(_ola_rows_reference(frames, nf, rs, None), 0, nf, n_fft, rs)
     return ola.reshape(-1)[: (nf - 1) * rs + n_fft]
 
 
-def fused_time_stretch(x: torch.Tensor, n_fft: int, hop: int, rs: int) -> torch.Tensor:
+def fused_time_stretch(
+    x: torch.Tensor, n_fft: int, hop: int, rs: int, zrev: bool = False
+) -> torch.Tensor:
     """Full fused TSM of a 1-D float32 tensor, on x's device.
 
     A CUDA tensor goes through the hand-written kernel (csrc/pvoc_fused.cu)
     and counts one launch in `fused_time_stretch.launches`; a CPU tensor
     goes through fused_time_stretch_reference. Returns (nf-1)*rs + n_fft
     samples.
+
+    zrev=True (the JAX function's argument of that name, a measurement
+    variant) runs the analysis as the fold pass, the pvoc_fused_zrev entry,
+    counted in `fused_time_stretch_zrev.launches`. As in the JAX package
+    the geometry decides: it applies when fold_analysis_applies(n_fft, hop)
+    (an even overlap n_fft/hop, and n_fft a multiple of 4) and is otherwise
+    the same call as zrev=False. Its output is within ~1e-5 interior
+    relative of zrev=False (another rounding of the forward transform), and
+    its reruns are bitwise equal.
     """
     nf = _check_args(x, n_fft, hop, rs)
+    if zrev and fold_analysis_applies(n_fft, hop):
+        return fused_time_stretch_zrev(x, n_fft, hop, rs)
     if x.device.type == "cpu":
         return fused_time_stretch_reference(x, n_fft, hop, rs)
-    _check_cuda(x, "fused_time_stretch")
+    return _fused_launch(x, nf, n_fft, hop, rs, fused_time_stretch)
+
+
+def fused_time_stretch_zrev(x: torch.Tensor, n_fft: int, hop: int, rs: int) -> torch.Tensor:
+    """fused_time_stretch(zrev=True) where the fold analysis applies (raises
+    ValueError elsewhere). A CUDA tensor launches the pvoc_fused_zrev kernel
+    and counts one launch in `fused_time_stretch_zrev.launches`; a CPU
+    tensor runs fused_time_stretch_reference(zrev=True)."""
+    nf = _check_args(x, n_fft, hop, rs)
+    if not fold_analysis_applies(n_fft, hop):
+        raise ValueError(
+            f"the fold analysis needs an even n_fft/hop and n_fft a multiple of 4 "
+            f"(got n_fft={n_fft}, hop={hop})"
+        )
+    if x.device.type == "cpu":
+        return fused_time_stretch_reference(x, n_fft, hop, rs, zrev=True)
+    return _fused_launch(x, nf, n_fft, hop, rs, fused_time_stretch_zrev)
+
+
+def _fused_launch(x: torch.Tensor, nf: int, n_fft: int, hop: int, rs: int, wrapper) -> torch.Tensor:
+    """The pvoc_fused kernel for `wrapper` (fused_time_stretch), or the
+    pvoc_fused_zrev kernel (fused_time_stretch_zrev), counting its launch."""
+    fold = wrapper is fused_time_stretch_zrev
+    what = "pvoc_fused_zrev" if fold else "pvoc_fused"
+    _check_cuda(x, wrapper.__name__)
     dev = str(x.device)
     tables = _device_tables(n_fft, hop, rs, dev)
     norm = _device_norm_rows(n_fft, rs, min(nf, -(-n_fft // rs) - 1), dev)
@@ -507,19 +587,21 @@ def fused_time_stretch(x: torch.Tensor, n_fft: int, hop: int, rs: int) -> torch.
     out = torch.empty((nf - 1) * rs + n_fft, dtype=torch.float32, device=x.device)
     work = _workspace(nf, n_fft, q, x.device)
     lib = _build.kernels()
+    half = [_device_fft_table(n_fft // 2, dev).data_ptr()] if fold else []
     with torch.cuda.device(x.device):
-        rc = lib.pvoc_fused(
+        rc = getattr(lib, what)(
             x.data_ptr(), out.data_ptr(), *_ptrs(work),
-            tables["fft"].data_ptr(), tables["consts"].data_ptr(),
+            tables["fft"].data_ptr(), *half, tables["consts"].data_ptr(),
             norm.data_ptr(), nf, n_fft, hop, rs, p, q, int(_pow_alg(p, q)), SCAN_CHUNK,
             float(np.float32(p / q)), torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(rc, "pvoc_fused")
-    fused_time_stretch.launches += 1
+    _build.check(rc, what)
+    wrapper.launches += 1
     return out
 
 
 fused_time_stretch.launches = 0
+fused_time_stretch_zrev.launches = 0
 
 
 def _check_cuda(x: torch.Tensor, what: str) -> None:
@@ -563,7 +645,7 @@ def _check_segment(x, carry, tail, frame_offset: int, n_fft: int, hop: int, rs: 
         raise ValueError(f"expected a 1-D float32 tensor, got {x.dtype} {tuple(x.shape)}")
     if not phasor_supported(n_fft, hop, rs):
         raise ValueError(
-            f"fused stream requires n_fft a power of two <= {MAX_N_FFT}, hop | n_fft "
+            f"fused stream requires {_FFT_LIMIT}, hop | n_fft "
             f"and 0 < rs <= n_fft/2 (got n_fft={n_fft}, hop={hop}, rs={rs})"
         )
     m = -(-n_fft // rs)
@@ -690,7 +772,7 @@ def _check_terms(x: torch.Tensor, n_fft: int, hop: int, rs: int, dim: int = 1) -
         raise ValueError(f"expected a {dim}-D float32 tensor, got {x.dtype} {tuple(x.shape)}")
     if not phasor_terms_supported(n_fft, hop, rs):
         raise ValueError(
-            f"stft_phasor_terms requires n_fft a power of two <= {MAX_N_FFT}, "
+            f"stft_phasor_terms requires {_FFT_LIMIT}, "
             f"hop | n_fft and rs > 0 (got n_fft={n_fft}, hop={hop}, rs={rs})"
         )
     nf = num_frames(x.shape[-1], n_fft, hop)
@@ -835,7 +917,7 @@ def _check_batch(xs: torch.Tensor, n_fft: int, hop: int, rs: int, n_valid_frames
         raise ValueError(f"expected a (B, T) float32 tensor, got {xs.dtype} {tuple(xs.shape)}")
     if not phasor_supported(n_fft, hop, rs):
         raise ValueError(
-            f"fused path requires n_fft a power of two <= {MAX_N_FFT}, "
+            f"fused path requires {_FFT_LIMIT}, "
             f"hop | n_fft and 0 < rs <= n_fft/2 "
             f"(got n_fft={n_fft}, hop={hop}, rs={rs})"
         )
@@ -918,7 +1000,7 @@ fused_time_stretch_batch.launches = 0
 def _check_synth(mag, pre, pim, n_fft: int, rs: int, nf: int, dim: int) -> None:
     if not synth_supported(n_fft, rs):
         raise ValueError(
-            f"phasor_istft_ola requires n_fft a power of two <= {MAX_N_FFT}, "
+            f"phasor_istft_ola requires {_FFT_LIMIT}, "
             f"rs | n_fft and n_fft // rs >= 2 (got n_fft={n_fft}, rs={rs})"
         )
     nb = n_fft // 2 + 1

@@ -8,8 +8,9 @@ launch in `.launches`, and its plain torch version (`*_reference`) for a
 CPU tensor. A CUDA tensor launches the kernel or raises; nothing falls
 back.
 
-The kernels take a power-of-two n_fft up to 4096 (the radix-2 FFT of
-csrc/fft_common.cuh); istft_ola keeps the JAX contract rs | n_fft with
+The kernels take any even n_fft up to 4096 (the FFT of
+csrc/fft_common.cuh: radix 2 for a power of two, mixed radix for any
+other even size); istft_ola keeps the JAX contract rs | n_fft with
 overlap n_fft/rs >= 2. istft_frames(_cart) do no overlap-add, so the
 caller's fold serves any synthesis hop.
 """
@@ -20,7 +21,7 @@ import torch
 
 from . import _build
 from .framing import frame_signal, num_frames, overlap_add
-from .fused import MAX_N_FFT, _device_fft_table, fft_size_supported
+from .fused import _FFT_LIMIT, _device_fft_table, fft_size_supported
 from .window import hann_window
 
 __all__ = [
@@ -79,7 +80,7 @@ def stft_polar(x: torch.Tensor, n_fft: int, hop: int):
         raise ValueError(f"expected a 1-D float32 tensor, got {x.dtype} {tuple(x.shape)}")
     if not stft_supported(n_fft, hop):
         raise ValueError(
-            f"stft_polar requires n_fft a power of two <= {MAX_N_FFT} and "
+            f"stft_polar requires {_FFT_LIMIT} and "
             f"hop | n_fft (got n_fft={n_fft}, hop={hop})"
         )
     nf = num_frames(x.shape[-1], n_fft, hop)
@@ -172,7 +173,7 @@ def istft_ola(
     """
     if not istft_ola_supported(n_fft, rs):
         raise ValueError(
-            f"istft_ola requires n_fft a power of two <= {MAX_N_FFT}, rs | n_fft "
+            f"istft_ola requires {_FFT_LIMIT}, rs | n_fft "
             f"and n_fft // rs >= 2 (got n_fft={n_fft}, rs={rs})"
         )
     nb = n_fft // 2 + 1
@@ -210,7 +211,7 @@ def _istft_frames(a, b, n_fft: int, frame_mask, wrapper) -> torch.Tensor:
     polar = wrapper is istft_frames
     what = wrapper.__name__
     if not fft_size_supported(n_fft):
-        raise ValueError(f"{what} requires n_fft a power of two <= {MAX_N_FFT} (got {n_fft})")
+        raise ValueError(f"{what} requires {_FFT_LIMIT} (got {n_fft})")
     nb = n_fft // 2 + 1
     if a.dim() != 2 or a.shape[1] != nb or b.shape != a.shape:
         raise ValueError(f"{what}: inputs must be (nf, {nb}), got {tuple(a.shape)} {tuple(b.shape)}")

@@ -19,8 +19,11 @@ pitch_shift takes the same stretch routes (no length cut-over, as in the
 JAX package) and then the linear resampler (ops/resample.py).
 synthesize_polar runs the istft_ola kernel for Rs | N and the istft_frames
 kernel plus fold overlap-add for any other Rs on the "fused" backend.
-What this package does not have yet raises NotImplementedError, naming the
-ROADMAP item, before any compute.
+The "fused" backend takes every even N up to 4096. Where the hop does not
+divide N, no analysis kernel frames the signal, and analyze falls back to
+the matmul DFT, as the JAX package does under "pallas"; the synthesis
+kernels do not depend on the analysis hop and stay. N above 4096 on the
+"fused" backend raises NotImplementedError before any compute.
 
 Tensors stay on the device they came on. Anything else (numpy arrays,
 lists) is converted to float32 on `device`, which defaults to "cuda" and
@@ -36,7 +39,9 @@ from .config import PvocConfig
 from .ops import fft as fft_ops
 from .ops import framing, phase
 from .ops.fused import (
+    MAX_N_FFT,
     _rational_k,
+    fft_size_supported,
     fused_time_stretch,
     phasor_supported,
     phasor_terms_supported,
@@ -251,16 +256,15 @@ def _route(
     max_phasor_general_frames: int | None = None,
 ) -> str:
     """"stream", "fused", "general" or "polar", in the JAX package's order;
-    raises for what is not ported. The max_* limits are time_stretch's
+    raises for an n_fft the fused backend's kernels do not take. The max_* limits are time_stretch's
     (None: no length cut-over, as pitch_shift)."""
     if branch_policy not in _BRANCH_POLICIES:
         raise ValueError(f"unknown branch_policy {branch_policy!r}")
-    if cfg.fft_backend == "fused" and not stft_supported(cfg.n_fft, cfg.hop):
+    if cfg.fft_backend == "fused" and not fft_size_supported(cfg.n_fft):
         raise NotImplementedError(
-            f"n_fft={cfg.n_fft}, hop={cfg.hop} is outside the fused backend's "
-            "kernels (they need n_fft a power of two <= 4096 and hop | n_fft); "
-            "the JAX package falls back to its matmul DFT there "
-            "(ROADMAP queue 1 item 4); fft_backend='matmul' serves it"
+            f"n_fft={cfg.n_fft} is outside the fused backend's kernels (they "
+            f"take n_fft even and 2 <= n_fft <= {MAX_N_FFT}); "
+            "fft_backend='matmul' serves it"
         )
     if _reduced_q(cfg, rs) > 1 and (
         branch_policy == "faithful"

@@ -352,7 +352,7 @@ def fused_stream_time_stretch(
     if not pipeline.fused_ok(cfg, rs):
         raise ValueError(
             "fused_stream_time_stretch requires the fused-kernel geometry "
-            "(fused backend, n_fft a power of two, hop | n_fft, rs <= n_fft/2)"
+            "(fused backend, n_fft even and <= 4096, hop | n_fft, rs <= n_fft/2)"
         )
     nf = framing.num_frames(x.shape[-1], cfg.n_fft, cfg.hop)
     if nf <= 0:

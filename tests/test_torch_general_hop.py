@@ -93,7 +93,9 @@ def test_phasor_terms_return_forms(x1):
 
 def test_phasor_terms_rejects_unsupported(x1):
     with pytest.raises(ValueError, match="n_fft"):
-        fused.stft_phasor_terms(torch.as_tensor(x1), 1536, 256, 640)
+        fused.stft_phasor_terms(torch.as_tensor(x1), 1536, 1024, 640)  # hop does not divide
+    with pytest.raises(ValueError, match="n_fft"):
+        fused.stft_phasor_terms(torch.as_tensor(x1), 8192, 2048, 640)  # above 4096
     with pytest.raises(ValueError, match="shorter"):
         fused.stft_phasor_terms(torch.zeros(100), N, RA, 640)
 

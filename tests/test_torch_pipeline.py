@@ -174,11 +174,15 @@ def test_rs_above_half_n_streams_past_both_limits(no_compute, stream_calls):
 
 
 def test_unported_geometry_raises(no_compute, x1):
-    cfg = tpv.PvocConfig(n_fft=1536, hop=256)  # N not a power of two
-    with pytest.raises(NotImplementedError):
+    """What the fused backend's kernels do not take raises before any
+    compute: n_fft above 4096 (odd n_fft is refused by the config)."""
+    cfg = tpv.PvocConfig(n_fft=8192, hop=2048)
+    with pytest.raises(NotImplementedError, match="4096"):
         tpv.time_stretch(x1, 2.0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="4096"):
         tpv.time_stretch(x1, 0.5, cfg, branch_policy="faithful", device="cpu")
+    with pytest.raises(ValueError, match="even"):
+        tpv.PvocConfig(n_fft=1535, hop=307)
 
 
 @pytest.mark.parametrize("backend", ["matmul", "xla"])

@@ -71,8 +71,12 @@ def test_stft_polar_short_and_bad_geometry():
     assert mag.shape == phi.shape == (0, N // 2 + 1)
     with pytest.raises(ValueError):
         stft_polar(torch.zeros(4096), N, 300)  # hop does not divide n_fft
+    mag, phi = stft_polar(torch.zeros(4096), 1536, 256)  # any even n_fft up to 4096
+    assert mag.shape == phi.shape == (11, 769)
     with pytest.raises(ValueError):
-        stft_polar(torch.zeros(4096), 1536, 256)  # not a power of two
+        stft_polar(torch.zeros(8192), 1535, 307)  # odd n_fft
+    with pytest.raises(ValueError):
+        stft_polar(torch.zeros(8192), 8192, 2048)  # above 4096
     with pytest.raises(ValueError):
         stft_polar(torch.zeros(4096, dtype=torch.float64), N, RA)
 
