@@ -11,7 +11,12 @@ each; any failure raises and the script exits non-zero:
   2. each kernel against its plain torch version on the card (60 s input):
      2a. pvoc_fused and resample_lerp;
      2b. stft_polar, and istft_ola at Rs 128/256/512 with a frame mask
-         whose last 100 frames are 0;
+         whose last 100 frames are 0; then at N = 256, 512, 1024, 2048,
+         4096 (hop N/4; the N/2-point body of csrc/fft_real.cuh) stft_polar,
+         stft_fused and istft_ola at Rs = N/4 and N/8 with that mask, and
+         bitwise: frames j.. of the whole analysis against an analysis
+         from sample j*hop (j = 3, 5), a slice at element offset 1-3
+         against its copy;
      2c. pvoc_fused_segment against fused_stream_segment_reference (one
          segment from a mid-stream state, and whole streams) at 2.0x, 0.5x
          and Rs = 171; the kernel stream against the kernel monolithic
@@ -19,7 +24,8 @@ each; any failure raises and the script exits non-zero:
          on an input shorter than the overlap (nf < m-1);
      2d. pvoc_terms (stft_phasor_terms: |X| and P, scan on and off) at
          Rs = 640/768/767, and istft_frames / istft_frames_cart with a
-         frame mask whose last 100 frames are 0;
+         frame mask whose last 100 frames are 0, also at each of those
+         five N, with rows r0..r1 alone bitwise equal to the whole call's;
   3. the golden gate through the public API (60 s input):
      3a. the fused route; 3b. the branch-faithful route
          (branch_policy="faithful": stretch 0.5/1.5, pitch -7/-5 st);
@@ -39,7 +45,9 @@ each; any failure raises and the script exits non-zero:
          the route (plain synthesis swapped in); the golden error on that
          signal recorded and the golden gate run at 660 s on stationary
          tones; then stft_polar and istft_ola against their plain versions
-         at those shapes;
+         at those shapes; stft_fused (the cartesian analysis) called on the
+         padded 660 s signal as its own counted path, against its plain
+         version, timed beside torch.stft;
      4d. the fused stream executor at 2.0x on 3600 s (28 segments of 8192
          frames): timed, bitwise equal to the monolithic kernel, host-device
          syncs per call, peak device memory beside the monolithic one's;
@@ -91,7 +99,8 @@ each; any failure raises and the script exits non-zero:
          against their plain versions at those shapes, timed;
   5. determinism: two 2.0x runs, two faithful 0.5x runs, two 3.0x
      general-hop runs, two batch runs, two chunked 0.5x runs, two zrev
-     runs and two N = 1000 runs are bitwise equal.
+     runs, two N = 1000 runs and two runs of each stft.cu kernel at
+     N = 256, 1024, 4096 are bitwise equal.
 
 The line before the last holds the per-kernel JSON record: each kernel's
 launches on its main path, its agreement with its plain version, its time,
@@ -104,6 +113,21 @@ log2 N a real transform) over 67 TFLOP/s. The last line is
     python3 chip_smoke.py --rank-worker RANK WORLD PORT DIR
 
 is the worker of the two-rank phase (4e).
+
+    python3 chip_smoke.py --ab OTHER_ROOT
+
+compares the stft.cu kernels of this checkout with those of another
+checkout of the repository (an earlier commit unpacked at OTHER_ROOT) on
+one card: four processes in turn (other, this, this, other), each
+building its own checkout's kernels and timing stft_polar (41,984
+frames), istft_frames (18,747, polar), istft_frames_cart (224,997) and
+istft_ola (1,024 frames, Rs = 128) at the main paths' shapes beside
+torch.stft and torch.fft.irfft, then the analysis and the cartesian
+frames at every power of two from 256 to 4096 (the same samples and rows
+as at 1024), and hashing outputs that must not move:
+pvoc_fused at 2.0x / 3600 s and at N = 768, and the analysis and
+synthesis at N = 768 (the mixed-radix path). Prints one JSON line per
+process and a summary; fails if a hash differs.
 """
 
 from __future__ import annotations
@@ -117,6 +141,8 @@ import numpy as np
 import torch
 
 N_FFT, HOP, SR = 1024, 256, 16000
+# The FFT sizes that take stft.cu's N/2-point body (csrc/fft_real.cuh).
+POW2_SIZES = (256, 512, 1024, 2048, 4096)
 
 
 def _signal(seconds: float, seed: int = 0) -> np.ndarray:
@@ -436,6 +462,111 @@ def _run_ranks(world: int, timeout: float) -> list:
         return [dict(np.load(f"{tmp}/rank{r}.npz")) for r in range(world)]
 
 
+def _ab_worker(root: str) -> int:
+    """Time the stft.cu kernels of the checkout at `root` and hash the
+    outputs that must not move; one JSON line."""
+    import hashlib
+
+    sys.path.insert(0, root)
+    import phase_vocoder_tpu_torch as pv
+    from phase_vocoder_tpu_torch.ops import fused, stft
+    from phase_vocoder_tpu_torch.ops import _build
+
+    _check(pv.__file__.startswith(root), f"imported {pv.__file__}, not from {root}")
+    _build.kernels()
+    dev = torch.device("cuda")
+    cfg = pv.PvocConfig()
+    rec = {"root": root, "card": torch.cuda.get_device_name(0)}
+    digest = lambda *ts: hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in ts)).hexdigest()  # noqa: E731
+    # stft_polar on the faithful route's padded 660 s signal: 41,984 frames.
+    nf_a = 41984
+    x = torch.zeros((nf_a - 1) * HOP + N_FFT, device=dev)
+    x660 = torch.as_tensor(_signal(660.0, seed=2), dtype=torch.float32, device=dev)
+    x[: len(x660)] = x660
+    hann = torch.hann_window(N_FFT, device=dev)
+    rec["stft_polar_ms"] = _time_ms(lambda: stft.stft_polar(x, N_FFT, HOP), reps=20)
+    rec["torch_stft_ms"] = _time_ms(lambda: torch.stft(x, N_FFT, HOP, window=hann, center=False,
+                                                       return_complex=True), reps=20)
+    if hasattr(stft, "stft_fused"):
+        rec["stft_fused_ms"] = _time_ms(lambda: stft.stft_fused(x, N_FFT, HOP), reps=20)
+    mag, phi = stft.stft_polar_reference(x, N_FFT, HOP)
+    m_, p_ = mag[:1024].contiguous(), phi[:1024].contiguous()
+    rec["istft_ola_1024_ms"] = _time_ms(lambda: stft.istft_ola(m_, p_, N_FFT, 128), reps=50)
+    del x, x660, mag, phi
+    # istft_frames (polar) at Rs = 171 on 300 s: 18,747 frames.
+    x300 = torch.as_tensor(_signal(300.0, seed=1), dtype=torch.float32, device=dev)
+    mag, phi = pv.pipeline.analyze(x300, cfg)
+    mag, psi = pv.pipeline.stretch_polar(mag, phi, cfg, 171)
+    spec = torch.polar(mag, psi)
+    rec["istft_frames_ms"] = _time_ms(lambda: stft.istft_frames(mag, psi, N_FFT), reps=20)
+    rec["irfft_polar_ms"] = _time_ms(lambda: torch.fft.irfft(spec, n=N_FFT, dim=-1), reps=20)
+    del mag, phi, psi, spec
+    # istft_frames_cart at 3.0x on 3600 s: 224,997 frames.
+    x_long = torch.as_tensor(_signal(3600.0), dtype=torch.float32, device=dev)
+    kt = fused.stft_phasor_terms(x_long, N_FFT, HOP, 768)
+    y_re, y_im = kt[0] * kt[1], kt[0] * kt[2]
+    del kt
+    y_c = torch.complex(y_re, y_im)
+    rec["istft_frames_cart_ms"] = _time_ms(lambda: stft.istft_frames_cart(y_re, y_im, N_FFT), reps=10)
+    rec["irfft_cart_ms"] = _time_ms(lambda: torch.fft.irfft(y_c, n=N_FFT, dim=-1), reps=10)
+    del y_re, y_im, y_c
+    # Every power of two of the N/2-point body at the same samples and
+    # spectrum rows as N = 1024: the analysis of 41,984 * 1024 / N frames
+    # at hop N/4, the cartesian frames of 224,997 * 1024 / N random rows.
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    for n in POW2_SIZES:
+        nf = 41984 * N_FFT // n
+        xn = torch.randn((nf - 1) * (n // 4) + n, device=dev, generator=g)
+        win = torch.hann_window(n, device=dev)
+        rec[f"stft_polar_N{n}_ms"] = _time_ms(lambda: stft.stft_polar(xn, n, n // 4), reps=20)
+        if hasattr(stft, "stft_fused"):
+            rec[f"stft_fused_N{n}_ms"] = _time_ms(lambda: stft.stft_fused(xn, n, n // 4), reps=20)
+        rec[f"torch_stft_N{n}_ms"] = _time_ms(lambda: torch.stft(xn, n, n // 4, window=win, center=False,
+                                                                 return_complex=True), reps=20)
+        a = torch.randn((224997 * N_FFT // n, n // 2 + 1), device=dev, generator=g)
+        b = torch.randn(a.shape, device=dev, generator=g)
+        rec[f"istft_frames_cart_N{n}_ms"] = _time_ms(lambda: stft.istft_frames_cart(a, b, n), reps=10)
+        c = torch.complex(a, b)
+        rec[f"irfft_N{n}_ms"] = _time_ms(lambda: torch.fft.irfft(c, n=n, dim=-1), reps=10)
+        del xn, a, b, c
+    # Outputs that this PR's kernels do not reach.
+    rec["hash_pvoc_fused_2x_3600s"] = digest(fused.fused_time_stretch(x_long, N_FFT, HOP, 512))
+    rec["hash_pvoc_fused_768_2x_3600s"] = digest(fused.fused_time_stretch(x_long, 768, 192, 384))
+    x60 = x_long[: 60 * SR]
+    m768, p768 = stft.stft_polar(x60, 768, 192)
+    rec["hash_n768_stft_istft"] = digest(m768, p768, stft.istft_frames(m768, p768, 768),
+                                         stft.istft_ola(m768, p768, 768, 96))
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+def _ab(other: str) -> int:
+    """Run _ab_worker for `other`, this checkout, this, `other`; summarize."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(other)
+    recs = []
+    for root in (other, here, here, other):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--ab-worker", root],
+                             capture_output=True, text=True, timeout=900)
+        _check(out.returncode == 0, f"ab worker for {root} failed:\n{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+        recs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+        print(json.dumps(recs[-1]), flush=True)
+    hashes = [k for k in recs[0] if k.startswith("hash_")]
+    same = {k: len({r[k] for r in recs}) == 1 for k in hashes}
+    summary = {}
+    for k in recs[1]:
+        if k.endswith("_ms") and k in recs[0]:
+            mine = [recs[1][k], recs[2][k]]
+            theirs = [recs[0][k], recs[3][k]]
+            summary[k] = {"this": mine, "other": theirs, "speedup": sum(theirs) / sum(mine)}
+    print(json.dumps({"ab_summary": summary, "bitwise_equal": same}), flush=True)
+    _check(all(same.values()), f"outputs moved: {same}")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -481,6 +612,8 @@ def main() -> int:
         istft_frames_reference,
         istft_ola,
         istft_ola_reference,
+        stft_fused,
+        stft_fused_reference,
         stft_polar,
         stft_polar_reference,
     )
@@ -498,6 +631,7 @@ def main() -> int:
         "phasor_istft_ola": phasor_istft_ola, "phasor_istft_ola_batch": phasor_istft_ola_batch,
         "pvoc_fused_zrev": fused_time_stretch_zrev, "resample_blocked": resample_blocked,
         "select_lerp_roll2": select_lerp_two_level, "select_lerp": select_lerp,
+        "stft_fused": stft_fused,
     }
 
     # ---- 1. card, versions, build
@@ -567,6 +701,53 @@ def main() -> int:
     _emit("2b_stft_kernels_vs_plain", seconds=60, stft_polar=stft_err,
           istft_ola_rel=istft_rel, masked_frames=100, bound=1e-5)
 
+    # The analysis and istft_ola at every power of two that takes the
+    # N/2-point body (csrc/fft_real.cuh), hop N/4: against the plain
+    # versions, with a frame mask; each frame's bits independent of its
+    # position in the launch (frame j of the whole call = frame 0 of a call
+    # from sample j*hop, for j not a multiple of the frames a block holds)
+    # and of x's alignment (a slice at an element offset = its copy).
+    by_n = {}
+    for n in POW2_SIZES:
+        hop = n // 4
+        rec = {}
+        mp_, pp_ = stft_polar_reference(x60, n, hop)
+        rec["stft_polar"] = _spec_errors(stft_polar(x60, n, hop), (mp_, pp_))
+        rp_, ip_ = stft_fused_reference(x60, n, hop)
+        rk_, ik_ = stft_fused(x60, n, hop)
+        top = float(mp_.max())
+        rec["stft_fused_rel"] = max(float((rk_ - rp_).abs().max()), float((ik_ - ip_).abs().max())) / top
+        _check(max(rec["stft_polar"]["spec_rel"], rec["stft_polar"]["mag_rel"], rec["stft_fused_rel"]) < 1e-5,
+               f"analysis vs plain at N={n}: {rec}")
+        mk, pk = stft_polar(x60, n, hop)
+        for j in (3, 5):
+            m_j, p_j = stft_polar(x60[j * hop:], n, hop)
+            r_j, i_j = stft_fused(x60[j * hop:], n, hop)
+            _check(bool(torch.equal(m_j, mk[j:]) and torch.equal(p_j, pk[j:])
+                        and torch.equal(r_j, rk_[j:]) and torch.equal(i_j, ik_[j:])),
+                   f"analysis at N={n}: frames from sample {j}*hop differ from the whole call's")
+        for c in (1, 2, 3):
+            view = x60[c:]
+            m_c, p_c = stft_polar(view, n, hop)
+            m_d, p_d = stft_polar(view.clone(), n, hop)
+            _check(bool(torch.equal(m_c, m_d) and torch.equal(p_c, p_d)),
+                   f"stft_polar at N={n}: a slice at offset {c} differs from its copy")
+            _check(all(bool(torch.equal(u, v)) for u, v in zip(stft_fused(view, n, hop), stft_fused(view.clone(), n, hop))),
+                   f"stft_fused at N={n}: a slice at offset {c} differs from its copy")
+        rec["bitwise_frame_position_and_offset"] = True
+        mask_n = torch.ones(mp_.shape[0], device=dev)
+        mask_n[-100:] = 0.0
+        for rs in (n // 4, n // 8):
+            a = istft_ola(mp_, pp_, n, rs, frame_mask=mask_n)
+            b = istft_ola_reference(mp_, pp_, n, rs, frame_mask=mask_n)
+            rec[f"istft_ola_rs{rs}"] = _rel(a, b, n)
+            _check(rec[f"istft_ola_rs{rs}"] < 1e-5, f"istft_ola vs plain at N={n}, Rs={rs}: {rec}")
+            _check(bool((a[(mp_.shape[0] - 100 - 1) * rs + n:] == 0).all()),
+                   f"istft_ola at N={n}: masked frames leak at Rs={rs}")
+        by_n[n] = rec
+        del mp_, pp_, rp_, ip_, rk_, ik_, mk, pk
+    _emit("2b_stft_kernels_by_n", seconds=60, by_n_fft=by_n, masked_frames=100, bound=1e-5)
+
     # ---- 2c. pvoc_fused_segment vs its plain version; stream vs monolithic
     nf60 = (len(x60) - N_FFT) // HOP + 1
     seg = {}
@@ -632,8 +813,27 @@ def main() -> int:
         frames[name] = float((a - b).abs().max() / b.abs().max())
         _check(frames[name] < 1e-5, f"{name} vs plain: {frames[name]:.3e}")
         _check(not bool(a[-100:].any()), f"{name}: masked frames are not zero")
+    # istft_frames in both forms at every power of two of the N/2-point
+    # body, with a frame mask; rows r0..r1 of a call on those rows alone
+    # (an unaligned start) bitwise equal to the whole call's.
+    for n in POW2_SIZES:
+        mp_, pp_ = stft_polar_reference(x60, n, n // 4)
+        rp_, ip_ = mp_ * torch.cos(pp_), mp_ * torch.sin(pp_)
+        mask_n = torch.ones(mp_.shape[0], device=dev)
+        mask_n[-100:] = 0.0
+        for name, fn, ref, a_, b_ in (("istft_frames", istft_frames, istft_frames_reference, mp_, pp_),
+                                      ("istft_frames_cart", istft_frames_cart, istft_frames_cart_reference, rp_, ip_)):
+            a = fn(a_, b_, n, mask_n)
+            b = ref(a_, b_, n, mask_n)
+            frames[f"{name}_N{n}"] = float((a - b).abs().max() / b.abs().max())
+            _check(frames[f"{name}_N{n}"] < 1e-5, f"{name} vs plain at N={n}: {frames}")
+            _check(not bool(a[-100:].any()), f"{name} at N={n}: masked frames are not zero")
+            for r0, r1 in ((3, 77), (1, 2), (101, 390)):
+                _check(bool(torch.equal(fn(a_[r0:r1], b_[r0:r1], n, mask_n[r0:r1]), a[r0:r1])),
+                       f"{name} at N={n}: rows {r0}..{r1} alone differ from the whole call's")
+        del mp_, pp_, rp_, ip_, a, b
     _emit("2d_general_hop_kernels_vs_plain", seconds=60, pvoc_terms=terms,
-          frames_rel_to_max=frames, masked_frames=100,
+          frames_rel_to_max=frames, masked_frames=100, rows_bitwise=True,
           bounds={"mag_rel": 1e-5, "p_weighted": 1e-4, "frames": 1e-5})
     del re_p, im_p
 
@@ -954,7 +1154,7 @@ def main() -> int:
     hann = torch.hann_window(N_FFT, device=dev)
     stft_main.update(
         frames=mag_k.shape[0],
-        ms=_time_ms(lambda: stft_polar(x_pad, N_FFT, HOP), reps=5),
+        ms=_time_ms(lambda: stft_polar(x_pad, N_FFT, HOP), reps=20),
         plain_ms=_time_ms(lambda: stft_polar_reference(x_pad, N_FFT, HOP), reps=5),
         # torch.stft: the same windowed spectrum, complex instead of polar.
         library_ms=_time_ms(lambda: torch.stft(x_pad, N_FFT, HOP, window=hann, center=False,
@@ -977,8 +1177,29 @@ def main() -> int:
         rec["library_ms"] = _time_ms(lambda: torch.istft(spec_c, N_FFT, 128, window=hann, center=True), reps=5)
         rec.update(_bound(4 * (2 * m_.numel() + m_.shape[0] + len(a)), m_.shape[0] * _FFT_FLOP))
         istft_main[name] = rec
+    # stft_fused, the cartesian form, called as a user would on the padded
+    # 660 s signal: its own counted path (4 calls), then against its plain
+    # version at that shape.
+    fused_main = {}
+    fused_launches = _counted(
+        counters, lambda: fused_main.update(ms_calls=_time_calls(lambda: stft_fused(x_pad, N_FFT, HOP), reps=3)),
+        {"stft_fused": 4}, "stft_fused on 660 s")
+    re_k, im_k = stft_fused(x_pad, N_FFT, HOP)
+    re_p, im_p = stft_fused_reference(x_pad, N_FFT, HOP)
+    fused_main["max_abs"] = max(float((re_k - re_p).abs().max()), float((im_k - im_p).abs().max()))
+    fused_main["rel_to_max"] = fused_main["max_abs"] / float(mag_p.max())
+    _check(fused_main["rel_to_max"] < 1e-5, f"stft_fused vs plain at 660 s: {fused_main}")
+    fused_main.update(
+        frames=re_k.shape[0],
+        ms=_time_ms(lambda: stft_fused(x_pad, N_FFT, HOP), reps=20),
+        plain_ms=_time_ms(lambda: stft_fused_reference(x_pad, N_FFT, HOP), reps=5),
+        library_ms=_time_ms(lambda: torch.stft(x_pad, N_FFT, HOP, window=hann, center=False,
+                                               return_complex=True), reps=20),
+        **_bound(4 * (len(x_pad) + 2 * re_k.numel()), re_k.shape[0] * _FFT_FLOP),
+    )
+    del re_k, im_k, re_p, im_p
     _emit("4c_stft_kernels_vs_plain_main_shapes", card=smi, stft_polar=stft_main,
-          istft_ola_rs128=istft_main)
+          istft_ola_rs128=istft_main, stft_fused=fused_main, stft_fused_launches=fused_launches)
     del x_pad, mag_p, phi_p, a, b
 
     # ---- 4d. the fused stream, checkpoints and the general-hop route at
@@ -1607,10 +1828,20 @@ def main() -> int:
     a = pv.time_stretch(x60, 0.5, cfg1000)
     b = pv.time_stretch(x60, 0.5, cfg1000)
     _check(bool(torch.equal(a, b)), "two N = 1000 runs differ")
+    # The stft.cu kernels, run twice at the smallest, canonical and largest N.
+    for n in (256, 1024, 4096):
+        runs = [(stft_polar(x60, n, n // 4), stft_fused(x60, n, n // 4)) for _ in range(2)]
+        _check(all(bool(torch.equal(u, v)) for u, v in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1])),
+               f"two analyses at N={n} differ")
+        mg, ph = runs[0][0]
+        for fn in (istft_frames, istft_frames_cart):
+            _check(bool(torch.equal(fn(mg, ph, n), fn(mg, ph, n))), f"two {fn.__name__} runs at N={n} differ")
+        _check(bool(torch.equal(istft_ola(mg, ph, n, n // 8), istft_ola(mg, ph, n, n // 8))),
+               f"two istft_ola runs at N={n} differ")
     _emit("5_determinism", bitwise_equal={"fused_2.0x": True, "faithful_0.5x": True,
                                           "general_3.0x": True, "batch_varied": True,
                                           "chunked_0.5x": True, "zrev_rs171": True,
-                                          "n1000_0.5x": True})
+                                          "n1000_0.5x": True, "stft_kernels_256_1024_4096": True})
 
     def _row(name, source, replaces, launches, rec, max_abs, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"phase_vocoder_tpu_torch/csrc/{source}",
@@ -1629,6 +1860,8 @@ def main() -> int:
              {"ms": res_ms, "plain_ms": res_plain_ms, "library_ms": res_lib_ms, **res_bound}, res_abs),
         _row("stft_polar", "stft.cu", "ops/pallas/stft.py:117", ff_launches["stretch_0.5x_660s"]["stft_polar"],
              stft_main, stft_main["mag_max_abs"]),
+        _row("stft_fused", "stft.cu", "ops/pallas/stft.py:155", fused_launches["stft_fused"],
+             fused_main, fused_main["max_abs"]),
         _row("istft_ola", "stft.cu", "ops/pallas/stft.py:207", ff_launches["stretch_0.5x_660s"]["istft_ola"],
              istft_main["segment_1024"], istft_main["segment_1024"]["max_abs"]),
         _row("pvoc_fused_segment", "pvoc_fused.cu", "ops/pallas/fused.py:1886",
@@ -1670,4 +1903,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-worker"]:
         sys.exit(_rank_worker(sys.argv[2:]))
+    if sys.argv[1:2] in (["--ab"], ["--ab-worker"]):
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+        sys.exit(_ab(sys.argv[2]) if sys.argv[1] == "--ab" else _ab_worker(sys.argv[2]))
     sys.exit(main())

@@ -1,0 +1,262 @@
+// fft_real.cuh — the transform body of stft.cu's analysis and synthesis
+// kernels for a power-of-two N from 256 to 4096: a real N-point frame
+// through an M = N/2-point complex FFT, a fixed group of threads per
+// frame, several frames per block.
+//
+// The transform. A frame of T = M/16 threads; each thread holds 16
+// complex values in registers. The M-point FFT is a Stockham (autosort)
+// decimation in time of 2 or 3 stages of radix 16 or 8 (M = 128: 16·8,
+// 256: 16·16, 512: 8·8·8, 1024: 16·8·8, 2048: 16·16·8). A stage of
+// radix R with Ns the product of the radices before it, for butterfly j
+// (thread t holds j = t + T·kk, kk < 16/R):
+//   v[r] = in[j + r M/R] · W_M^(r (j mod Ns) M/(Ns R))     r < R
+//   v    = the R-point DFT of v, in registers (radix-2 steps on constants)
+//   out[(j - j mod Ns) R + j mod Ns + r Ns] = v[r]
+// Input and output are in natural order, so there is no bit reversal.
+// Between two stages the values cross threads through a per-frame
+// buffer in shared memory (two float arrays, index i stored at
+// i + i/32, which keeps every stage's accesses at most 2-way
+// bank-conflicted but one 4-way write at M = 512), in place: the frame's
+// threads synchronise, write, synchronise, read. That barrier is the
+// frame's own: __syncwarp when the frame is at most one warp (N <= 1024),
+// a named barrier of T threads (bar.sync 1 + slot, T) at N = 2048, 4096.
+//
+// Twiddles: the stage twiddles are gathered once per block from the
+// host-made float32 table of cos and sin of 2 pi k / N (k < N/2, built
+// in float64; W_M^e is its entry 2e, negated past the half circle) into
+// shared memory, laid out per stage as [(r - 1) Ns + (j mod Ns)] so that
+// neighbouring threads read neighbouring words. The R-point DFTs use
+// the float32 roundings of cos and sin of multiples of pi/8, with 0 and
+// +-1 exact (the table's cos(pi/2) is 6.1e-17, far below a rounding).
+// FP32 FMA throughout; no tensor cores, no fast math.
+//
+// Every frame runs the same instructions on its own inputs, whatever its
+// slot in the block, its block or the launch, so its bits depend on its
+// inputs alone.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace real_fft {
+
+constexpr int kThreads = 256;  // a block: kThreads / T frames
+constexpr int kV = 16;         // complex values a thread holds
+// Blocks an SM holds at once: caps a thread at 64 registers (spills of
+// at most 20 bytes, at N = 2048; left free, nvcc took 79-133 registers
+// and the kernels ran slower on an H100: fewer frames in flight).
+constexpr int kMinBlocks = 4;
+
+// The plan of an N-point real transform, N = 2^LOG2N, 256 <= N <= 4096.
+template <int LOG2N>
+struct Plan {
+  static_assert(LOG2N >= 8 && LOG2N <= 12, "fft_real: 256 <= N <= 4096");
+  static constexpr int N = 1 << LOG2N;
+  static constexpr int M = N / 2;            // complex points
+  static constexpr int LOG2M = LOG2N - 1;
+  static constexpr int T = M / kV;           // threads per frame
+  static constexpr int F = kThreads / T;     // frames per block
+  static constexpr int S = (LOG2M + 3) / 4;  // stages
+  static constexpr int A = LOG2M - 3 * S;    // of them radix 16, first
+  static constexpr int FS = M + M / 32 + 2;  // floats per buffer array
+  // log2 of stage s's radix, and of the product of the radices before it
+  __host__ __device__ static constexpr int lr(int s) { return s < A ? 4 : 3; }
+  __host__ __device__ static constexpr int lns(int s) {
+    return s == 0 ? 0 : lns(s - 1) + lr(s - 1);
+  }
+  // offset of stage s's twiddles in the shared table
+  __host__ __device__ static constexpr int toff(int s) {
+    return s <= 1 ? 0 : toff(s - 1) + ((1 << lr(s - 1)) - 1) * (1 << lns(s - 1));
+  }
+};
+
+__device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
+
+// The frame's own barrier.
+template <int T>
+__device__ __forceinline__ void group_sync(int slot) {
+  if constexpr (T <= 32) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(slot + 1), "n"(T) : "memory");
+  }
+}
+
+// cos and sin of 2 pi i / 16, i < 8, in float32.
+__device__ __forceinline__ constexpr float cos16(int i) {
+  return i == 0 ? 1.f : i == 1 ? 0.9238795325112867f : i == 2 ? 0.7071067811865476f
+       : i == 3 ? 0.3826834323650898f : i == 4 ? 0.f : i == 5 ? -0.3826834323650898f
+       : i == 6 ? -0.7071067811865476f : -0.9238795325112867f;
+}
+__device__ __forceinline__ constexpr float sin16(int i) {
+  return i == 0 ? 0.f : i == 1 ? 0.3826834323650898f : i == 2 ? 0.7071067811865476f
+       : i == 3 ? 0.9238795325112867f : i == 4 ? 1.f : i == 5 ? 0.9238795325112867f
+       : i == 6 ? 0.7071067811865476f : 0.3826834323650898f;
+}
+
+// One radix-2 step of span LEN over a[R] (decimation in time, values in
+// bit-reversed order), then the next; templates, so that every index is
+// a constant and a, the caller's values, stay in registers.
+template <int R, int LEN, bool FWD>
+__device__ __forceinline__ void dit_steps(float (&ar)[R], float (&ai)[R]) {
+#pragma unroll
+  for (int b = 0; b < R; b += LEN) {
+#pragma unroll
+    for (int p = 0; p < LEN / 2; ++p) {
+      constexpr int kStep = 16 / LEN;  // W_LEN^p = W_16^(p kStep)
+      const int e = p * kStep;
+      const int a = b + p, c = a + LEN / 2;
+      float tr, ti;
+      if (e == 0) {
+        tr = ar[c];
+        ti = ai[c];
+      } else if (e == 4) {  // W = -i forward, +i inverse
+        tr = FWD ? ai[c] : -ai[c];
+        ti = FWD ? -ar[c] : ar[c];
+      } else {
+        const float wc = cos16(e);
+        const float ws = FWD ? -sin16(e) : sin16(e);
+        tr = ar[c] * wc - ai[c] * ws;
+        ti = ar[c] * ws + ai[c] * wc;
+      }
+      ar[c] = ar[a] - tr;
+      ai[c] = ai[a] - ti;
+      ar[a] = ar[a] + tr;
+      ai[a] = ai[a] + ti;
+    }
+  }
+  if constexpr (2 * LEN <= R) dit_steps<R, 2 * LEN, FWD>(ar, ai);
+}
+
+// r < 16 with its low `bits` bits reversed; plain arithmetic, so that it
+// folds to a constant in an unrolled loop.
+__device__ __forceinline__ constexpr int bitrev_c(int r, int bits) {
+  return (((r & 1) << 3) | ((r & 2) << 1) | ((r & 4) >> 1) | ((r & 8) >> 3)) >> (4 - bits);
+}
+
+// In place, natural order in and out: x = the R-point DFT of x[B .. B+R),
+// forward (W_R = e^(-2 pi i / R)) or inverse (unscaled).
+template <int R, int B, bool FWD>
+__device__ __forceinline__ void dft_regs(float (&xr)[kV], float (&xi)[kV]) {
+  static_assert(R == 8 || R == 16, "radix 8 or 16");
+  constexpr int LR = R == 8 ? 3 : 4;
+  float ar[R], ai[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    ar[bitrev_c(r, LR)] = xr[B + r];
+    ai[bitrev_c(r, LR)] = xi[B + r];
+  }
+  dit_steps<R, 2, FWD>(ar, ai);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    xr[B + r] = ar[r];
+    xi[B + r] = ai[r];
+  }
+}
+
+// The 16 / R DFTs of radix R (8 or 16) a thread holds.
+template <int R, bool FWD>
+__device__ __forceinline__ void dft_all(float (&xr)[kV], float (&xi)[kV]) {
+  dft_regs<R, 0, FWD>(xr, xi);
+  if constexpr (R * 2 <= kV) dft_regs<R, R, FWD>(xr, xi);
+}
+
+// The stage twiddles of plan P into twr/twi (M floats each), from the
+// N-point table twc/tws; the whole block, followed by a barrier of the
+// caller's.
+template <class P>
+__device__ void build_twiddles(float* twr, float* twi,
+                               const float* __restrict__ twc,
+                               const float* __restrict__ tws) {
+#pragma unroll
+  for (int s = 1; s < P::S; ++s) {
+    const int lr = P::lr(s), lns = P::lns(s);
+    const int count = ((1 << lr) - 1) << lns;
+    for (int idx = threadIdx.x; idx < count; idx += blockDim.x) {
+      const int r = (idx >> lns) + 1;
+      const int q = idx & ((1 << lns) - 1);
+      const int k = 2 * ((r * q) << (P::LOG2M - lns - lr));  // table index of W_M^e
+      const bool neg = k >= P::M;
+      const int h = neg ? k - P::M : k;
+      const float c = __ldg(twc + h), sn = __ldg(tws + h);
+      twr[P::toff(s) + idx] = neg ? -c : c;
+      twi[P::toff(s) + idx] = neg ? -sn : sn;
+    }
+  }
+}
+
+// Where value r of butterfly kk of stage s goes: its output index.
+template <class P, int s>
+__device__ __forceinline__ int dest(int t, int kk, int r) {
+  constexpr int lr = P::lr(s), lns = P::lns(s);
+  const int j = t + P::T * kk;
+  const int q = j & ((1 << lns) - 1);
+  return ((j - q) << lr) + q + (r << lns);
+}
+
+// Where value r of butterfly kk of stage s comes from: its input index.
+template <class P, int s>
+__device__ __forceinline__ int source(int t, int kk, int r) {
+  constexpr int lr = P::lr(s);
+  return t + P::T * kk + r * (P::M >> lr);
+}
+
+// Stage s >= 1: exchange the values of stage s-1 through the frame's
+// buffer, twiddle, and run the radix-R DFTs.
+template <class P, int s, bool FWD>
+__device__ __forceinline__ void stage(float (&vr)[kV], float (&vi)[kV],
+                                      float* br, float* bi,
+                                      const float* twr, const float* twi,
+                                      int t, int slot) {
+  constexpr int RP = 1 << P::lr(s - 1);
+  constexpr int R = 1 << P::lr(s);
+  constexpr int lns = P::lns(s);
+  group_sync<P::T>(slot);
+#pragma unroll
+  for (int kk = 0; kk < kV / RP; ++kk) {
+#pragma unroll
+    for (int r = 0; r < RP; ++r) {
+      const int o = pad(dest<P, s - 1>(t, kk, r));
+      br[o] = vr[kk * RP + r];
+      bi[o] = vi[kk * RP + r];
+    }
+  }
+  group_sync<P::T>(slot);
+#pragma unroll
+  for (int kk = 0; kk < kV / R; ++kk) {
+    const int q = (t + P::T * kk) & ((1 << lns) - 1);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int o = pad(source<P, s>(t, kk, r));
+      const float xr = br[o], xi = bi[o];
+      if (r == 0) {
+        vr[kk * R] = xr;
+        vi[kk * R] = xi;
+      } else {
+        const int w = P::toff(s) + ((r - 1) << lns) + q;
+        const float wc = twr[w];
+        const float ws = FWD ? -twi[w] : twi[w];
+        vr[kk * R + r] = xr * wc - xi * ws;
+        vi[kk * R + r] = xr * ws + xi * wc;
+      }
+    }
+  }
+  dft_all<R, FWD>(vr, vi);
+}
+
+// The M-point FFT of a frame whose stage-0 inputs the caller has put in
+// vr/vi (value kk*R0 + r = input source<P, 0>(t, kk, r)). Returns with
+// the last stage's outputs in vr/vi (value kk*R + r = output
+// dest<P, S-1>(t, kk, r)); the buffer br/bi is free again only after the
+// frame's next group_sync.
+template <class P, bool FWD>
+__device__ __forceinline__ void fft(float (&vr)[kV], float (&vi)[kV],
+                                    float* br, float* bi, const float* twr,
+                                    const float* twi, int t, int slot) {
+  dft_all<(1 << P::lr(0)), FWD>(vr, vi);
+  if constexpr (P::S > 1) stage<P, 1, FWD>(vr, vi, br, bi, twr, twi, t, slot);
+  if constexpr (P::S > 2) stage<P, 2, FWD>(vr, vi, br, bi, twr, twi, t, slot);
+}
+
+}  // namespace real_fft

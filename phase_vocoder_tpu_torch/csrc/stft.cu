@@ -1,10 +1,11 @@
-// stft — the polar analysis and the polar synthesis + overlap-add of the
-// branch-faithful phase-vocoder route on an H100.
+// stft — the windowed analysis (polar or cartesian), the polar synthesis
+// + overlap-add, and the windowed inverse-DFT frames of the phase-vocoder
+// routes on an H100.
 //
 // Replaces: phase_vocoder_tpu/ops/pallas/stft.py
 //   * _stft_kernel (framing + Hann window + forward DFT, as wrapped by
-//     stft_fused/stft_polar, with the polar conversion that stft_polar
-//     leaves to XLA) -> stft_polar below;
+//     stft_fused -> (re, im), and by stft_polar with the polar conversion
+//     that it leaves to XLA) -> stft_fused and stft_polar below;
 //   * _istft_kernel (polar -> cartesian, inverse DFT, synthesis window,
 //     fold overlap-add carried across the in-order grid, un-normalized, as
 //     wrapped by istft_ola) -> istft_ola below;
@@ -14,52 +15,87 @@
 //     istft_frames_cart -> istft_frames below (pass 1 of istft_ola, with
 //     a flag for the input form).
 //
-// What bounds them here: device memory traffic. Each frame's DFT is the
-// FFT of fft_common.cuh in shared memory (radix 2 for a power-of-two N,
-// ~5 N log2 N FLOP, a hundredth of the TPU kernels' matrix DFTs; mixed
-// radix for any other even N up to 4096), so the time goes to reading
-// the signal or the (nf, N/2+1) magnitude and phase tensors and writing
-// their counterparts. FP32 FMA, no tensor cores: the phases feed the
-// branch-faithful phase scan, whose point is to follow the float64 golden
-// model's princarg choices.
+// What bounds them: device memory traffic. A frame's real FFT is ~2.5 N
+// log2 N FP32 operations against 8 N bytes moved (12 N with overlapping
+// analysis frames read once), so at any N the bytes of the signal or the
+// (nf, N/2+1) spectra and the (nf, N) frames take longer than the
+// arithmetic at 67 TFLOP/s. FP32 FMA, no tensor cores, IEEE sqrtf, atan2f
+// and sincosf: the phases feed the branch-faithful phase scan, whose point
+// is to follow the float64 golden model's princarg choices, and every
+// operand split with a ~2^-17 floor failed its 1e-4 gate.
 //
-// What the design does about it:
-//   stft_polar: one block per frame loads x[i*hop : i*hop+N] (framing is
-//     the load), multiplies by the window, transforms, and writes
-//     mag = sqrt(re^2+im^2) and phi = atan2(im, re) straight into two
-//     (nf, N/2+1) tensors, the JAX layout: the spectrum never reaches
-//     device memory as (re, im).
-//   istft_ola, pass 1 (and istft_frames): one block per frame turns
-//     mask*mag*(cos psi, sin psi), or mask*(re, im) for the cartesian
-//     form, into the Hermitian spectrum in shared memory (imaginary
-//     parts of DC and Nyquist forced to zero, as a real inverse transform
-//     drops them: psi there is 0 or +-pi plus a multiple of pi, whose f32
-//     sine is not zero), runs the inverse FFT, and writes w * x / N to an
-//     (nf, N) frames tensor.
-//   istft_ola, pass 2: the overlap-add in gather form, a thread per output
-//     sample summing the <= m frames that cover it in increasing frame
-//     order, without normalization. The TPU kernel carries the OLA tail in
-//     VMEM from one grid step to the next; CUDA blocks run in no order, so
-//     the gather takes its place. No atomics: reruns are bitwise equal.
+// What the design does about it, for a power-of-two N from 256 to 4096
+// (stft_real_kernel, istft_real_kernel; the transform is fft_real.cuh).
+// It replaces, at those N, one 256-thread block per frame running a
+// complex N-point radix-2 FFT of the real frame in shared memory (10
+// stages at N = 1024, each ending in a block barrier; a 32-way
+// bank-conflicted bit-reversed scatter on load; every twiddle read from
+// global memory; each analysis block reading its own overlapping frame):
+//   * a real frame goes through an N/2-point complex FFT. Analysis packs
+//     z[n] = g[2n] + i g[2n+1] (g = x w), transforms, and splits bin k
+//     (k = 0 .. N/2, Z[N/2] = Z[0]) with the post-twiddle
+//     X[k] = (Z[k] + conj Z[N/2-k])/2 - i W^k (Z[k] - conj Z[N/2-k])/2,
+//     W = e^(-2 pi i / N). Synthesis builds Y = mask * (polar or
+//     cartesian input), the imaginary parts of DC and Nyquist dropped (as
+//     a real inverse transform drops them: psi there is 0 or +-pi plus a
+//     multiple of pi, whose f32 sine is not zero), merges
+//     Z[k] = (Y[k] + conj Y[N/2-k]) + i W^-k (Y[k] - conj Y[N/2-k]),
+//     runs the inverse N/2-point FFT, and writes Re z[n] / N and
+//     Im z[n] / N, windowed, to samples 2n and 2n+1. Half the butterflies
+//     and half the shared memory of a complex N-point transform.
+//   * a frame is N/32 threads holding 16 values each, radix 16 and 8 in
+//     registers, natural order in and out (no bit reversal), synchronised
+//     only among themselves (a warp at N <= 1024, a named barrier above);
+//     a 256-thread block holds 8192 / N frames and walks over frame groups
+//     (a grid of as many blocks as fit on the SMs at once).
+//   * the stage twiddles sit in shared memory, gathered once per block
+//     from the host's float64-built table; the post-twiddles and the
+//     window are read through the read-only cache, in order.
+//   * analysis reads a group of F consecutive frames from one contiguous
+//     span x[i0*hop : (i0+F-1)*hop + N] with 16-byte asynchronous copies
+//     (4-byte ones up to the first 16-byte boundary and after the last, so
+//     x may start at any element), so overlapping frames are read once,
+//     and the next group's span arrives while this group transforms. Its
+//     bins leave in the JAX layout, (nf, N/2+1) each for (mag, phi) =
+//     (sqrt(re^2+im^2), atan2(im, re)) or for (re, im): from each frame's
+//     threads at N >= 1024, through shared memory in one block-wide sweep
+//     of the group's contiguous rows below (where a warp holds 2-4 frames
+//     and would store 32- or 64-byte pieces of their rows at once).
+//   * every frame runs the same instructions on its own inputs, so a
+//     frame's bits do not depend on its slot, its block, nf or the launch:
+//     a whole-signal analysis equals a per-segment one bit for bit, and a
+//     rerun equals the run.
+// Other even N (and powers of two below 256) keep the one-block-per-frame
+// kernels of fft_common.cuh's transform (stft_polar_kernel,
+// istft_frames_kernel): a complex N-point FFT in shared memory, the frame
+// loaded at its bit-reversed or natural slots.
+//
+// istft_ola, pass 2: the overlap-add in gather form, a thread per output
+// sample summing the <= m frames that cover it in increasing frame order,
+// without normalization. The TPU kernel carries the OLA tail in VMEM from
+// one grid step to the next; CUDA blocks run in no order, so the gather
+// takes its place. No atomics: reruns are bitwise equal.
 // Offsets into the signal, spectra and frames are 64-bit. Build without
-// fast math: sqrtf, atan2f and sincosf are the IEEE-accurate versions.
+// fast math.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fft_common.cuh"
+#include "fft_real.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-// One block per frame: (mag, phi)[i] = polar(rfft(x[i*hop : i*hop+N] * w)).
+// One block per frame: X = rfft(x[i*hop : i*hop+N] * w); (oa, ob)[i] =
+// (|X|, arg X) when polar is 1, (Re X, Im X) when 0.
 template <bool kPow2>
 __global__ void __launch_bounds__(kThreads)
 stft_polar_kernel(const float* __restrict__ x, const float* __restrict__ win,
                   const float* __restrict__ twc,
-                  const float* __restrict__ tws, float* __restrict__ mag,
-                  float* __restrict__ phi, FftPlan plan, int hop) {
+                  const float* __restrict__ tws, float* __restrict__ oa,
+                  float* __restrict__ ob, FftPlan plan, int hop, int polar) {
   extern __shared__ float sm[];
   const int n_fft = plan.n;
   float* sr = sm;
@@ -74,12 +110,12 @@ stft_polar_kernel(const float* __restrict__ x, const float* __restrict__ win,
   __syncthreads();
   fft_run<kPow2>(sr, si, plan, twc, tws, -1.f);
   const int nb = n_fft / 2 + 1;
-  float* mrow = mag + i * nb;
-  float* prow = phi + i * nb;
+  float* arow = oa + i * nb;
+  float* brow = ob + i * nb;
   for (int k = threadIdx.x; k < nb; k += blockDim.x) {
     const float re = sr[k], im = si[k];
-    mrow[k] = sqrtf(re * re + im * im);
-    prow[k] = atan2f(im, re);
+    arow[k] = polar ? sqrtf(re * re + im * im) : re;
+    brow[k] = polar ? atan2f(im, re) : im;
   }
 }
 
@@ -161,10 +197,441 @@ unsigned blocks_for(int64_t n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
-// istft_frames_kernel over nf frames, in the instantiation of n_fft's plan.
+// ------------------ a power-of-two N from 256 to 4096: fft_real.cuh's body
+
+using real_fft::kV;
+
+// Asynchronous copies global -> shared (cp.async; 4 bytes through L1,
+// 16 bytes around it), and the wait for all of the thread's copies.
+__device__ __forceinline__ void async_copy4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void async_copy16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void async_wait_all() {
+  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::: "memory");
+}
+
+// Starts the copy of the span src[0 : len) into sp[o : o+len), o being
+// src's offset in floats from the 16-byte boundary below it, so that
+// aligned 16-byte chunks of src land on aligned shared words; the partial
+// chunks at either end go element by element. The whole block; returns
+// o. The span is in once the block's threads have waited and met at a
+// barrier.
+__device__ int load_span(float* sp, const float* __restrict__ src, int len) {
+  const int o = (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+  const float* base = src - o;
+  const int chunks = (len + o + 3) >> 2;
+  for (int q = threadIdx.x; q < chunks; q += blockDim.x) {
+    const int e0 = 4 * q - o;
+    if (e0 >= 0 && e0 + 4 <= len) {
+      async_copy16(sp + 4 * q, base + 4 * q);
+    } else {
+      for (int e = 0; e < 4; ++e) {
+        const int t = e0 + e;
+        if (t >= 0 && t < len) async_copy4(sp + 4 * q + e, src + t);
+      }
+    }
+  }
+  return o;
+}
+
+// Bin k of a real frame's spectrum from Z = the N/2-point FFT of its
+// packed samples: X[k] = (Z[k] + conj Z[M-k])/2 - i W^k (Z[k] - conj
+// Z[M-k])/2 with (zr, zi) = Z[k], (mr, mi) = conj Z[M-k], (wr, wi) = W^k;
+// (oa, ob) = (|X|, arg X) when POLAR, (Re X, Im X) when not.
+template <bool POLAR>
+__device__ __forceinline__ void split_bin(float zr, float zi, float mr,
+                                          float mi, float wr, float wi,
+                                          float& oa, float& ob) {
+  const float er = 0.5f * (zr + mr), ei = 0.5f * (zi + mi);
+  const float pr = 0.5f * (zi - mi), pi = -0.5f * (zr - mr);
+  const float re = er + (pr * wr - pi * wi);
+  const float im = ei + (pr * wi + pi * wr);
+  oa = POLAR ? sqrtf(re * re + im * im) : re;
+  ob = POLAR ? atan2f(im, re) : im;
+}
+
+// Floats of an analysis span of F frames at this hop: (F-1) hop + N and
+// up to 3 floats of alignment, rounded up to whole 16-byte chunks.
+template <class P>
+__host__ __device__ constexpr int span_floats(int hop) {
+  return ((P::F - 1) * hop + P::N + 7) & ~3;
+}
+
+// The analysis, F frames a group: X = rfft(x[i*hop : i*hop+N] * w) from
+// the N/2-point FFT of z[n] = g[2n] + i g[2n+1], g = x w, split with the
+// post-twiddle W^k = twc[k] - i tws[k] (W^(N/2) = -1); (oa, ob)[i] =
+// (|X|, arg X) when POLAR, (Re X, Im X) when not. The next group's span
+// comes in while this group transforms (two span buffers). Where a frame
+// has a warp or more (N >= 1024) its threads write its rows, 32
+// consecutive floats a store; below, each frame's bins are split in
+// place in its buffer (bin k at slot k, bin M at slot M) and the block
+// writes the group's contiguous rows in one sweep, where a warp's 2-4
+// frames would store 32- or 64-byte pieces of their rows at once.
+// Shared memory: stage twiddles (2 M), F frame buffers (2 FS each), two
+// spans (span_floats each).
+template <int LOG2N, bool POLAR>
+__global__ void __launch_bounds__(real_fft::kThreads, real_fft::kMinBlocks)
+stft_real_kernel(const float* __restrict__ x, const float* __restrict__ win,
+                 const float* __restrict__ twc, const float* __restrict__ tws,
+                 float* __restrict__ oa, float* __restrict__ ob, long long nf,
+                 int hop) {
+  using P = real_fft::Plan<LOG2N>;
+  using real_fft::pad;
+  constexpr int M = P::M, T = P::T, F = P::F;
+  constexpr int R0 = 1 << P::lr(0), RL = 1 << P::lr(P::S - 1);
+  constexpr bool kStaged = T < 32;
+  extern __shared__ __align__(16) float sm[];
+  float* twr = sm;
+  float* twi = sm + M;
+  float* bufs = sm + 2 * M;
+  const int slot = threadIdx.x / T, t = threadIdx.x % T;
+  float* br = bufs + slot * 2 * P::FS;
+  float* bi = br + P::FS;
+  float* spans = bufs + F * 2 * P::FS;
+  const int span_len = span_floats<P>(hop);
+  real_fft::build_twiddles<P>(twr, twi, twc, tws);
+  const float2* win2 = reinterpret_cast<const float2*>(win);
+  const long long groups = (nf + F - 1) / F;
+  auto start_span = [&](long long g, float* sp) {
+    const long long i0 = g * F;
+    const int fg = (int)(nf - i0 < F ? nf - i0 : F);
+    return load_span(sp, x + i0 * hop, (fg - 1) * hop + P::N);
+  };
+  int o_next = start_span(blockIdx.x, spans);
+  int cur = 0;
+  for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
+    const long long i0 = g * F;
+    const int fg = (int)(nf - i0 < F ? nf - i0 : F);
+    const int o = o_next;
+    // The span and the twiddles are in; the last group's buffers and the
+    // other span are read.
+    async_wait_all();
+    __syncthreads();
+    if (g + gridDim.x < groups) o_next = start_span(g + gridDim.x, spans + (cur ^ 1) * span_len);
+    const float* xf = spans + cur * span_len + o + slot * hop;  // past fg: stale, not stored
+    cur ^= 1;
+    float vr[kV], vi[kV];
+#pragma unroll
+    for (int kk = 0; kk < kV / R0; ++kk) {
+#pragma unroll
+      for (int r = 0; r < R0; ++r) {
+        const int n = real_fft::source<P, 0>(t, kk, r);
+        const float2 w = __ldg(win2 + n);
+        vr[kk * R0 + r] = xf[2 * n] * w.x;
+        vi[kk * R0 + r] = xf[2 * n + 1] * w.y;
+      }
+    }
+    real_fft::fft<P, true>(vr, vi, br, bi, twr, twi, t, slot);
+    real_fft::group_sync<T>(slot);
+#pragma unroll
+    for (int kk = 0; kk < kV / RL; ++kk) {
+#pragma unroll
+      for (int r = 0; r < RL; ++r) {
+        const int q = pad(real_fft::dest<P, P::S - 1>(t, kk, r));
+        br[q] = vr[kk * RL + r];
+        bi[q] = vi[kk * RL + r];
+      }
+    }
+    real_fft::group_sync<T>(slot);
+    const long long i = i0 + slot;
+    float* arow = oa + i * (M + 1);
+    float* brow = ob + i * (M + 1);
+    // Bins k and M - k from the same two values Z[k], Z[M - k] (Z[M] =
+    // Z[0], so k = 0 gives bins 0 and M), which only this thread reads:
+    // k = t + T u covers 0 .. M/2 - 1, and M/2 is its own mirror.
+#pragma unroll
+    for (int u = 0; u < kV / 2; ++u) {
+      const int k = t + T * u;
+      const int m = k == 0 ? 0 : M - k;
+      const float zr = br[pad(k)], zi = bi[pad(k)];
+      const float yr = br[pad(m)], yi = bi[pad(m)];
+      float a0, b0, a1, b1;
+      split_bin<POLAR>(zr, zi, yr, -yi, __ldg(twc + k), -__ldg(tws + k), a0, b0);
+      if (k == 0) {
+        split_bin<POLAR>(zr, zi, zr, -zi, -1.f, 0.f, a1, b1);
+      } else {
+        split_bin<POLAR>(yr, yi, zr, -zi, __ldg(twc + m), -__ldg(tws + m), a1, b1);
+      }
+      const int km = k == 0 ? M : m;
+      if constexpr (kStaged) {
+        br[pad(k)] = a0;
+        bi[pad(k)] = b0;
+        br[pad(km)] = a1;
+        bi[pad(km)] = b1;
+      } else if (i < nf) {
+        arow[k] = a0;
+        brow[k] = b0;
+        arow[km] = a1;
+        brow[km] = b1;
+      }
+    }
+    if (t == 0) {
+      constexpr int k = M / 2;
+      float a0, b0;
+      split_bin<POLAR>(br[pad(k)], bi[pad(k)], br[pad(k)], -bi[pad(k)], __ldg(twc + k),
+                       -__ldg(tws + k), a0, b0);
+      if constexpr (kStaged) {
+        br[pad(k)] = a0;
+        bi[pad(k)] = b0;
+      } else if (i < nf) {
+        arow[k] = a0;
+        brow[k] = b0;
+      }
+    }
+    if constexpr (kStaged) {
+      __syncthreads();
+      // Rows i0 .. i0 + fg - 1: element e is bin e mod (M + 1) of frame
+      // e / (M + 1).
+      float* ga = oa + i0 * (M + 1);
+      float* gb = ob + i0 * (M + 1);
+      for (int e = threadIdx.x; e < fg * (M + 1); e += real_fft::kThreads) {
+        const int f = e / (M + 1);
+        const int q = f * 2 * P::FS + pad(e - f * (M + 1));
+        ga[e] = bufs[q];
+        gb[e] = bufs[q + P::FS];
+      }
+    }
+  }
+}
+
+// Y = mask * a * e^{i b} (POLAR) or mask * (a + i b) (cartesian).
+template <bool POLAR>
+__device__ __forceinline__ void spectrum_bin(float a, float b, float mk,
+                                             float& re, float& im) {
+  if (POLAR) {
+    const float m = a * mk;
+    float s, c;
+    sincosf(b, &s, &c);
+    re = m * c;
+    im = m * s;
+  } else {
+    re = a * mk;
+    im = b * mk;
+  }
+}
+
+// The synthesis, F frames a group: frames[i] = w * irfft(Y_i) with the
+// imaginary parts of DC and Nyquist dropped, Y_i = mask_i * a_i *
+// e^{i b_i} (POLAR) or mask_i * (a_i + i b_i) (cartesian), through the
+// merge Z[k] = (Y[k] + conj Y[M-k]) + i W^-k (Y[k] - conj Y[M-k]),
+// W^-k = twc[k] + i tws[k], the inverse M-point FFT z, and
+// frames[i][2n], [2n+1] = (Re z[n], Im z[n]) / N * w.
+// Shared memory: stage twiddles (2 M), F frame buffers (2 FS each).
+template <int LOG2N, bool POLAR>
+__global__ void __launch_bounds__(real_fft::kThreads, real_fft::kMinBlocks)
+istft_real_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                  const float* __restrict__ mask,
+                  const float* __restrict__ win,
+                  const float* __restrict__ twc,
+                  const float* __restrict__ tws, float* __restrict__ frames,
+                  long long nf) {
+  using P = real_fft::Plan<LOG2N>;
+  constexpr int M = P::M, T = P::T, F = P::F;
+  constexpr int R0 = 1 << P::lr(0), RL = 1 << P::lr(P::S - 1);
+  extern __shared__ __align__(16) float sm[];
+  float* twr = sm;
+  float* twi = sm + M;
+  const int slot = threadIdx.x / T, t = threadIdx.x % T;
+  float* br = sm + 2 * M + slot * 2 * P::FS;
+  float* bi = br + P::FS;
+  real_fft::build_twiddles<P>(twr, twi, twc, tws);
+  __syncthreads();
+  const float2* win2 = reinterpret_cast<const float2*>(win);
+  float2* out2 = reinterpret_cast<float2*>(frames);
+  const float scale = 1.f / P::N;
+  const long long groups = (nf + F - 1) / F;
+  for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
+    const long long i = g * F + slot;
+    const bool live = i < nf;
+    real_fft::group_sync<T>(slot);  // the last group's buffer reads done
+    if (live) {
+      const float mk = __ldg(mask + i);
+      const float* arow = a + i * (M + 1);
+      const float* brow = b + i * (M + 1);
+      // All of the thread's loads first, so that they are in flight
+      // together; bin k = t + T u, u < 16, then bin M (thread 0).
+      float ra[kV], rb[kV];
+#pragma unroll
+      for (int u = 0; u < kV; ++u) {
+        ra[u] = __ldg(arow + t + T * u);
+        rb[u] = __ldg(brow + t + T * u);
+      }
+#pragma unroll
+      for (int u = 0; u < kV; ++u) {
+        const int k = t + T * u;
+        float re, im;
+        spectrum_bin<POLAR>(ra[u], rb[u], mk, re, im);
+        br[real_fft::pad(k)] = re;
+        bi[real_fft::pad(k)] = k == 0 ? 0.f : im;
+      }
+      if (t == 0) {
+        float re, im;
+        spectrum_bin<POLAR>(__ldg(arow + M), __ldg(brow + M), mk, re, im);
+        br[real_fft::pad(M)] = re;
+        bi[real_fft::pad(M)] = 0.f;
+      }
+    }
+    real_fft::group_sync<T>(slot);
+    float vr[kV], vi[kV];
+#pragma unroll
+    for (int kk = 0; kk < kV / R0; ++kk) {
+#pragma unroll
+      for (int r = 0; r < R0; ++r) {
+        const int n = real_fft::source<P, 0>(t, kk, r);
+        const float yr = br[real_fft::pad(n)], yi = bi[real_fft::pad(n)];
+        const float cr = br[real_fft::pad(M - n)], ci = -bi[real_fft::pad(M - n)];  // conj Y[M-n]
+        const float sr = yr + cr, si = yi + ci;
+        const float dr = yr - cr, di = yi - ci;
+        const float c = __ldg(twc + n), s = __ldg(tws + n);
+        vr[kk * R0 + r] = sr - (c * di + s * dr);
+        vi[kk * R0 + r] = si + (c * dr - s * di);
+      }
+    }
+    real_fft::fft<P, false>(vr, vi, br, bi, twr, twi, t, slot);
+    if (live) {
+#pragma unroll
+      for (int kk = 0; kk < kV / RL; ++kk) {
+#pragma unroll
+        for (int r = 0; r < RL; ++r) {
+          const int n = real_fft::dest<P, P::S - 1>(t, kk, r);
+          const float2 w = __ldg(win2 + n);
+          out2[i * M + n] = make_float2(vr[kk * RL + r] * scale * w.x,
+                                        vi[kk * RL + r] * scale * w.y);
+        }
+      }
+    }
+  }
+}
+
+// As many blocks of `kernel` as run on the card at once with `smem`
+// bytes each, at most `groups`; raises the kernel's shared-memory limit
+// past 48 KB when it needs to.
+template <class K>
+cudaError_t grid_for(K kernel, size_t smem, long long groups, unsigned* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess && smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, real_fft::kThreads, smem);
+  }
+  if (err != cudaSuccess) return err;
+  const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  *grid = (unsigned)(groups < most ? groups : most);
+  return cudaSuccess;
+}
+
+template <int LOG2N, bool POLAR>
+cudaError_t launch_stft_real(const float* x, const float* fft, float* oa,
+                             float* ob, long long nf, int hop,
+                             cudaStream_t stream) {
+  using P = real_fft::Plan<LOG2N>;
+  const size_t smem =
+      sizeof(float) * (2 * P::M + P::F * 2 * P::FS + 2 * (size_t)span_floats<P>(hop));
+  unsigned grid = 0;
+  const cudaError_t err = grid_for(stft_real_kernel<LOG2N, POLAR>, smem,
+                                   (nf + P::F - 1) / P::F, &grid);
+  if (err != cudaSuccess) return err;
+  stft_real_kernel<LOG2N, POLAR><<<grid, real_fft::kThreads, smem, stream>>>(
+      x, fft, fft + P::N, fft + P::N + P::M, oa, ob, nf, hop);
+  return cudaGetLastError();
+}
+
+template <int LOG2N, bool POLAR>
+cudaError_t launch_istft_real(const float* a, const float* b,
+                              const float* mask, const float* fft,
+                              float* frames, long long nf,
+                              cudaStream_t stream) {
+  using P = real_fft::Plan<LOG2N>;
+  const size_t smem = sizeof(float) * (2 * P::M + P::F * 2 * P::FS);
+  unsigned grid = 0;
+  const cudaError_t err = grid_for(istft_real_kernel<LOG2N, POLAR>, smem,
+                                   (nf + P::F - 1) / P::F, &grid);
+  if (err != cudaSuccess) return err;
+  istft_real_kernel<LOG2N, POLAR><<<grid, real_fft::kThreads, smem, stream>>>(
+      a, b, mask, fft, fft + P::N, fft + P::N + P::M, frames, nf);
+  return cudaGetLastError();
+}
+
+// log2 N when fft_real.cuh's body serves N (a power of two from 256 to
+// 4096), else 0.
+int real_log2(int n) {
+  for (int l = 8; l <= 12; ++l) {
+    if (n == 1 << l) return l;
+  }
+  return 0;
+}
+
+// The analysis and synthesis by fft_real.cuh's body at N = 2^log2n.
+template <bool POLAR>
+cudaError_t analysis_real(int log2n, const float* x, const float* fft,
+                          float* oa, float* ob, long long nf, int hop,
+                          cudaStream_t stream) {
+  switch (log2n) {
+    case 8: return launch_stft_real<8, POLAR>(x, fft, oa, ob, nf, hop, stream);
+    case 9: return launch_stft_real<9, POLAR>(x, fft, oa, ob, nf, hop, stream);
+    case 10: return launch_stft_real<10, POLAR>(x, fft, oa, ob, nf, hop, stream);
+    case 11: return launch_stft_real<11, POLAR>(x, fft, oa, ob, nf, hop, stream);
+    default: return launch_stft_real<12, POLAR>(x, fft, oa, ob, nf, hop, stream);
+  }
+}
+
+template <bool POLAR>
+cudaError_t synthesis_real(int log2n, const float* a, const float* b,
+                           const float* mask, const float* fft, float* frames,
+                           long long nf, cudaStream_t stream) {
+  switch (log2n) {
+    case 8: return launch_istft_real<8, POLAR>(a, b, mask, fft, frames, nf, stream);
+    case 9: return launch_istft_real<9, POLAR>(a, b, mask, fft, frames, nf, stream);
+    case 10: return launch_istft_real<10, POLAR>(a, b, mask, fft, frames, nf, stream);
+    case 11: return launch_istft_real<11, POLAR>(a, b, mask, fft, frames, nf, stream);
+    default: return launch_istft_real<12, POLAR>(a, b, mask, fft, frames, nf, stream);
+  }
+}
+
+// The analysis over nf frames: (mag, phi) when polar is 1, (re, im) when
+// 0, by fft_real.cuh's body where it serves n_fft, else by
+// stft_polar_kernel in the instantiation of n_fft's plan.
+cudaError_t launch_analysis(const float* x, const float* fft, float* oa,
+                            float* ob, long long nf, int n_fft, int hop,
+                            int polar, cudaStream_t stream) {
+  if (const int l = real_log2(n_fft)) {
+    return polar ? analysis_real<true>(l, x, fft, oa, ob, nf, hop, stream)
+                 : analysis_real<false>(l, x, fft, oa, ob, nf, hop, stream);
+  }
+  const size_t smem = 2 * n_fft * sizeof(float);
+  const FftPlan plan = make_fft_plan(n_fft);
+  const float* twc = fft + n_fft;
+  const float* tws = fft + n_fft + n_fft / 2;
+  if (plan.log2n > 0) {
+    stft_polar_kernel<true><<<(unsigned)nf, kThreads, smem, stream>>>(
+        x, fft, twc, tws, oa, ob, plan, hop, polar);
+  } else {
+    stft_polar_kernel<false><<<(unsigned)nf, kThreads, smem, stream>>>(
+        x, fft, twc, tws, oa, ob, plan, hop, polar);
+  }
+  return cudaGetLastError();
+}
+
+// The windowed inverse frames over nf frames, by fft_real.cuh's body
+// where it serves n_fft, else by istft_frames_kernel in the instantiation
+// of n_fft's plan.
 cudaError_t launch_frames(const float* a, const float* b, const float* mask,
                           const float* fft, float* frames, long long nf,
                           int n_fft, int polar, cudaStream_t stream) {
+  if (const int l = real_log2(n_fft)) {
+    return polar ? synthesis_real<true>(l, a, b, mask, fft, frames, nf, stream)
+                 : synthesis_real<false>(l, a, b, mask, fft, frames, nf, stream);
+  }
   const size_t smem = 2 * n_fft * sizeof(float);
   const FftPlan plan = make_fft_plan(n_fft);
   const float* twc = fft + n_fft;
@@ -181,24 +648,20 @@ cudaError_t launch_frames(const float* a, const float* b, const float* mask,
 
 }  // namespace
 
-// x holds >= (nf-1)*hop + n_fft float32 samples; fft (2*n_fft) =
-// [Hann window (n_fft) | cos (n_fft/2) | sin (n_fft/2)]; mag and phi are
-// (nf, n_fft/2+1). n_fft even, up to 4096.
+// x holds >= (nf-1)*hop + n_fft float32 samples, from any element offset;
+// fft (2*n_fft) = [Hann window (n_fft) | cos (n_fft/2) | sin (n_fft/2)];
+// mag and phi are (nf, n_fft/2+1). n_fft even, up to 4096.
 extern "C" int stft_polar(const float* x, const float* fft, float* mag,
                           float* phi, long long nf, int n_fft, int hop,
                           cudaStream_t stream) {
-  const size_t smem = 2 * n_fft * sizeof(float);
-  const FftPlan plan = make_fft_plan(n_fft);
-  const float* twc = fft + n_fft;
-  const float* tws = fft + n_fft + n_fft / 2;
-  if (plan.log2n > 0) {
-    stft_polar_kernel<true><<<(unsigned)nf, kThreads, smem, stream>>>(
-        x, fft, twc, tws, mag, phi, plan, hop);
-  } else {
-    stft_polar_kernel<false><<<(unsigned)nf, kThreads, smem, stream>>>(
-        x, fft, twc, tws, mag, phi, plan, hop);
-  }
-  return cudaGetLastError();
+  return launch_analysis(x, fft, mag, phi, nf, n_fft, hop, 1, stream);
+}
+
+// stft_polar's spectrum in cartesian form: re and im (nf, n_fft/2+1).
+extern "C" int stft_fused(const float* x, const float* fft, float* re,
+                          float* im, long long nf, int n_fft, int hop,
+                          cudaStream_t stream) {
+  return launch_analysis(x, fft, re, im, nf, n_fft, hop, 0, stream);
 }
 
 // mag and psi (nf, n_fft/2+1), mask (nf,), fft as above; frames (nf,

@@ -69,8 +69,9 @@ _SIGNATURES = {
     "resample_blocked": [_P, _P, _P, _P, _P, _P, _LL, _LL, _P],
     # x, origin, bases, k, fr, out, n, nb, B, c, stream
     "select_lerp": [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P],
-    # x, fft table, mag, phi, nf, n_fft, hop, stream
+    # x, fft table, mag, phi (re, im), nf, n_fft, hop, stream
     "stft_polar": [_P, _P, _P, _P, _LL, _I, _I, _P],
+    "stft_fused": [_P, _P, _P, _P, _LL, _I, _I, _P],
     # mag, psi, mask, fft table, frames, out, nf, n_fft, rs, stream
     "istft_ola": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
     # a, b, mask, fft table, frames, nf, n_fft, polar, stream

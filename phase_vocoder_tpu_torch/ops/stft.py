@@ -1,16 +1,18 @@
-"""Polar STFT analysis, polar iSTFT + overlap-add, and the windowed
-inverse-DFT frames of a polar or cartesian spectrum (counterpart of
-phase_vocoder_tpu/ops/pallas/stft.py: stft_polar, istft_ola, istft_frames
-and istft_frames_cart).
+"""STFT analysis in polar or cartesian form, polar iSTFT + overlap-add,
+and the windowed inverse-DFT frames of a polar or cartesian spectrum
+(counterpart of phase_vocoder_tpu/ops/pallas/stft.py: stft_polar,
+stft_fused, istft_ola, istft_frames and istft_frames_cart).
 
 Each runs a CUDA kernel of csrc/stft.cu for a CUDA tensor, counting one
 launch in `.launches`, and its plain torch version (`*_reference`) for a
 CPU tensor. A CUDA tensor launches the kernel or raises; nothing falls
 back.
 
-The kernels take any even n_fft up to 4096 (the FFT of
-csrc/fft_common.cuh: radix 2 for a power of two, mixed radix for any
-other even size); istft_ola keeps the JAX contract rs | n_fft with
+The kernels take any even n_fft up to 4096: a power of two from 256 to
+4096 goes through an n_fft/2-point FFT with one warp per frame at
+n_fft = 1024 (csrc/fft_real.cuh), any other even size through the FFT of
+csrc/fft_common.cuh (radix 2 or mixed radix, a block per frame);
+istft_ola keeps the JAX contract rs | n_fft with
 overlap n_fft/rs >= 2. istft_frames(_cart) do no overlap-add, so the
 caller's fold serves any synthesis hop.
 """
@@ -29,6 +31,8 @@ __all__ = [
     "istft_ola_supported",
     "stft_polar",
     "stft_polar_reference",
+    "stft_fused",
+    "stft_fused_reference",
     "istft_ola",
     "istft_ola_reference",
     "istft_frames",
@@ -60,27 +64,35 @@ def _check_cuda(t: torch.Tensor, what: str) -> None:
 # ---------------------------------------------------------------- analysis
 
 
+def _windowed_rfft(x: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    return torch.fft.rfft(frame_signal(x, n_fft, hop) * hann_window(n_fft, x.device), dim=-1)
+
+
 def stft_polar_reference(x: torch.Tensor, n_fft: int, hop: int):
     """Plain torch windowed STFT -> (mag, phi), each (nf, n_fft//2+1), on
     x's device: torch.fft.rfft of the Hann-windowed frames, then
     sqrt(re^2+im^2) and atan2(im, re)."""
-    spec = torch.fft.rfft(frame_signal(x, n_fft, hop) * hann_window(n_fft, x.device), dim=-1)
+    spec = _windowed_rfft(x, n_fft, hop)
     re, im = spec.real, spec.imag
     return torch.sqrt(re * re + im * im), torch.atan2(im, re)
 
 
-def stft_polar(x: torch.Tensor, n_fft: int, hop: int):
-    """Windowed STFT of 1-D float32 x -> (mag, phi), each (nf, n_fft//2+1).
+def stft_fused_reference(x: torch.Tensor, n_fft: int, hop: int):
+    """Plain torch windowed STFT -> (re, im), each (nf, n_fft//2+1):
+    torch.fft.rfft of the Hann-windowed frames, split."""
+    spec = _windowed_rfft(x, n_fft, hop)
+    return spec.real.contiguous(), spec.imag.contiguous()
 
-    A CUDA tensor goes through the stft_polar kernel (csrc/stft.cu) and
-    counts one launch in `stft_polar.launches`; a CPU tensor goes through
-    stft_polar_reference.
-    """
+
+def _analysis(x: torch.Tensor, n_fft: int, hop: int, wrapper):
+    """The analysis kernel for `wrapper` (stft_polar: (mag, phi),
+    stft_fused: (re, im)), counting its launches."""
+    what = wrapper.__name__
     if x.dtype != torch.float32 or x.dim() != 1:
         raise ValueError(f"expected a 1-D float32 tensor, got {x.dtype} {tuple(x.shape)}")
     if not stft_supported(n_fft, hop):
         raise ValueError(
-            f"stft_polar requires {_FFT_LIMIT} and "
+            f"{what} requires {_FFT_LIMIT} and "
             f"hop | n_fft (got n_fft={n_fft}, hop={hop})"
         )
     nf = num_frames(x.shape[-1], n_fft, hop)
@@ -88,23 +100,48 @@ def stft_polar(x: torch.Tensor, n_fft: int, hop: int):
     if nf <= 0:
         return x.new_zeros((0, nb)), x.new_zeros((0, nb))
     if x.device.type == "cpu":
-        return stft_polar_reference(x, n_fft, hop)
-    _check_cuda(x, "stft_polar")
-    mag = torch.empty((nf, nb), dtype=torch.float32, device=x.device)
-    phi = torch.empty_like(mag)
+        ref = stft_polar_reference if wrapper is stft_polar else stft_fused_reference
+        return ref(x, n_fft, hop)
+    _check_cuda(x, what)
+    a = torch.empty((nf, nb), dtype=torch.float32, device=x.device)
+    b = torch.empty_like(a)
     table = _device_fft_table(n_fft, str(x.device))
     lib = _build.kernels()
     with torch.cuda.device(x.device):
-        rc = lib.stft_polar(
-            x.data_ptr(), table.data_ptr(), mag.data_ptr(), phi.data_ptr(),
+        rc = getattr(lib, what)(
+            x.data_ptr(), table.data_ptr(), a.data_ptr(), b.data_ptr(),
             nf, n_fft, hop, torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(rc, "stft_polar")
-    stft_polar.launches += 1
-    return mag, phi
+    _build.check(rc, what)
+    wrapper.launches += 1
+    return a, b
+
+
+def stft_polar(x: torch.Tensor, n_fft: int, hop: int):
+    """Windowed STFT of 1-D float32 x -> (mag, phi), each (nf, n_fft//2+1).
+
+    A CUDA tensor goes through the analysis kernel (csrc/stft.cu, polar
+    form; x may start at any element) and counts one launch in
+    `stft_polar.launches`; a CPU tensor goes through stft_polar_reference.
+    """
+    return _analysis(x, n_fft, hop, stft_polar)
 
 
 stft_polar.launches = 0
+
+
+def stft_fused(x: torch.Tensor, n_fft: int, hop: int):
+    """Windowed STFT of 1-D float32 x -> (re, im), each (nf, n_fft//2+1):
+    framing + Hann window + DFT, the cartesian twin of stft_polar.
+
+    A CUDA tensor goes through the analysis kernel (csrc/stft.cu,
+    cartesian form) and counts one launch in `stft_fused.launches`; a CPU
+    tensor goes through stft_fused_reference.
+    """
+    return _analysis(x, n_fft, hop, stft_fused)
+
+
+stft_fused.launches = 0
 
 
 # --------------------------------------------------------------- synthesis

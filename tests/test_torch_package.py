@@ -129,13 +129,13 @@ def test_pyproject_ships_the_port():
 @pytest.mark.parametrize("name", ["pvoc_fused.cu", "resample.cu", "stft.cu"])
 def test_kernel_sources_use_no_kernel_library(name):
     """The kernels are written by hand: they include only the CUDA runtime
-    and the package's shared FFT header (no cuFFT, cuBLAS or PyTorch
-    headers) and start with their note."""
+    and the package's FFT headers (no cuFFT, cuBLAS or PyTorch headers)
+    and start with their note."""
     src = (PKG / "csrc" / name).read_text()
     assert src.startswith("//") and "Replaces:" in src
     includes = {ln.split()[1] for ln in src.splitlines() if ln.startswith("#include")}
     assert "<cuda_runtime.h>" in includes
-    assert includes <= {"<cuda_runtime.h>", "<stdint.h>", '"fft_common.cuh"'}, includes
+    assert includes <= {"<cuda_runtime.h>", "<stdint.h>", '"fft_common.cuh"', '"fft_real.cuh"'}, includes
     assert "cufft" not in src.lower() and "cublas" not in src.lower()
 
 
@@ -149,6 +149,16 @@ def test_shared_fft_header_is_plain_cuda():
     for name in ("pvoc_fused.cu", "stft.cu"):
         cu = (PKG / "csrc" / name).read_text()
         assert '#include "fft_common.cuh"' in cu and "void fft_shared" not in cu
+
+
+def test_real_fft_header_is_plain_cuda_and_stft_only():
+    """fft_real.cuh, the N/2-point body of the stft.cu kernels, includes
+    only the CUDA runtime and stdint, and only stft.cu includes it."""
+    src = (PKG / "csrc" / "fft_real.cuh").read_text()
+    includes = {ln.split()[1] for ln in src.splitlines() if ln.startswith("#include")}
+    assert includes == {"<cuda_runtime.h>", "<stdint.h>"}
+    users = [p.name for p in (PKG / "csrc").glob("*.cu") if '#include "fft_real.cuh"' in p.read_text()]
+    assert users == ["stft.cu"]
 
 
 def test_build_stamp_covers_headers(tmp_path):

@@ -12,7 +12,14 @@ Bounds:
     on either side, which the wrap absorbs.
   * istft_ola < 1e-5 interior rel (f32 inverse FFT vs f32 matrix DFT,
     ~1.6e-6 measured), with and without a frame mask.
+  * stft_fused (re, im) < 1e-5 of max |X| from JAX's stft_fused (both f32
+    DFTs, the same agreement as stft_polar's magnitude).
+  * The real-input transform of csrc/fft_real.cuh, written out in float64
+    torch (pack, stages, post-twiddle split; pre-twiddle merge, stages,
+    unpack): <= 1e-12 of the largest value from torch.fft.rfft / irfft.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,10 +30,17 @@ from phase_vocoder_tpu.ops import fft as jfft
 from phase_vocoder_tpu.ops import framing as jframing
 from phase_vocoder_tpu.ops.pallas import istft_ola as jax_istft_ola
 from phase_vocoder_tpu.ops.pallas import stft_polar as jax_stft_polar
+from phase_vocoder_tpu.ops.pallas.stft import stft_fused as jax_stft_fused
 from phase_vocoder_tpu_torch import pipeline
 from phase_vocoder_tpu_torch.ops import fft as tfft
 from phase_vocoder_tpu_torch.ops import framing
-from phase_vocoder_tpu_torch.ops.stft import istft_ola, istft_ola_reference, stft_polar
+from phase_vocoder_tpu_torch.ops.stft import (
+    istft_ola,
+    istft_ola_reference,
+    stft_fused,
+    stft_fused_reference,
+    stft_polar,
+)
 from phase_vocoder_tpu_torch.ops.window import hann_window
 from tests.conftest import make_test_signal
 
@@ -79,6 +93,33 @@ def test_stft_polar_short_and_bad_geometry():
         stft_polar(torch.zeros(8192), 8192, 2048)  # above 4096
     with pytest.raises(ValueError):
         stft_polar(torch.zeros(4096, dtype=torch.float64), N, RA)
+
+
+@pytest.mark.parametrize("n_fft,hop,seconds", [(512, 128, 2.0), (1024, 256, 2.0), (1024, 256, 0.1)])
+def test_stft_fused_vs_jax(n_fft, hop, seconds, x2):
+    x = x2[: int(seconds * 16000)]
+    jre, jim = (np.asarray(a) for a in jax_stft_fused(jnp.asarray(x), n_fft, hop))
+    tre, tim = (t.numpy() for t in stft_fused(torch.as_tensor(x), n_fft, hop))
+    assert tre.shape == tim.shape == jre.shape == (framing.num_frames(len(x), n_fft, hop), n_fft // 2 + 1)
+    top = np.max(np.hypot(jre, jim))
+    assert max(np.max(np.abs(tre - jre)), np.max(np.abs(tim - jim))) / top < 1e-5
+    # the polar form is the same spectrum
+    mag, phi = stft_polar(torch.as_tensor(x), n_fft, hop)
+    assert torch.allclose(torch.polar(mag, phi), torch.complex(*stft_fused_reference(torch.as_tensor(x), n_fft, hop)),
+                          rtol=0, atol=1e-6 * float(top))
+
+
+def test_stft_fused_short_and_bad_geometry():
+    re, im = stft_fused(torch.zeros(100), N, RA)
+    assert re.shape == im.shape == (0, N // 2 + 1)
+    with pytest.raises(ValueError, match="hop"):
+        stft_fused(torch.zeros(4096), N, 300)  # hop does not divide n_fft
+    with pytest.raises(ValueError):
+        stft_fused(torch.zeros(8192), 1535, 307)  # odd n_fft
+    with pytest.raises(ValueError):
+        stft_fused(torch.zeros(16384), 8192, 2048)  # above 4096
+    with pytest.raises(ValueError):
+        stft_fused(torch.zeros((2, 4096)), N, RA)  # not 1-D
 
 
 def test_analysis_whole_signal_equals_per_segment(x2):
@@ -167,9 +208,95 @@ def test_wrappers_never_run_the_plain_version_off_the_cpu():
     x = torch.zeros(4096, device="meta")
     with pytest.raises(ValueError, match="device"):
         stft_polar(x, N, RA)
+    with pytest.raises(ValueError, match="device"):
+        stft_fused(x, N, RA)
     m = torch.zeros((5, N // 2 + 1), device="meta")
     with pytest.raises(ValueError, match="device"):
         istft_ola(m, m, N, 256)
+
+
+# ------------------------------------ the transform of csrc/fft_real.cuh
+
+
+def _stages(log2n: int) -> list[int]:
+    """Plan<LOG2N>: log2 of each stage's radix, the radix-16 stages first."""
+    m = log2n - 1
+    s = (m + 3) // 4
+    return [4 if i < m - 3 * s else 3 for i in range(s)]
+
+
+def _real_fft_m(z: torch.Tensor, log2n: int, fwd: bool, tc, ts) -> torch.Tensor:
+    """fft() of csrc/fft_real.cuh in float64: the M = N/2-point Stockham
+    FFT, thread t holding butterflies j = t + T kk, with each stage's
+    source index, the twiddle build_twiddles gathers from the N-point
+    table (entry 2e, negated past the half circle), and the dest index."""
+    M = 1 << (log2n - 1)
+    T = M // 16
+    d = -1.0 if fwd else 1.0
+    buf, lns = z, 0
+    for lr in _stages(log2n):
+        R = 1 << lr
+        r = torch.arange(R)
+        j = (torch.arange(T)[:, None] + T * torch.arange(16 // R)[None, :])[..., None]
+        v = buf[j + r * (M >> lr)]  # source<P, s>
+        q = j & ((1 << lns) - 1)
+        k = 2 * ((r * q) << (log2n - 1 - lns - lr))  # build_twiddles: W_M^e at table entry 2e
+        neg = k >= M
+        h = torch.where(neg, k - M, k)
+        c = torch.where(neg, -tc[h], tc[h])
+        sn = torch.where(neg, -ts[h], ts[h])
+        v = v * torch.complex(c, d * sn)
+        w = torch.exp(d * 2j * math.pi * torch.outer(r, r).double() / R)
+        v = v @ w  # the R-point DFT in registers
+        out = torch.empty(M, dtype=torch.complex128)
+        out[((j - q) << lr) + q + (r << lns)] = v  # dest<P, s>
+        buf, lns = out, lns + lr
+    return buf
+
+
+@pytest.mark.parametrize("n_fft", [256, 1024, 4096])
+def test_real_transform_formulas_float64(n_fft):
+    """stft.cu's pack / post-twiddle split (stft_real_kernel) and
+    pre-twiddle merge / unpack (istft_real_kernel) around fft_real.cuh's
+    stages, as the source orders them, against torch.fft.rfft and irfft;
+    DC, Nyquist and bin N/4 checked on their own as well."""
+    log2n = n_fft.bit_length() - 1
+    M = n_fft // 2
+    g = np.random.default_rng(n_fft)
+    kk = torch.arange(M, dtype=torch.float64)
+    tc, ts = torch.cos(2 * math.pi * kk / n_fft), torch.sin(2 * math.pi * kk / n_fft)
+    w = hann_window(n_fft).double()
+    # analysis
+    gx = torch.as_tensor(g.standard_normal(n_fft)) * w
+    Z = _real_fft_m(torch.complex(gx[0::2], gx[1::2]), log2n, True, tc, ts)
+    k = torch.arange(M + 1)
+    a = torch.where(k == M, 0, k)
+    b = torch.where(k == 0, 0, M - k)
+    zr, zi, mr, mi = Z.real[a], Z.imag[a], Z.real[b], -Z.imag[b]
+    er, ei = 0.5 * (zr + mr), 0.5 * (zi + mi)
+    pr, pi = 0.5 * (zi - mi), -0.5 * (zr - mr)
+    wr = torch.where(k < M, tc[k % M], torch.tensor(-1.0, dtype=torch.float64))
+    wi = torch.where(k < M, -ts[k % M], torch.tensor(0.0, dtype=torch.float64))
+    X = torch.complex(er + (pr * wr - pi * wi), ei + (pr * wi + pi * wr))
+    ref = torch.fft.rfft(gx)
+    top = float(ref.abs().max())
+    assert float((X - ref).abs().max()) <= 1e-12 * top
+    for bin_ in (0, M, n_fft // 4):
+        assert abs(complex(X[bin_] - ref[bin_])) <= 1e-12 * top
+    assert X[0].imag == 0.0 and X[M].imag == 0.0
+    # synthesis
+    Y = torch.complex(torch.as_tensor(g.standard_normal(M + 1)), torch.as_tensor(g.standard_normal(M + 1)))
+    Y.imag[0] = Y.imag[M] = 0.0  # dropped, as the kernel drops them
+    n = torch.arange(M)
+    yr, yi = Y.real[n], Y.imag[n]
+    cr, ci = Y.real[M - n], -Y.imag[M - n]
+    sr, si, dr, di = yr + cr, yi + ci, yr - cr, yi - ci
+    z = _real_fft_m(torch.complex(sr - (tc * di + ts * dr), si + (tc * dr - ts * di)), log2n, False, tc, ts)
+    out = torch.empty(n_fft, dtype=torch.float64)
+    out[0::2] = z.real / n_fft * w[0::2]
+    out[1::2] = z.imag / n_fft * w[1::2]
+    ref = torch.fft.irfft(Y, n=n_fft) * w
+    assert float((out - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
 
 
 # --------------------------------------------------------------- ops/fft.py
