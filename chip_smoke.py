@@ -71,7 +71,12 @@ each; any failure raises and the script exits non-zero:
       versions (60 s): pvoc_fused_batch on a ragged batch of 4 at Rs
       128/171/512 with a row shorter than the overlap, pvoc_terms over a
       batch (scan off, u on), phasor_istft_ola with and without a mask at
-      Rs 128/256/512, phasor_istft_ola_batch with a (B, F) mask;
+      Rs 128/256/512, phasor_istft_ola_batch with a (B, F) mask; the
+      synthesis on csrc/fft_real.cuh's body at its ends: phasor_istft_ola
+      at N = 256 and 4096 (Rs = N/4, masked) against plain and rerun
+      bitwise, and a ragged pvoc_fused_batch at N = 2048 (a row of 3
+      frames, shorter than the overlap) whose rows are bitwise the single
+      kernel's at Rs 256/1024/683;
   3d. (run after 3c) the golden gate of the parallel entry points (60 s):
       batch_time_stretch_varied at 0.5/1.0/1.5/2.0, chunked_time_stretch
       (force=True) at 0.5x/2.0x, batched_chunked_time_stretch on a (1, 1)
@@ -114,20 +119,32 @@ log2 N a real transform) over 67 TFLOP/s. The last line is
 
 is the worker of the two-rank phase (4e).
 
+    python3 chip_smoke.py --ptxas
+
+needs nvcc only: compiles each csrc/*.cu as the build does, with
+-Xptxas -v, and prints every kernel's registers, stack frame and spill
+bytes as one JSON line.
+
     python3 chip_smoke.py --ab OTHER_ROOT
 
-compares the stft.cu kernels of this checkout with those of another
-checkout of the repository (an earlier commit unpacked at OTHER_ROOT) on
-one card: four processes in turn (other, this, this, other), each
-building its own checkout's kernels and timing stft_polar (41,984
-frames), istft_frames (18,747, polar), istft_frames_cart (224,997) and
-istft_ola (1,024 frames, Rs = 128) at the main paths' shapes beside
-torch.stft and torch.fft.irfft, then the analysis and the cartesian
-frames at every power of two from 256 to 4096 (the same samples and rows
-as at 1024), and hashing outputs that must not move:
-pvoc_fused at 2.0x / 3600 s and at N = 768, and the analysis and
-synthesis at N = 768 (the mixed-radix path). Prints one JSON line per
-process and a summary; fails if a hash differs.
+compares this checkout's kernels with those of another checkout of the
+repository (an earlier commit unpacked at OTHER_ROOT) on one card: four
+processes in turn (other, this, this, other), each building its own
+checkout's kernels and timing, at the main paths' shapes, the entries
+whose synthesis runs csrc/pvoc_fused.cu's synthesis pass: pvoc_fused and
+pvoc_fused_zrev at 2.0x / 3600 s, pvoc_fused_segment (8192 frames),
+pvoc_fused_batch (the 2.0x group of the 64 utterances),
+phasor_istft_ola (224,997 frames, Rs = 128, masked) and
+phasor_istft_ola_batch (8 x 37,497, masked) beside torch.istft at the
+same shapes, phasor_istft_ola at every power of two from 256 to 4096
+(224,997 * 1024 / N random rows, Rs = N/8) beside torch.istft; then the
+stft.cu kernels at the main paths' shapes as a control; and hashing
+outputs that must not move: the phasor terms (3.0x / 3600 s scanned,
+60 s with unit phasors), the stft.cu outputs at N = 1024, and the sizes
+that keep fft_synthesis (pvoc_fused, stft/istft and phasor_istft_ola at
+N = 768; pvoc_fused at N = 128). Prints one JSON line per process and a
+summary (speed-ups, hashes, whether this checkout's phasor_istft_ola(_batch)
+are ahead of torch.istft); fails if a hash differs.
 """
 
 from __future__ import annotations
@@ -463,12 +480,14 @@ def _run_ranks(world: int, timeout: float) -> list:
 
 
 def _ab_worker(root: str) -> int:
-    """Time the stft.cu kernels of the checkout at `root` and hash the
-    outputs that must not move; one JSON line."""
+    """Time the kernels of the checkout at `root` that run the synthesis of
+    csrc/pvoc_fused.cu, beside torch.istft, and the stft.cu kernels as a
+    control; hash the outputs that must not move. One JSON line."""
     import hashlib
 
     sys.path.insert(0, root)
     import phase_vocoder_tpu_torch as pv
+    from phase_vocoder_tpu_torch import streaming
     from phase_vocoder_tpu_torch.ops import fused, stft
     from phase_vocoder_tpu_torch.ops import _build
 
@@ -478,66 +497,139 @@ def _ab_worker(root: str) -> int:
     cfg = pv.PvocConfig()
     rec = {"root": root, "card": torch.cuda.get_device_name(0)}
     digest = lambda *ts: hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in ts)).hexdigest()  # noqa: E731
-    # stft_polar on the faithful route's padded 660 s signal: 41,984 frames.
-    nf_a = 41984
-    x = torch.zeros((nf_a - 1) * HOP + N_FFT, device=dev)
-    x660 = torch.as_tensor(_signal(660.0, seed=2), dtype=torch.float32, device=dev)
-    x[: len(x660)] = x660
     hann = torch.hann_window(N_FFT, device=dev)
-    rec["stft_polar_ms"] = _time_ms(lambda: stft.stft_polar(x, N_FFT, HOP), reps=20)
-    rec["torch_stft_ms"] = _time_ms(lambda: torch.stft(x, N_FFT, HOP, window=hann, center=False,
-                                                       return_complex=True), reps=20)
-    if hasattr(stft, "stft_fused"):
-        rec["stft_fused_ms"] = _time_ms(lambda: stft.stft_fused(x, N_FFT, HOP), reps=20)
-    mag, phi = stft.stft_polar_reference(x, N_FFT, HOP)
-    m_, p_ = mag[:1024].contiguous(), phi[:1024].contiguous()
-    rec["istft_ola_1024_ms"] = _time_ms(lambda: stft.istft_ola(m_, p_, N_FFT, 128), reps=50)
-    del x, x660, mag, phi
-    # istft_frames (polar) at Rs = 171 on 300 s: 18,747 frames.
-    x300 = torch.as_tensor(_signal(300.0, seed=1), dtype=torch.float32, device=dev)
-    mag, phi = pv.pipeline.analyze(x300, cfg)
-    mag, psi = pv.pipeline.stretch_polar(mag, phi, cfg, 171)
-    spec = torch.polar(mag, psi)
-    rec["istft_frames_ms"] = _time_ms(lambda: stft.istft_frames(mag, psi, N_FFT), reps=20)
-    rec["irfft_polar_ms"] = _time_ms(lambda: torch.fft.irfft(spec, n=N_FFT, dim=-1), reps=20)
-    del mag, phi, psi, spec
-    # istft_frames_cart at 3.0x on 3600 s: 224,997 frames.
     x_long = torch.as_tensor(_signal(3600.0), dtype=torch.float32, device=dev)
-    kt = fused.stft_phasor_terms(x_long, N_FFT, HOP, 768)
-    y_re, y_im = kt[0] * kt[1], kt[0] * kt[2]
-    del kt
-    y_c = torch.complex(y_re, y_im)
-    rec["istft_frames_cart_ms"] = _time_ms(lambda: stft.istft_frames_cart(y_re, y_im, N_FFT), reps=10)
-    rec["irfft_cart_ms"] = _time_ms(lambda: torch.fft.irfft(y_c, n=N_FFT, dim=-1), reps=10)
-    del y_re, y_im, y_c
-    # Every power of two of the N/2-point body at the same samples and
-    # spectrum rows as N = 1024: the analysis of 41,984 * 1024 / N frames
-    # at hop N/4, the cartesian frames of 224,997 * 1024 / N random rows.
+    # The entries that run pvoc_fused.cu's synthesis pass, at the main
+    # paths' shapes: pvoc_fused and its zrev variant at 2.0x / 3600 s, one
+    # 8192-frame stream segment, the 2.0x group of the 64-utterance batch.
+    rec["pvoc_fused_2x_3600s_ms"] = _time_ms(lambda: fused.fused_time_stretch(x_long, N_FFT, HOP, 512), reps=5)
+    rec["pvoc_fused_zrev_2x_3600s_ms"] = _time_ms(
+        lambda: fused.fused_time_stretch(x_long, N_FFT, HOP, 512, zrev=True), reps=5)
+    nf_long = (len(x_long) - N_FFT) // HOP + 1
+    F_long, _ = streaming.fused_plan_segments(nf_long, N_FFT, 512, streaming.DEFAULT_FUSED_SEGMENT_FRAMES)
+    _, st10 = streaming._fused_scan_from(
+        x_long, streaming.fused_init_state(N_FFT, 512, dev), nf_long, N_FFT, HOP, 512, F_long, 10)
+    seg_args = (x_long, st10.carry, st10.tail, 1, 10 * F_long, nf_long, N_FFT, HOP, 512, F_long)
+    rec["pvoc_fused_segment_8192_ms"] = _time_ms(lambda: fused.fused_stream_segment(*seg_args), reps=20)
+    del st10, seg_args
+    rng = np.random.default_rng(64)
+    secs = rng.uniform(5.0, 30.0, 64)
+    rows = [torch.as_tensor(_signal(float(secs[i]), seed=200 + i), dtype=torch.float32, device=dev)
+            for i in range(5, 64, 6)]  # the 2.0x utterances of chip_smoke.py's batch
+    t_max = max(len(x) for x in rows)
+    xb = torch.stack([torch.nn.functional.pad(x, (0, t_max - len(x))) for x in rows])
+    nfs_b = [(len(x) - N_FFT) // HOP + 1 for x in rows]
+    rec["pvoc_fused_batch_2x_group_ms"] = _time_ms(
+        lambda: fused.fused_time_stretch_batch(xb, N_FFT, HOP, 512, nfs_b), reps=20)
+    del rows, xb
+    # phasor_istft_ola on 224,997 frames of 0.5x phasors, Rs = 128, the
+    # mask of one rank (ones); phasor_istft_ola_batch on 8 x 37,497 frames
+    # of 600 s pieces; torch.istft at each shape.
+    mag, pre, pim, nf = fused.stft_phasor_terms(x_long, N_FFT, HOP, 128)
+    ones = torch.ones(nf, device=dev)
+    rec["phasor_istft_ola_ms"] = _time_ms(lambda: fused.phasor_istft_ola(mag, pre, pim, N_FFT, 128, nf, ones), reps=10)
+    y_c = torch.complex(mag * pre, mag * pim).T.contiguous()
+    rec["torch_istft_ms"] = _time_ms(lambda: torch.istft(y_c, N_FFT, 128, window=hann, center=True), reps=10)
+    del mag, pre, pim, y_c
+    xs8 = torch.stack([x_long[i * 428 * SR : (i * 428 + 600) * SR] for i in range(8)])
+    kb = fused.stft_phasor_terms_batch(xs8, N_FFT, HOP, 128)
+    ones8 = torch.ones((8, kb[-1]), device=dev)
+    rec["phasor_istft_ola_batch_ms"] = _time_ms(
+        lambda: fused.phasor_istft_ola_batch(*kb[:3], N_FFT, 128, kb[-1], ones8), reps=10)
+    y8 = torch.complex(kb[0] * kb[1], kb[0] * kb[2]).transpose(1, 2).contiguous()
+    rec["torch_istft_batch_ms"] = _time_ms(lambda: torch.istft(y8, N_FFT, 128, window=hann, center=True), reps=10)
+    del kb, y8, xs8
+    # phasor_istft_ola at every N of the new body: 224,997 * 1024 / N rows
+    # of random planes, Rs = N/8, masked; torch.istft beside it.
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     for n in POW2_SIZES:
-        nf = 41984 * N_FFT // n
-        xn = torch.randn((nf - 1) * (n // 4) + n, device=dev, generator=g)
+        rows_n = 224997 * N_FFT // n
+        a = torch.rand((rows_n, n // 2 + 1), device=dev, generator=g)
+        ph = torch.rand(a.shape, device=dev, generator=g) * (2 * np.pi)
+        c, s_ = torch.cos(ph), torch.sin(ph)
+        del ph
+        ones_n = torch.ones(rows_n, device=dev)
+        rec[f"phasor_istft_ola_N{n}_ms"] = _time_ms(
+            lambda: fused.phasor_istft_ola(a, c, s_, n, n // 8, rows_n, ones_n), reps=5)
+        y_n = torch.complex(a * c, a * s_).T.contiguous()
+        del a, c, s_
         win = torch.hann_window(n, device=dev)
-        rec[f"stft_polar_N{n}_ms"] = _time_ms(lambda: stft.stft_polar(xn, n, n // 4), reps=20)
-        if hasattr(stft, "stft_fused"):
-            rec[f"stft_fused_N{n}_ms"] = _time_ms(lambda: stft.stft_fused(xn, n, n // 4), reps=20)
-        rec[f"torch_stft_N{n}_ms"] = _time_ms(lambda: torch.stft(xn, n, n // 4, window=win, center=False,
-                                                                 return_complex=True), reps=20)
-        a = torch.randn((224997 * N_FFT // n, n // 2 + 1), device=dev, generator=g)
-        b = torch.randn(a.shape, device=dev, generator=g)
-        rec[f"istft_frames_cart_N{n}_ms"] = _time_ms(lambda: stft.istft_frames_cart(a, b, n), reps=10)
-        c = torch.complex(a, b)
-        rec[f"irfft_N{n}_ms"] = _time_ms(lambda: torch.fft.irfft(c, n=n, dim=-1), reps=10)
-        del xn, a, b, c
-    # Outputs that this PR's kernels do not reach.
-    rec["hash_pvoc_fused_2x_3600s"] = digest(fused.fused_time_stretch(x_long, N_FFT, HOP, 512))
-    rec["hash_pvoc_fused_768_2x_3600s"] = digest(fused.fused_time_stretch(x_long, 768, 192, 384))
+        rec[f"torch_istft_N{n}_ms"] = _time_ms(lambda: torch.istft(y_n, n, n // 8, window=win, center=True), reps=5)
+        del y_n
+    # Controls: the stft.cu kernels at the main paths' shapes (not changed).
+    nf_a = 41984
+    x = torch.zeros((nf_a - 1) * HOP + N_FFT, device=dev)
+    x[: 660 * SR] = torch.as_tensor(_signal(660.0, seed=2), dtype=torch.float32, device=dev)
+    rec["stft_polar_ms"] = _time_ms(lambda: stft.stft_polar(x, N_FFT, HOP), reps=20)
+    rec["torch_stft_ms"] = _time_ms(lambda: torch.stft(x, N_FFT, HOP, window=hann, center=False,
+                                                       return_complex=True), reps=20)
+    rec["stft_fused_ms"] = _time_ms(lambda: stft.stft_fused(x, N_FFT, HOP), reps=20)
+    m_a, p_a = stft.stft_polar(x, N_FFT, HOP)
+    m_, p_ = m_a[:1024].contiguous(), p_a[:1024].contiguous()
+    rec["istft_ola_1024_ms"] = _time_ms(lambda: stft.istft_ola(m_, p_, N_FFT, 128), reps=50)
+    kt = fused.stft_phasor_terms(x_long, N_FFT, HOP, 768)
+    y_re, y_im = kt[0] * kt[1], kt[0] * kt[2]
+    rec["istft_frames_cart_ms"] = _time_ms(lambda: stft.istft_frames_cart(y_re, y_im, N_FFT), reps=10)
+    # Outputs that the synthesis pass does not reach: the analysis and phasor
+    # terms (3.0x / 3600 s, scanned; 60 s, terms and unit phasors), the
+    # stft.cu kernels at N = 1024, and the sizes that keep fft_synthesis
+    # (768: the mixed radix; 128: radix 2, below fft_real.cuh's sizes).
     x60 = x_long[: 60 * SR]
+    rec["hash_terms_3x_3600s"] = digest(*kt[:3])
+    rec["hash_terms_unscanned_u_60s"] = digest(*fused.stft_phasor_terms(x60, N_FFT, HOP, 768, scan=False,
+                                                                          return_u=True)[:5])
+    del kt
+    rec["hash_stft_cu_1024"] = digest(m_a, p_a, *stft.stft_fused(x, N_FFT, HOP), stft.istft_ola(m_, p_, N_FFT, 128),
+                                      stft.istft_frames(m_, p_, N_FFT), stft.istft_frames_cart(y_re, y_im, N_FFT))
+    del x, m_a, p_a, y_re, y_im
+    rec["hash_pvoc_fused_768_2x_3600s"] = digest(fused.fused_time_stretch(x_long, 768, 192, 384))
     m768, p768 = stft.stft_polar(x60, 768, 192)
     rec["hash_n768_stft_istft"] = digest(m768, p768, stft.istft_frames(m768, p768, 768),
                                          stft.istft_ola(m768, p768, 768, 96))
+    t768 = fused.stft_phasor_terms(x60, 768, 192, 96)
+    rec["hash_n768_phasor_istft_ola"] = digest(fused.phasor_istft_ola(*t768[:3], 768, 96, t768[3]),
+                                               fused.fused_time_stretch(x60, 768, 192, 128))
+    rec["hash_n128_pvoc_fused"] = digest(fused.fused_time_stretch(x60, 128, 32, 64),
+                                         fused.fused_time_stretch(x60, 128, 32, 21))
     print(json.dumps(rec), flush=True)
+    return 0
+
+
+def _ptxas() -> int:
+    """Compile each csrc/*.cu as the build does, with -Xptxas -v; print one
+    JSON line: every kernel's registers, stack frame and spill bytes."""
+    import os
+    import re
+    import tempfile
+
+    from phase_vocoder_tpu_torch.ops import _build
+
+    nvcc = _build._nvcc()
+    filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in sorted(_build.CSRC.glob("*.cu")):
+            out = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", f"{tmp}/k.o", str(src)],
+                                 capture_output=True, text=True, timeout=900)
+            _check(out.returncode == 0, f"nvcc {src.name}:\n{out.stderr[-3000:]}")
+            cur = None
+            for line in (out.stdout + out.stderr).splitlines():
+                m = re.search(r"Function properties for (\S+)", line)
+                if m:
+                    cur = m.group(1)
+                    res[cur] = {"source": src.name}
+                    continue
+                m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if m and cur:
+                    res[cur].update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+                m = re.search(r"Used (\d+) registers", line)
+                if m and cur:
+                    res[cur]["registers"] = int(m.group(1))
+    if os.path.exists(filt):
+        names = subprocess.run([filt], input="\n".join(res), capture_output=True, text=True).stdout.splitlines()
+        res = {name.replace("(anonymous namespace)::", ""): v for name, v in zip(names, res.values())}
+    print(json.dumps({"ptxas": res}), flush=True)
     return 0
 
 
@@ -562,7 +654,11 @@ def _ab(other: str) -> int:
             mine = [recs[1][k], recs[2][k]]
             theirs = [recs[0][k], recs[3][k]]
             summary[k] = {"this": mine, "other": theirs, "speedup": sum(theirs) / sum(mine)}
-    print(json.dumps({"ab_summary": summary, "bitwise_equal": same}), flush=True)
+    ahead = {k: recs[1][k] < recs[1][lib] and recs[2][k] < recs[2][lib]
+             for k, lib in (("phasor_istft_ola_ms", "torch_istft_ms"),
+                            ("phasor_istft_ola_batch_ms", "torch_istft_batch_ms"))}
+    print(json.dumps({"ab_summary": summary, "bitwise_equal": same, "this_ahead_of_torch_istft": ahead}),
+          flush=True)
     _check(all(same.values()), f"outputs moved: {same}")
     return 0
 
@@ -903,6 +999,36 @@ def main() -> int:
         _check(bool((a[:, (nf_s - 100 - 1) * rs + N_FFT :] == 0).all()), "phasor_istft_ola_batch: masked frames leak")
         synth_b[f"{rs}/row1_bitwise_vs_single_kernel"] = bool(torch.equal(
             a[1], phasor_istft_ola(kb[0][1], kb[1][1], kb[2][1], N_FFT, rs, nf_s, bmask[1])))
+    # The synthesis on fft_real.cuh's body (synth_real) at its smallest and
+    # largest N: phasor_istft_ola masked at Rs = N/4 against its plain
+    # version, and a rerun bitwise equal; then a ragged pvoc_fused_batch at
+    # N = 2048 (a row of 3 frames, shorter than the overlap at Rs = 256),
+    # each row bitwise equal to the single-recording kernel.
+    for n in (256, 4096):
+        mg, pr_, pi_, nf_n = stft_phasor_terms(x60, n, n // 4, n // 8)
+        mask_n = torch.ones(nf_n, device=dev)
+        mask_n[-100:] = 0.0
+        a = phasor_istft_ola(mg, pr_, pi_, n, n // 4, nf_n, mask_n)
+        synth[f"N{n}/masked"] = _rel(a, phasor_istft_ola_reference(mg, pr_, pi_, n, n // 4, nf_n, mask_n), n)
+        synth[f"N{n}/rerun_bitwise"] = bool(torch.equal(a, phasor_istft_ola(mg, pr_, pi_, n, n // 4, nf_n, mask_n)))
+        _check(synth[f"N{n}/masked"] < 1e-5 and synth[f"N{n}/rerun_bitwise"]
+               and bool((a[(nf_n - 100 - 1) * (n // 4) + n :] == 0).all()), f"phasor_istft_ola at N={n}: {synth}")
+        del mg, pr_, pi_
+    lens_2k = [len(x60), int(37.0 * SR), 2048 + 2 * 512, int(51.0 * SR)]
+    xs_2k = torch.zeros((4, len(x60)), device=dev)
+    for i, n in enumerate(lens_2k):
+        xs_2k[i, :n] = torch.as_tensor(_signal(n / SR, seed=20 + i)[:n], dtype=torch.float32, device=dev)
+    nfs_2k = [(n - 2048) // 512 + 1 for n in lens_2k]
+    for rs in (256, 1024, 683):
+        k = fused_time_stretch_batch(xs_2k, 2048, 512, rs, nfs_2k)
+        for b, nf_b in enumerate(nfs_2k):
+            n_out = (nf_b - 1) * rs + 2048
+            same = bool(torch.equal(k[b, :n_out], fused_time_stretch(xs_2k[b, : lens_2k[b]].contiguous(),
+                                                                    2048, 512, rs)))
+            _check(same and bool((k[b, n_out:] == 0).all()),
+                   f"pvoc_fused_batch at N=2048, Rs={rs}: row {b} ({nf_b} frames) differs from the single kernel")
+            batch_k[f"N2048/{rs}/row{b}_bitwise_vs_single_kernel"] = same
+    del xs_2k, k
     _emit("2e_parallel_kernels_vs_plain", seconds=60, pvoc_fused_batch=batch_k, pvoc_terms_batch=terms_b,
           phasor_istft_ola_rel=synth, phasor_istft_ola_batch_rel=synth_b, masked_frames=100,
           bounds={"batch_vs_plain": 5e-5, "batch_vs_single_kernel": "bitwise", "mag_rel": 1e-5, "weighted": 1e-4,
@@ -1903,6 +2029,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-worker"]:
         sys.exit(_rank_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ptxas"]:
+        sys.exit(_ptxas())
     if sys.argv[1:2] in (["--ab"], ["--ab-worker"]):
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: torch.cuda.is_available() is false")

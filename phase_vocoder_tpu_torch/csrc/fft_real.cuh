@@ -1,7 +1,7 @@
 // fft_real.cuh — the transform body of stft.cu's analysis and synthesis
-// kernels for a power-of-two N from 256 to 4096: a real N-point frame
-// through an M = N/2-point complex FFT, a fixed group of threads per
-// frame, several frames per block.
+// kernels and of pvoc_fused.cu's synthesis for a power-of-two N from 256
+// to 4096: a real N-point frame through an M = N/2-point complex FFT, a
+// fixed group of threads per frame, several frames per block.
 //
 // The transform. A frame of T = M/16 threads; each thread holds 16
 // complex values in registers. The M-point FFT is a Stockham (autosort)
@@ -257,6 +257,36 @@ __device__ __forceinline__ void fft(float (&vr)[kV], float (&vi)[kV],
   dft_all<(1 << P::lr(0)), FWD>(vr, vi);
   if constexpr (P::S > 1) stage<P, 1, FWD>(vr, vi, br, bi, twr, twi, t, slot);
   if constexpr (P::S > 2) stage<P, 2, FWD>(vr, vi, br, bi, twr, twi, t, slot);
+}
+
+// log2 N when this body serves N (a power of two from 256 to 4096), else 0.
+inline int real_log2(int n) {
+  for (int l = 8; l <= 12; ++l) {
+    if (n == 1 << l) return l;
+  }
+  return 0;
+}
+
+// As many blocks of `kernel` (kThreads threads each) as run on the card at
+// once with `smem` bytes each, at most `groups`; raises the kernel's
+// shared-memory limit past 48 KB when it needs to (N = 4096).
+template <class K>
+cudaError_t grid_for(K kernel, size_t smem, long long groups, unsigned* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess && smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  }
+  if (err != cudaSuccess) return err;
+  const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  *grid = (unsigned)(groups < most ? groups : most);
+  return cudaSuccess;
 }
 
 }  // namespace real_fft

@@ -35,11 +35,10 @@
 //
 // What bounds it here: device memory traffic. The TPU kernel spends its
 // time in DFT matrix products on the MXU; here each frame's DFT is an FFT
-// in shared memory in FP32 (fft_common.cuh: radix 2 for a power-of-two N,
-// ~5 N log2 N FLOP per transform, about a hundredth of a matrix DFT; mixed
-// radix for any other even N), so the passes are bound by the
-// spectra (nf x (N+2) floats, written and read twice) and the windowed
-// frames (nf x N floats) that go through device memory between launches.
+// in FP32 (~2.5-5 N log2 N FLOP per transform, about a hundredth of a
+// matrix DFT), so the passes are bound by the spectra (nf x (N+2) floats,
+// written and read twice) and the windowed frames (nf x N floats) that go
+// through device memory between launches.
 // FP32 FMA, no tensor cores: the forward transform feeds the unit phasors,
 // and every operand split with a ~2^-17 floor failed the 1e-4 golden gate
 // on the TPU; the FFT also sums with less rounding error than a direct
@@ -50,7 +49,8 @@
 // no order, so the work is split into launches that need no carried state:
 //   (a) analysis: one block per frame loads x[i*Ra : i*Ra+N] (framing is
 //       the load), multiplies by the Hann window and runs the FFT of
-//       fft_common.cuh with f64-built twiddles; bins 0..N/2 go to the
+//       fft_common.cuh (radix 2 for a power-of-two N, mixed radix for any
+//       other even N) with f64-built twiddles; bins 0..N/2 go to the
 //       spectrum row;
 //   (a') fold analysis (pvoc_fused_zrev, N a multiple of 4): the windowed
 //       frame's even- and odd-indexed samples are packed as one complex
@@ -70,16 +70,32 @@
 //       product (in-chunk products -> serial scan of chunk carries per
 //       bin -> apply and renormalize), with no atomics;
 //   (c) synthesis: Y = |X| P, then per frame the inverse FFT of the
-//       Hermitian spectrum, scaled by 1/N and windowed, to (nf, N) frames;
+//       Hermitian spectrum, scaled by 1/N and windowed, to (nf, N) frames.
+//       For a power-of-two N from 256 to 4096 (synth_real) a real frame
+//       goes through fft_real.cuh's N/2-point body: the pre-twiddle merge
+//       Z[k] = (Y[k] + conj Y[N/2-k]) + i W^-k (Y[k] - conj Y[N/2-k]), the
+//       inverse N/2-point Stockham FFT in registers (radix 16/8), and
+//       Re z[n], Im z[n] to samples 2n, 2n+1; N/32 threads a frame (a warp
+//       at N = 1024), 8192/N frames a 256-thread block, stage twiddles in
+//       shared memory, a grid of as many blocks as run at once walking
+//       over the frame groups of every batch row. synth_real reads Y from
+//       the packed rows of the phase passes or, in pvoc_phasor_synth,
+//       forms it from the magnitude and phasor planes as it loads them, so
+//       that no packed copy of Y goes through device memory. Every other N
+//       takes fft_synthesis: one block a frame, a complex N-point FFT in
+//       shared memory (fft_common.cuh: radix 2 at N = 128, mixed radix for
+//       N not a power of two), after phasor_y packs Y;
 //   (d) overlap-add in gather form: a thread per output sample sums the
 //       <= m frames covering it in increasing frame order and multiplies
 //       by the inverse window energy of its row (head, interior or tail).
-// A batch is the same launches with the batch row as gridDim.y: every
-// buffer holds B rows of nf frames, a row's passes touch only its own
-// frames (the first n_b of them, n_b read from a device array of frame
-// counts), so each row computes exactly what the single-recording launch
-// computes for its own signal. The TPU grid's batch axis reset its VMEM
-// carry at each row's first tile; here there is no carry to reset.
+// A batch is the same launches with the batch row as gridDim.y (in
+// synth_real, the batch rows' frame groups flattened over one grid, a
+// group never across two rows): every buffer holds B rows of nf frames,
+// a row's passes touch only its own frames (the first n_b of them, n_b
+// read from a device array of frame counts), so each row computes
+// exactly what the single-recording launch computes for its own signal.
+// The TPU grid's batch axis reset its VMEM carry at each row's first
+// tile; here there is no carry to reset.
 // A stream segment is the same launches with the state as arguments: the
 // first frame's previous phasor (q >= 2) or anchor (integer k) is read
 // from the carry once the recording has started; the carry scan starts
@@ -90,7 +106,11 @@
 // of its own last frames into the next m-1 rows the same way. With F a
 // multiple of the chunk and F >= m-1, every float operation happens in the
 // order of the single-recording run, so a stream is bitwise equal to it.
-// Every pass is deterministic, so reruns are bitwise equal. Offsets into
+// synth_real runs the same instructions for every frame on its own
+// inputs, so a frame's bits do not depend on its slot, its block, its
+// batch row or the launch, and these contracts hold for it as for the
+// one-block-a-frame passes. Every pass is deterministic, so reruns are
+// bitwise equal. Offsets into
 // the signal, spectra and frames are 64-bit. Build without fast math: the
 // principal-root branch near zre = -1 and the atan2 accuracy rely on IEEE
 // sqrtf, division and atan2f.
@@ -99,6 +119,7 @@
 #include <stdint.h>
 
 #include "fft_common.cuh"
+#include "fft_real.cuh"
 
 namespace {
 
@@ -209,8 +230,9 @@ fft_analysis_fold(const float* __restrict__ x, const float* __restrict__ win,
   }
 }
 
-// (c) One block per frame: frames[i] = w * irfft(Y_i) (imaginary parts of
-// DC and Nyquist are zero by construction).
+// (c), N not served by fft_real.cuh: one block per frame, frames[i] =
+// w * irfft(Y_i) (imaginary parts of DC and Nyquist are zero by
+// construction).
 template <bool kPow2>
 __global__ void __launch_bounds__(kThreads)
 fft_synthesis(const float* __restrict__ y, const float* __restrict__ win,
@@ -240,6 +262,132 @@ fft_synthesis(const float* __restrict__ y, const float* __restrict__ win,
   float* out = frames + fr * g.n_fft;
   for (int t = threadIdx.x; t < g.n_fft; t += blockDim.x) {
     out[t] = sr[t] * scale * win[t];
+  }
+}
+
+// (c) on fft_real.cuh's body, N = 2^LOG2N from 256 to 4096:
+// frames[i] = w * irfft(Y_i) with the imaginary parts of DC and Nyquist
+// dropped, through the merge Z[k] = (Y[k] + conj Y[M-k]) + i W^-k (Y[k] -
+// conj Y[M-k]), W^-k = twc[k] + i tws[k], the inverse M-point FFT z and
+// frames[i][2n], [2n+1] = (Re z[n], Im z[n]) / N * w. Y comes from one of
+// two sources: the packed rows [re(nb) | im(nb)] that the phase passes
+// leave in y (PLANES false), or Y = (|X| P_re) mask + i (|X| P_im) mask
+// formed from the (B, nf, nb) planes mag, pre, pim and the optional
+// (B, nf) mask, in phasor_y's order (PLANES true), so that no packed copy
+// of Y goes through device memory. A group is F consecutive frames of
+// one batch row; the rows' groups are flattened over a resident grid. A
+// group wholly past its row's frames is skipped by the whole block; in a
+// group that is not, a frame past the row's frames runs the transform
+// with its group (its barriers are its group's) and writes nothing.
+// Shared memory: stage twiddles (2 M), F frame buffers (2 FS each).
+// Registers: fft_real.cuh's cap of 64 (kMinBlocks blocks an SM), but at
+// N = 2048 three blocks an SM (80 registers, no spill): under the cap of
+// 64 this kernel spilled 44-68 bytes there (nvcc -Xptxas -v) and ran
+// slower on an H100.
+template <int LOG2N, bool PLANES>
+__global__ void __launch_bounds__(real_fft::kThreads, LOG2N == 11 ? 3 : real_fft::kMinBlocks)
+synth_real(const float* __restrict__ y, const float* __restrict__ mag,
+           const float* __restrict__ pre, const float* __restrict__ pim,
+           const float* __restrict__ mask, const float* __restrict__ win,
+           const float* __restrict__ twc, const float* __restrict__ tws,
+           float* __restrict__ frames, Geo g) {
+  using P = real_fft::Plan<LOG2N>;
+  using real_fft::kV;
+  using real_fft::pad;
+  constexpr int M = P::M, T = P::T, F = P::F;
+  constexpr int R0 = 1 << P::lr(0), RL = 1 << P::lr(P::S - 1);
+  extern __shared__ __align__(16) float sm[];
+  float* twr = sm;
+  float* twi = sm + M;
+  const int slot = threadIdx.x / T, t = threadIdx.x % T;
+  float* br = sm + 2 * M + slot * 2 * P::FS;
+  float* bi = br + P::FS;
+  real_fft::build_twiddles<P>(twr, twi, twc, tws);
+  __syncthreads();
+  const float2* win2 = reinterpret_cast<const float2*>(win);
+  float2* out2 = reinterpret_cast<float2*>(frames);
+  const float scale = 1.f / P::N;
+  const int64_t per_row = (g.nf + F - 1) / F;
+  const int64_t groups = per_row * g.batch;
+  for (int64_t gi = blockIdx.x; gi < groups; gi += gridDim.x) {
+    const int bat = (int)(gi / per_row);
+    const int64_t i0 = (gi - bat * per_row) * F;
+    const int64_t n_row = row_frames(g, bat);
+    if (i0 >= n_row) continue;  // the same for the whole block
+    const int64_t i = i0 + slot;
+    const bool live = i < n_row;
+    const int64_t fr = bat * g.nf + i;  // the frame's row in the buffers
+    real_fft::group_sync<T>(slot);  // the last group's buffer reads done
+    if (live) {
+      // All of a round's loads first, so that they are in flight
+      // together; bin k = t + T u, u < 16, then bin M (thread 0).
+      float ra[kV], rb[kV];
+      if constexpr (PLANES) {
+        const float mk = mask != nullptr ? __ldg(mask + fr) : 1.f;
+        const float* m_row = mag + fr * (M + 1);
+        const float* re_row = pre + fr * (M + 1);
+        const float* im_row = pim + fr * (M + 1);
+#pragma unroll
+        for (int u = 0; u < kV; ++u) {
+          ra[u] = __ldg(m_row + t + T * u);
+          rb[u] = __ldg(re_row + t + T * u);
+        }
+#pragma unroll
+        for (int u = 0; u < kV; ++u) br[pad(t + T * u)] = (ra[u] * rb[u]) * mk;
+#pragma unroll
+        for (int u = 0; u < kV; ++u) rb[u] = __ldg(im_row + t + T * u);
+#pragma unroll
+        for (int u = 0; u < kV; ++u) {
+          const int k = t + T * u;
+          bi[pad(k)] = k == 0 ? 0.f : (ra[u] * rb[u]) * mk;
+        }
+        if (t == 0) br[pad(M)] = (__ldg(m_row + M) * __ldg(re_row + M)) * mk;
+      } else {
+        const float* row = y + fr * 2 * (M + 1);
+#pragma unroll
+        for (int u = 0; u < kV; ++u) {
+          ra[u] = __ldg(row + t + T * u);
+          rb[u] = __ldg(row + M + 1 + t + T * u);
+        }
+#pragma unroll
+        for (int u = 0; u < kV; ++u) {
+          const int k = t + T * u;
+          br[pad(k)] = ra[u];
+          bi[pad(k)] = k == 0 ? 0.f : rb[u];
+        }
+        if (t == 0) br[pad(M)] = __ldg(row + M);
+      }
+      if (t == 0) bi[pad(M)] = 0.f;
+    }
+    real_fft::group_sync<T>(slot);
+    float vr[kV], vi[kV];
+#pragma unroll
+    for (int kk = 0; kk < kV / R0; ++kk) {
+#pragma unroll
+      for (int r = 0; r < R0; ++r) {
+        const int n = real_fft::source<P, 0>(t, kk, r);
+        const float yr = br[pad(n)], yi = bi[pad(n)];
+        const float cr = br[pad(M - n)], ci = -bi[pad(M - n)];  // conj Y[M-n]
+        const float sr = yr + cr, si = yi + ci;
+        const float dr = yr - cr, di = yi - ci;
+        const float c = __ldg(twc + n), s = __ldg(tws + n);
+        vr[kk * R0 + r] = sr - (c * di + s * dr);
+        vi[kk * R0 + r] = si + (c * dr - s * di);
+      }
+    }
+    real_fft::fft<P, false>(vr, vi, br, bi, twr, twi, t, slot);
+    if (live) {
+#pragma unroll
+      for (int kk = 0; kk < kV / RL; ++kk) {
+#pragma unroll
+        for (int r = 0; r < RL; ++r) {
+          const int n = real_fft::dest<P, P::S - 1>(t, kk, r);
+          const float2 w = __ldg(win2 + n);
+          out2[fr * M + n] = make_float2(vr[kk * RL + r] * scale * w.x,
+                                         vi[kk * RL + r] * scale * w.y);
+        }
+      }
+    }
   }
 }
 
@@ -722,8 +870,46 @@ void launch_analysis(const float* x, const float* fft, const float* fft_half,
   }
 }
 
-void launch_synthesis(const float* y, const float* fft, float* frames,
-                      const Geo& g, dim3 grid, cudaStream_t stream) {
+template <int LOG2N, bool PLANES>
+cudaError_t launch_synth_real(const float* y, const float* mag,
+                              const float* pre, const float* pim,
+                              const float* mask, const float* fft,
+                              float* frames, const Geo& g,
+                              cudaStream_t stream) {
+  using P = real_fft::Plan<LOG2N>;
+  const size_t smem = sizeof(float) * (2 * P::M + P::F * 2 * P::FS);
+  unsigned grid = 0;
+  const cudaError_t err = real_fft::grid_for(
+      synth_real<LOG2N, PLANES>, smem, (g.nf + P::F - 1) / P::F * g.batch, &grid);
+  if (err != cudaSuccess) return err;
+  synth_real<LOG2N, PLANES><<<grid, real_fft::kThreads, smem, stream>>>(
+      y, mag, pre, pim, mask, fft, fft + P::N, fft + P::N + P::M, frames, g);
+  return cudaGetLastError();
+}
+
+template <bool PLANES>
+cudaError_t synthesis_real(int log2n, const float* y, const float* mag,
+                           const float* pre, const float* pim,
+                           const float* mask, const float* fft, float* frames,
+                           const Geo& g, cudaStream_t stream) {
+  switch (log2n) {
+    case 8: return launch_synth_real<8, PLANES>(y, mag, pre, pim, mask, fft, frames, g, stream);
+    case 9: return launch_synth_real<9, PLANES>(y, mag, pre, pim, mask, fft, frames, g, stream);
+    case 10: return launch_synth_real<10, PLANES>(y, mag, pre, pim, mask, fft, frames, g, stream);
+    case 11: return launch_synth_real<11, PLANES>(y, mag, pre, pim, mask, fft, frames, g, stream);
+    default: return launch_synth_real<12, PLANES>(y, mag, pre, pim, mask, fft, frames, g, stream);
+  }
+}
+
+// The synthesis of the packed rows y over g.nf frames of each batch row:
+// synth_real where fft_real.cuh serves N, else fft_synthesis (one block a
+// frame) in the instantiation of its plan's body.
+cudaError_t launch_synthesis(const float* y, const float* fft, float* frames,
+                             const Geo& g, cudaStream_t stream) {
+  if (const int l = real_fft::real_log2(g.n_fft)) {
+    return synthesis_real<false>(l, y, nullptr, nullptr, nullptr, nullptr, fft, frames, g, stream);
+  }
+  const dim3 grid((unsigned)g.nf, (unsigned)g.batch);
   const float* twc = fft + g.n_fft;
   const float* tws = fft + g.n_fft + g.nh;
   const size_t smem = 2 * g.n_fft * sizeof(float);
@@ -734,6 +920,7 @@ void launch_synthesis(const float* y, const float* fft, float* frames,
     fft_synthesis<false><<<grid, kThreads, smem, stream>>>(y, fft, twc, tws,
                                                            frames, g);
   }
+  return cudaGetLastError();
 }
 
 unsigned blocks_for(int64_t n, int threads) {
@@ -825,8 +1012,7 @@ cudaError_t run_tsm(const float* x, float* out, float* tail_out,
           spec, carry, y, g, L);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
-    launch_synthesis(y, fft, frames, g, per_frame, stream);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = launch_synthesis(y, fft, frames, g, stream)) != cudaSuccess) return err;
   } else if (carry_out != nullptr) {  // a segment past the last frame
     err = cudaMemcpyAsync(carry_out, carry_in, 4 * ng * sizeof(float),
                           cudaMemcpyDeviceToDevice, stream);
@@ -973,7 +1159,9 @@ extern "C" int pvoc_terms(const float* x, float* spec, float* mag, float* t,
 // frames (batch*nf, n_fft) and the gather overlap-add into out (batch,
 // (nf-1)*rs + n_fft) with norm_rows (2m-1, rs): the recording's
 // normalization rows, or ones for the un-normalized sum. mag, pre, pim
-// (batch, nf, nb); y (batch*nf, 2*nb) scratch. Needs rs | n_fft.
+// (batch, nf, nb). Where fft_real.cuh serves n_fft, synth_real forms Y
+// from the planes itself and y may be null; for any other n_fft, y
+// (batch*nf, 2*nb) is scratch for phasor_y's packed Y. Needs rs | n_fft.
 extern "C" int pvoc_phasor_synth(const float* mag, const float* pre,
                                  const float* pim, const float* mask,
                                  float* y, float* frames, float* out,
@@ -985,12 +1173,17 @@ extern "C" int pvoc_phasor_synth(const float* mag, const float* pre,
   const int m = n_fft / rs;
   const int64_t out_len = (nf - 1) * (int64_t)rs + n_fft;
   cudaError_t err;
-  phasor_y<<<grid_for(nf * g.nb, g), kThreads, 0, stream>>>(mag, pre, pim,
-                                                            mask, y, g);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  launch_synthesis(y, fft, frames, g, dim3((unsigned)nf, (unsigned)batch),
-                   stream);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (const int l = real_fft::real_log2(n_fft)) {
+    err = synthesis_real<true>(l, nullptr, mag, pre, pim, mask, fft, frames, g, stream);
+  } else if (y == nullptr) {
+    err = cudaErrorInvalidValue;
+  } else {
+    phasor_y<<<grid_for(nf * g.nb, g), kThreads, 0, stream>>>(mag, pre, pim,
+                                                              mask, y, g);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = launch_synthesis(y, fft, frames, g, stream);
+  }
+  if (err != cudaSuccess) return err;
   ola_gather<<<grid_for(out_len, g), kThreads, 0, stream>>>(
       frames, norm_rows, nullptr, out, nullptr, out_len, out_len, g, m);
   return cudaGetLastError();

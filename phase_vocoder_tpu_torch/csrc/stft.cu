@@ -508,28 +508,6 @@ istft_real_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-// As many blocks of `kernel` as run on the card at once with `smem`
-// bytes each, at most `groups`; raises the kernel's shared-memory limit
-// past 48 KB when it needs to.
-template <class K>
-cudaError_t grid_for(K kernel, size_t smem, long long groups, unsigned* grid) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err == cudaSuccess && smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, real_fft::kThreads, smem);
-  }
-  if (err != cudaSuccess) return err;
-  const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  *grid = (unsigned)(groups < most ? groups : most);
-  return cudaSuccess;
-}
-
 template <int LOG2N, bool POLAR>
 cudaError_t launch_stft_real(const float* x, const float* fft, float* oa,
                              float* ob, long long nf, int hop,
@@ -538,8 +516,8 @@ cudaError_t launch_stft_real(const float* x, const float* fft, float* oa,
   const size_t smem =
       sizeof(float) * (2 * P::M + P::F * 2 * P::FS + 2 * (size_t)span_floats<P>(hop));
   unsigned grid = 0;
-  const cudaError_t err = grid_for(stft_real_kernel<LOG2N, POLAR>, smem,
-                                   (nf + P::F - 1) / P::F, &grid);
+  const cudaError_t err = real_fft::grid_for(stft_real_kernel<LOG2N, POLAR>, smem,
+                                             (nf + P::F - 1) / P::F, &grid);
   if (err != cudaSuccess) return err;
   stft_real_kernel<LOG2N, POLAR><<<grid, real_fft::kThreads, smem, stream>>>(
       x, fft, fft + P::N, fft + P::N + P::M, oa, ob, nf, hop);
@@ -554,21 +532,12 @@ cudaError_t launch_istft_real(const float* a, const float* b,
   using P = real_fft::Plan<LOG2N>;
   const size_t smem = sizeof(float) * (2 * P::M + P::F * 2 * P::FS);
   unsigned grid = 0;
-  const cudaError_t err = grid_for(istft_real_kernel<LOG2N, POLAR>, smem,
-                                   (nf + P::F - 1) / P::F, &grid);
+  const cudaError_t err = real_fft::grid_for(istft_real_kernel<LOG2N, POLAR>, smem,
+                                             (nf + P::F - 1) / P::F, &grid);
   if (err != cudaSuccess) return err;
   istft_real_kernel<LOG2N, POLAR><<<grid, real_fft::kThreads, smem, stream>>>(
       a, b, mask, fft, fft + P::N, fft + P::N + P::M, frames, nf);
   return cudaGetLastError();
-}
-
-// log2 N when fft_real.cuh's body serves N (a power of two from 256 to
-// 4096), else 0.
-int real_log2(int n) {
-  for (int l = 8; l <= 12; ++l) {
-    if (n == 1 << l) return l;
-  }
-  return 0;
 }
 
 // The analysis and synthesis by fft_real.cuh's body at N = 2^log2n.
@@ -604,7 +573,7 @@ cudaError_t synthesis_real(int log2n, const float* a, const float* b,
 cudaError_t launch_analysis(const float* x, const float* fft, float* oa,
                             float* ob, long long nf, int n_fft, int hop,
                             int polar, cudaStream_t stream) {
-  if (const int l = real_log2(n_fft)) {
+  if (const int l = real_fft::real_log2(n_fft)) {
     return polar ? analysis_real<true>(l, x, fft, oa, ob, nf, hop, stream)
                  : analysis_real<false>(l, x, fft, oa, ob, nf, hop, stream);
   }
@@ -628,7 +597,7 @@ cudaError_t launch_analysis(const float* x, const float* fft, float* oa,
 cudaError_t launch_frames(const float* a, const float* b, const float* mask,
                           const float* fft, float* frames, long long nf,
                           int n_fft, int polar, cudaStream_t stream) {
-  if (const int l = real_log2(n_fft)) {
+  if (const int l = real_fft::real_log2(n_fft)) {
     return polar ? synthesis_real<true>(l, a, b, mask, fft, frames, nf, stream)
                  : synthesis_real<false>(l, a, b, mask, fft, frames, nf, stream);
   }

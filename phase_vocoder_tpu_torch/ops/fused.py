@@ -36,6 +36,14 @@ launch in `.launches`) or raises, a CPU tensor runs the plain version:
                            DFT and overlap-add, normalized without a mask
                            (the chunked bodies' synthesis).
 
+Which kernel body does the synthesis: for n_fft a power of two from 256
+to 4096 (real_body), every entry above synthesizes on csrc/fft_real.cuh's
+n_fft/2-point body (synth_real: N/32 threads a frame, several frames a
+block), which phasor_istft_ola(_batch) feed straight from the magnitude
+and phasor planes; for any other even n_fft, a block a frame on
+csrc/fft_common.cuh's FFT (fft_synthesis), after a pass that packs Y.
+The analysis passes run on fft_common.cuh at every n_fft.
+
 The plain helpers of the chunked bodies (phasor_scan,
 phasor_prefix_exclusive, boundary_step_term) sit beside them.
 
@@ -69,6 +77,7 @@ __all__ = [
     "phasor_supported",
     "phasor_terms_supported",
     "synth_supported",
+    "real_body",
     "fused_time_stretch",
     "fused_time_stretch_reference",
     "fused_time_stretch_zrev",
@@ -130,6 +139,14 @@ def phasor_terms_supported(n_fft: int, ra: int, rs: int) -> bool:
     """True when the pvoc_terms kernel covers this geometry: the FFT's
     n_fft, Ra | N and any Rs > 0 (the JAX function puts no bound on Rs)."""
     return fft_size_supported(n_fft) and n_fft % ra == 0 and rs > 0
+
+
+def real_body(n_fft: int) -> bool:
+    """True when csrc/fft_real.cuh's n_fft/2-point body serves n_fft (a
+    power of two from 256 to 4096, real_fft::real_log2 in C): there the
+    synthesis runs synth_real, and pvoc_phasor_synth needs no packed-Y
+    scratch."""
+    return 256 <= n_fft <= MAX_N_FFT and n_fft & (n_fft - 1) == 0
 
 
 def synth_supported(n_fft: int, rs: int) -> bool:
@@ -1043,7 +1060,10 @@ def _synth_reference(mag, pre, pim, n_fft: int, rs: int, nf: int, mask) -> torch
 
 def _synth_launch(mag, pre, pim, n_fft: int, rs: int, nf: int, mask, what: str) -> torch.Tensor:
     """The pvoc_phasor_synth kernel over (B, >= nf, nb) planes; mask (B, nf)
-    or None. Returns (B, (nf-1)*rs + n_fft)."""
+    or None. Returns (B, (nf-1)*rs + n_fft). Where real_body(n_fft), the
+    kernel forms Y from the planes as it loads them (two launches:
+    synth_real and the gather); elsewhere a first launch packs Y into a
+    (B*nf, 2*nb) scratch, allocated only then, for fft_synthesis."""
     for t in (mag, pre, pim):
         if t.device.type != "cuda":
             raise ValueError(f"{what}: unsupported device {t.device}")
@@ -1051,7 +1071,7 @@ def _synth_launch(mag, pre, pim, n_fft: int, rs: int, nf: int, mask, what: str) 
     B, nb = mag.shape[0], n_fft // 2 + 1
     dev = str(mag.device)
     f32 = dict(dtype=torch.float32, device=mag.device)
-    y = torch.empty((B * nf, 2 * nb), **f32)
+    y = None if real_body(n_fft) else torch.empty((B * nf, 2 * nb), **f32)
     frames = torch.empty((B * nf, n_fft), **f32)
     out = torch.empty((B, (nf - 1) * rs + n_fft), **f32)
     if mask is None:
@@ -1062,7 +1082,8 @@ def _synth_launch(mag, pre, pim, n_fft: int, rs: int, nf: int, mask, what: str) 
     with torch.cuda.device(mag.device):
         rc = lib.pvoc_phasor_synth(
             mag.data_ptr(), pre.data_ptr(), pim.data_ptr(),
-            None if mask is None else mask.data_ptr(), y.data_ptr(), frames.data_ptr(),
+            None if mask is None else mask.data_ptr(), None if y is None else y.data_ptr(),
+            frames.data_ptr(),
             out.data_ptr(), _device_fft_table(n_fft, dev).data_ptr(), norm.data_ptr(),
             B, nf, n_fft, rs, torch.cuda.current_stream().cuda_stream,
         )

@@ -152,13 +152,15 @@ def test_shared_fft_header_is_plain_cuda():
 
 
 def test_real_fft_header_is_plain_cuda_and_stft_only():
-    """fft_real.cuh, the N/2-point body of the stft.cu kernels, includes
-    only the CUDA runtime and stdint, and only stft.cu includes it."""
+    """fft_real.cuh, the N/2-point body of the stft.cu kernels and of
+    pvoc_fused.cu's synthesis, includes only the CUDA runtime and stdint,
+    and exactly stft.cu and pvoc_fused.cu include it (resample.cu, which
+    transforms nothing, does not)."""
     src = (PKG / "csrc" / "fft_real.cuh").read_text()
     includes = {ln.split()[1] for ln in src.splitlines() if ln.startswith("#include")}
     assert includes == {"<cuda_runtime.h>", "<stdint.h>"}
-    users = [p.name for p in (PKG / "csrc").glob("*.cu") if '#include "fft_real.cuh"' in p.read_text()]
-    assert users == ["stft.cu"]
+    users = sorted(p.name for p in (PKG / "csrc").glob("*.cu") if '#include "fft_real.cuh"' in p.read_text())
+    assert users == ["pvoc_fused.cu", "stft.cu"]
 
 
 def test_build_stamp_covers_headers(tmp_path):
