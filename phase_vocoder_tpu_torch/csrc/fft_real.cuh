@@ -1,7 +1,10 @@
-// fft_real.cuh — the transform body of stft.cu's analysis and synthesis
-// kernels and of pvoc_fused.cu's synthesis for a power-of-two N from 256
-// to 4096: a real N-point frame through an M = N/2-point complex FFT, a
-// fixed group of threads per frame, several frames per block.
+// fft_real.cuh — the transform body of every kernel of stft.cu and
+// pvoc_fused.cu for a power-of-two N from 256 to 4096: a real N-point
+// frame through an M = N/2-point complex FFT, a fixed group of threads per
+// frame, several frames per block. Besides the transform it holds the
+// whole analysis (analysis_groups: framing, Hann window, real-input FFT,
+// split), which stft.cu's stft_real_kernel and pvoc_fused.cu's
+// analysis_real run with different output forms.
 //
 // The transform. A frame of T = M/16 threads; each thread holds 16
 // complex values in registers. The M-point FFT is a Stockham (autosort)
@@ -30,9 +33,31 @@
 // +-1 exact (the table's cos(pi/2) is 6.1e-17, far below a rounding).
 // FP32 FMA throughout; no tensor cores, no fast math.
 //
+// The analysis. A real frame g = x w is packed as z[n] = g[2n] + i g[2n+1]
+// (the window read as float2), transformed, and split: with Z = FFT_M(z),
+// X[k] = (Z[k] + conj Z[M-k])/2 - i W^k (Z[k] - conj Z[M-k])/2,
+// W = e^(-2 pi i / N), Z[M] = Z[0]; one thread makes bins k and M - k
+// from the same two loads. DC and Nyquist come out with zero imaginary
+// parts. This is also the fold analysis of the TPU package's
+// _pvoc_kernel_z: one body serves both. A block transforms a group of F
+// consecutive frames of one batch row, read from one contiguous span with
+// asynchronous copies one group ahead (two span buffers), so overlapping
+// frames are read once; the groups of every batch row are flattened over
+// a resident grid (a group never spans two rows; a group wholly past its
+// row's frames is skipped by the whole block; a frame past them inside a
+// live group keeps its group's barriers and writes nothing). Each frame
+// leaves as two runs of M + 1 floats: (|X|, arg X) or (Re X, Im X) in two
+// arrays (stft.cu), or the packed row [Re X | Im X] that pvoc_fused.cu's
+// phase passes read. Where a frame has a warp or more (N >= 1024) its
+// threads store its runs; below, the bins go back into the frame's buffer
+// and the block writes the group's contiguous rows in one sweep (a warp
+// holds 2-4 frames there and would store 32- or 64-byte pieces of their
+// rows). stft.cu's outputs from this body are bitwise those of its own
+// earlier copy of it (checked on an H100 at every N and two hops).
+//
 // Every frame runs the same instructions on its own inputs, whatever its
-// slot in the block, its block or the launch, so its bits depend on its
-// inputs alone.
+// slot in the block, its block, its batch row, the span's alignment or
+// the launch, so its bits depend on its inputs alone.
 
 #pragma once
 
@@ -257,6 +282,247 @@ __device__ __forceinline__ void fft(float (&vr)[kV], float (&vi)[kV],
   dft_all<(1 << P::lr(0)), FWD>(vr, vi);
   if constexpr (P::S > 1) stage<P, 1, FWD>(vr, vi, br, bi, twr, twi, t, slot);
   if constexpr (P::S > 2) stage<P, 2, FWD>(vr, vi, br, bi, twr, twi, t, slot);
+}
+
+// ------------------------------------------------------------ the analysis
+
+// Asynchronous copies global -> shared (cp.async; 4 bytes through L1,
+// 16 bytes around it), and the wait for all of the thread's copies.
+__device__ __forceinline__ void async_copy4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void async_copy16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void async_wait_all() {
+  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::: "memory");
+}
+
+// Starts the copy of the span src[0 : len) into sp[o : o+len), o being
+// src's offset in floats from the 16-byte boundary below it, so that
+// aligned 16-byte chunks of src land on aligned shared words; the partial
+// chunks at either end go element by element, so src may start at any
+// element. The whole block; returns o. The span is in once the block's
+// threads have waited and met at a barrier.
+__device__ inline int load_span(float* sp, const float* __restrict__ src, int len) {
+  const int o = (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+  const float* base = src - o;
+  const int chunks = (len + o + 3) >> 2;
+  for (int q = threadIdx.x; q < chunks; q += blockDim.x) {
+    const int e0 = 4 * q - o;
+    if (e0 >= 0 && e0 + 4 <= len) {
+      async_copy16(sp + 4 * q, base + 4 * q);
+    } else {
+      for (int e = 0; e < 4; ++e) {
+        const int t = e0 + e;
+        if (t >= 0 && t < len) async_copy4(sp + 4 * q + e, src + t);
+      }
+    }
+  }
+  return o;
+}
+
+// Floats of an analysis span of F frames at this hop: (F-1) hop + N and
+// up to 3 floats of alignment, rounded up to whole 16-byte chunks.
+template <class P>
+__host__ __device__ constexpr int span_floats(int hop) {
+  return ((P::F - 1) * hop + P::N + 7) & ~3;
+}
+
+// Shared memory of analysis_groups at this hop, in bytes: stage twiddles
+// (2 M), F frame buffers (2 FS each), two spans.
+template <class P>
+constexpr size_t analysis_smem(int hop) {
+  return sizeof(float) * (2 * P::M + P::F * 2 * P::FS + 2 * (size_t)span_floats<P>(hop));
+}
+
+
+// The output forms of the analysis: (|X|, arg X) or (Re X, Im X) in two
+// arrays of rows of M + 1 bins, or packed rows [Re X (M + 1) | Im X (M + 1)].
+enum Form { kPolar, kCart, kPacked };
+
+// Bin k of a real frame's spectrum from Z = the N/2-point FFT of its
+// packed samples: X[k] = (Z[k] + conj Z[M-k])/2 - i W^k (Z[k] - conj
+// Z[M-k])/2 with (zr, zi) = Z[k], (mr, mi) = conj Z[M-k], (wr, wi) = W^k;
+// (oa, ob) = (|X|, arg X) in the polar form, (Re X, Im X) otherwise.
+template <int FORM>
+__device__ __forceinline__ void split_bin(float zr, float zi, float mr,
+                                          float mi, float wr, float wi,
+                                          float& oa, float& ob) {
+  const float er = 0.5f * (zr + mr), ei = 0.5f * (zi + mi);
+  const float pr = 0.5f * (zi - mi), pi = -0.5f * (zr - mr);
+  const float re = er + (pr * wr - pi * wi);
+  const float im = ei + (pr * wi + pi * wr);
+  oa = FORM == kPolar ? sqrtf(re * re + im * im) : re;
+  ob = FORM == kPolar ? atan2f(im, re) : im;
+}
+
+// The analysis of `batch` rows of x (x_stride samples apart), row b's
+// first nfs[b] frames (nfs null: nf each), frame i of row b at
+// x[b x_stride + i hop :][: N]: X = rfft(x[...] * w) into the frame's
+// output row b nf + i, in the form FORM (oa, ob: the two arrays of rows
+// of M + 1; kPacked: oa alone, rows of 2 (M + 1)). The post-twiddle is
+// W^k = twc[k] - i tws[k] (W^(N/2) = -1). The whole kernel body: groups
+// of F frames flattened over the grid; shared memory as analysis_smem.
+template <class P, int FORM>
+__device__ __forceinline__ void analysis_groups(
+    const float* __restrict__ x, long long x_stride, long long nf, int batch,
+    const int* __restrict__ nfs, int hop, const float* __restrict__ win,
+    const float* __restrict__ twc, const float* __restrict__ tws,
+    float* __restrict__ oa, float* __restrict__ ob) {
+  constexpr int M = P::M, T = P::T, F = P::F;
+  constexpr int R0 = 1 << P::lr(0), RL = 1 << P::lr(P::S - 1);
+  constexpr bool kStaged = T < 32;
+  constexpr int kRow = FORM == kPacked ? 2 * (M + 1) : M + 1;  // floats a row
+  extern __shared__ __align__(16) float sm[];
+  float* twr = sm;
+  float* twi = sm + M;
+  float* bufs = sm + 2 * M;
+  const int slot = threadIdx.x / T, t = threadIdx.x % T;
+  float* br = bufs + slot * 2 * P::FS;
+  float* bi = br + P::FS;
+  float* spans = bufs + F * 2 * P::FS;
+  const int span_len = span_floats<P>(hop);
+  build_twiddles<P>(twr, twi, twc, tws);
+  const float2* win2 = reinterpret_cast<const float2*>(win);
+  const long long per_row = (nf + F - 1) / F;
+  const long long groups = per_row * batch;
+  auto row_frames = [&](int b) -> long long { return nfs != nullptr ? (long long)nfs[b] : nf; };
+  // This block's first group from gi on with a frame to transform, or
+  // groups; the same for every thread of the block.
+  auto next_live = [&](long long gi) {
+    for (; gi < groups; gi += gridDim.x) {
+      const int b = (int)(gi / per_row);
+      if ((gi - b * per_row) * F < row_frames(b)) break;
+    }
+    return gi;
+  };
+  // Frames of group gi: its batch row, first frame, and frame count.
+  auto decode = [&](long long gi, int& b, long long& i0) {
+    b = (int)(gi / per_row);
+    i0 = (gi - b * per_row) * F;
+    const long long left = row_frames(b) - i0;
+    return (int)(left < F ? left : F);
+  };
+  auto start_span = [&](long long gi, float* sp) {
+    int b;
+    long long i0;
+    const int fg = decode(gi, b, i0);
+    return load_span(sp, x + b * x_stride + i0 * hop, (fg - 1) * hop + P::N);
+  };
+  long long gi = next_live(blockIdx.x);
+  int o_next = gi < groups ? start_span(gi, spans) : 0;
+  int cur = 0;
+  while (gi < groups) {
+    int b;
+    long long i0;
+    const int fg = decode(gi, b, i0);
+    const int o = o_next;
+    // The span and the twiddles are in; the last group's buffers and the
+    // other span are read.
+    async_wait_all();
+    __syncthreads();
+    const long long gn = next_live(gi + gridDim.x);
+    if (gn < groups) o_next = start_span(gn, spans + (cur ^ 1) * span_len);
+    const float* xf = spans + cur * span_len + o + slot * hop;  // past fg: stale, not stored
+    cur ^= 1;
+    float vr[kV], vi[kV];
+#pragma unroll
+    for (int kk = 0; kk < kV / R0; ++kk) {
+#pragma unroll
+      for (int r = 0; r < R0; ++r) {
+        const int n = source<P, 0>(t, kk, r);
+        const float2 w = __ldg(win2 + n);
+        vr[kk * R0 + r] = xf[2 * n] * w.x;
+        vi[kk * R0 + r] = xf[2 * n + 1] * w.y;
+      }
+    }
+    fft<P, true>(vr, vi, br, bi, twr, twi, t, slot);
+    group_sync<T>(slot);
+#pragma unroll
+    for (int kk = 0; kk < kV / RL; ++kk) {
+#pragma unroll
+      for (int r = 0; r < RL; ++r) {
+        const int q = pad(dest<P, P::S - 1>(t, kk, r));
+        br[q] = vr[kk * RL + r];
+        bi[q] = vi[kk * RL + r];
+      }
+    }
+    group_sync<T>(slot);
+    const bool live = slot < fg;
+    const long long row0 = (long long)b * nf + i0;  // the group's first output row
+    float* arow = oa + (row0 + slot) * kRow;
+    float* brow = FORM == kPacked ? arow + M + 1 : ob + (row0 + slot) * kRow;
+    // Bins k and M - k from the same two values Z[k], Z[M - k] (Z[M] =
+    // Z[0], so k = 0 gives bins 0 and M), which only this thread reads:
+    // k = t + T u covers 0 .. M/2 - 1, and M/2 is its own mirror.
+#pragma unroll
+    for (int u = 0; u < kV / 2; ++u) {
+      const int k = t + T * u;
+      const int m = k == 0 ? 0 : M - k;
+      const float zr = br[pad(k)], zi = bi[pad(k)];
+      const float yr = br[pad(m)], yi = bi[pad(m)];
+      float a0, b0, a1, b1;
+      split_bin<FORM>(zr, zi, yr, -yi, __ldg(twc + k), -__ldg(tws + k), a0, b0);
+      if (k == 0) {
+        split_bin<FORM>(zr, zi, zr, -zi, -1.f, 0.f, a1, b1);
+      } else {
+        split_bin<FORM>(yr, yi, zr, -zi, __ldg(twc + m), -__ldg(tws + m), a1, b1);
+      }
+      const int km = k == 0 ? M : m;
+      if constexpr (kStaged) {
+        br[pad(k)] = a0;
+        bi[pad(k)] = b0;
+        br[pad(km)] = a1;
+        bi[pad(km)] = b1;
+      } else if (live) {
+        arow[k] = a0;
+        brow[k] = b0;
+        arow[km] = a1;
+        brow[km] = b1;
+      }
+    }
+    if (t == 0) {
+      constexpr int k = M / 2;
+      float a0, b0;
+      split_bin<FORM>(br[pad(k)], bi[pad(k)], br[pad(k)], -bi[pad(k)], __ldg(twc + k),
+                -__ldg(tws + k), a0, b0);
+      if constexpr (kStaged) {
+        br[pad(k)] = a0;
+        bi[pad(k)] = b0;
+      } else if (live) {
+        arow[k] = a0;
+        brow[k] = b0;
+      }
+    }
+    if constexpr (kStaged) {
+      __syncthreads();
+      float* ga = oa + row0 * kRow;
+      if constexpr (FORM == kPacked) {
+        // Rows row0 .. row0 + fg - 1 are contiguous: element e is bin
+        // r = e mod 2(M + 1) of frame e / 2(M + 1), its real part below
+        // M + 1 and its imaginary part from there.
+        for (int e = threadIdx.x; e < fg * kRow; e += kThreads) {
+          const int f = e / kRow;
+          const int r = e - f * kRow;
+          ga[e] = bufs[f * 2 * P::FS + (r <= M ? pad(r) : P::FS + pad(r - (M + 1)))];
+        }
+      } else {
+        // Rows row0 .. row0 + fg - 1 of each array: element e is bin
+        // e mod (M + 1) of frame e / (M + 1).
+        float* gb = ob + row0 * kRow;
+        for (int e = threadIdx.x; e < fg * (M + 1); e += kThreads) {
+          const int f = e / (M + 1);
+          const int q = f * 2 * P::FS + pad(e - f * (M + 1));
+          ga[e] = bufs[q];
+          gb[e] = bufs[q + P::FS];
+        }
+      }
+    }
+    gi = gn;
+  }
 }
 
 // log2 N when this body serves N (a power of two from 256 to 4096), else 0.

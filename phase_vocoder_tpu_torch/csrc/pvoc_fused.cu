@@ -47,23 +47,37 @@
 // What the design does about it. The TPU kernel runs its grid in order
 // and carries state from tile to tile in VMEM scratch; CUDA blocks run in
 // no order, so the work is split into launches that need no carried state:
-//   (a) analysis: one block per frame loads x[i*Ra : i*Ra+N] (framing is
-//       the load), multiplies by the Hann window and runs the FFT of
-//       fft_common.cuh (radix 2 for a power-of-two N, mixed radix for any
-//       other even N) with f64-built twiddles; bins 0..N/2 go to the
-//       spectrum row;
-//   (a') fold analysis (pvoc_fused_zrev, N a multiple of 4): the windowed
-//       frame's even- and odd-indexed samples are packed as one complex
-//       sequence z[n] = g[2n] + i g[2n+1] of length N/2, transformed by an
-//       N/2-point FFT, and split with a post-twiddle:
+//   (a) analysis. For a power-of-two N from 256 to 4096 (analysis_real,
+//       fft_real.cuh's analysis_groups, the body of stft.cu's analysis):
+//       the windowed frame g = x w is packed as z[n] = g[2n] + i g[2n+1],
+//       transformed by an N/2-point Stockham FFT in registers (radix
+//       16/8; N/32 threads a frame, a warp at N = 1024; 8192/N frames a
+//       256-thread block; stage twiddles in shared memory, built from the
+//       float64 host table) and split with a post-twiddle:
 //       X[k] = (Z[k] + conj Z[N/2-k])/2 - i W^k (Z[k] - conj Z[N/2-k])/2,
-//       W = e^{-2 pi i / N}. The TPU body folds with E = w (f[t] + f[N-t])
-//       and O = w (f[t] - f[N-t]) because that halves its cos and sin
-//       matrices; an FFT gains nothing from E and O (each still needs a
-//       full-length transform), while the packed form halves the butterfly
-//       work and the shared memory, so the packed form is the one used.
-//       The frame is read straight from x: no reversed or packed copy of
-//       the signal reaches device memory;
+//       W = e^{-2 pi i / N}, one thread making bins k and N/2-k; DC and
+//       Nyquist leave with zero imaginary parts. A block reads the span
+//       of a group of consecutive frames of one batch row once, with
+//       asynchronous copies one group ahead (framing is the load, from any
+//       element offset), and the groups of every batch row are flattened
+//       over a resident grid; bins 0..N/2 go to the packed spectrum row,
+//       through one block-wide sweep of the group's rows below N = 1024.
+//       Every other N (128, and every N that is not a power of two) keeps
+//       one block a frame (fft_analysis: the frame loaded at its FFT
+//       slots, the complex N-point FFT of fft_common.cuh, radix 2 or mixed
+//       radix, in shared memory);
+//   (a') fold analysis (pvoc_fused_zrev, N a multiple of 4): the TPU body
+//       folds with E = w (f[t] + f[N-t]) and O = w (f[t] - f[N-t]) because
+//       that halves its cos and sin matrices; an FFT gains nothing from E
+//       and O (each still needs a full-length transform), while the packed
+//       form above halves the butterfly work and the shared memory, so the
+//       packed form is the fold pass. At the powers of two from 256 to
+//       4096 it is (a) itself: pvoc_fused_zrev runs analysis_real, and its
+//       output equals pvoc_fused's bit for bit. At the other N that are
+//       multiples of 4 it keeps one block a frame (fft_analysis_fold: the
+//       packed frame through fft_common.cuh's N/2-point FFT, then the
+//       split), read straight from x: no reversed or packed copy of the
+//       signal reaches device memory;
 //   (b) phase: elementwise per (frame, bin). Integer k = Rs/Ra uses the
 //       closed form P_i = u_0 (u_i conj u_0)^k, which needs only frame 0.
 //       q >= 2 builds the step terms, then a three-pass chunked prefix
@@ -89,11 +103,12 @@
 //       <= m frames covering it in increasing frame order and multiplies
 //       by the inverse window energy of its row (head, interior or tail).
 // A batch is the same launches with the batch row as gridDim.y (in
-// synth_real, the batch rows' frame groups flattened over one grid, a
-// group never across two rows): every buffer holds B rows of nf frames,
-// a row's passes touch only its own frames (the first n_b of them, n_b
-// read from a device array of frame counts), so each row computes
-// exactly what the single-recording launch computes for its own signal.
+// analysis_real and synth_real, the batch rows' frame groups flattened
+// over one grid, a group never across two rows): every buffer holds B
+// rows of nf frames, a row's passes touch only its own frames (the first
+// n_b of them, n_b read from a device array of frame counts), so each row
+// computes exactly what the single-recording launch computes for its own
+// signal.
 // The TPU grid's batch axis reset its VMEM carry at each row's first
 // tile; here there is no carry to reset.
 // A stream segment is the same launches with the state as arguments: the
@@ -106,10 +121,10 @@
 // of its own last frames into the next m-1 rows the same way. With F a
 // multiple of the chunk and F >= m-1, every float operation happens in the
 // order of the single-recording run, so a stream is bitwise equal to it.
-// synth_real runs the same instructions for every frame on its own
-// inputs, so a frame's bits do not depend on its slot, its block, its
-// batch row or the launch, and these contracts hold for it as for the
-// one-block-a-frame passes. Every pass is deterministic, so reruns are
+// analysis_real and synth_real run the same instructions for every frame
+// on its own inputs, so a frame's bits do not depend on its slot, its
+// block, its batch row, its span's alignment or the launch, and these
+// contracts hold for them as for the one-block-a-frame passes. Every pass is deterministic, so reruns are
 // bitwise equal. Offsets into
 // the signal, spectra and frames are 64-bit. Build without fast math: the
 // principal-root branch near zre = -1 and the atan2 accuracy rely on IEEE
@@ -161,7 +176,8 @@ struct Lanes {
   int n;
 };
 
-// (a) One block per frame: spec[i] = rfft(x[i*Ra : i*Ra+N] * w).
+// (a), N not served by fft_real.cuh: one block per frame,
+// spec[i] = rfft(x[i*Ra : i*Ra+N] * w).
 template <bool kPow2>
 __global__ void __launch_bounds__(kThreads)
 fft_analysis(const float* __restrict__ x, const float* __restrict__ win,
@@ -188,7 +204,8 @@ fft_analysis(const float* __restrict__ x, const float* __restrict__ win,
   }
 }
 
-// (a') One block per frame, the fold analysis: the same spectrum row from
+// (a'), N not served by fft_real.cuh: one block per frame, the fold
+// analysis: the same spectrum row from
 // an N/2-point transform of z[n] = g[2n] + i g[2n+1], g = x w, split with
 // the post-twiddle W^k = twc[k] - i tws[k] (k < N/2; W^(N/2) = -1).
 // hwc/hws are the twiddles of the N/2-point transform.
@@ -228,6 +245,26 @@ fft_analysis_fold(const float* __restrict__ x, const float* __restrict__ win,
     row[k] = er + (pr * wr - pi * wi);
     row[g.nb + k] = ei + (pr * wi + pi * wr);
   }
+}
+
+// (a) and (a') on fft_real.cuh's analysis body (analysis_groups), N =
+// 2^LOG2N from 256 to 4096: spec[b nf + i] = rfft(x[b x_stride + i Ra :]
+// [: N] * w) as the packed row [re(nb) | im(nb)], for row b's first
+// row_frames(g, b) frames. A group's span ends at its last live frame, so
+// a segment reads nothing past its n_valid frames of x_seg.
+// Registers: as many as the blocks that its shared memory lets an SM hold
+// at hop N/4 allow (analysis_smem: 52-54 KB a block at N = 256, 512; 59
+// and 69 KB at 1024, 2048; 89 KB at 4096): 4 blocks an SM (64 registers)
+// at N = 256, 512, 3 (80) at 1024, 2048, 2 (128) at 4096. Under a cap of
+// 64 it spilled 8-52 bytes at N = 1024-4096 (nvcc -Xptxas -v) and its
+// pass ran 1.5-11% slower there on an H100.
+template <int LOG2N>
+__global__ void __launch_bounds__(real_fft::kThreads, LOG2N <= 9 ? 4 : LOG2N <= 11 ? 3 : 2)
+analysis_real(const float* __restrict__ x, const float* __restrict__ win,
+              const float* __restrict__ twc, const float* __restrict__ tws,
+              float* __restrict__ spec, Geo g) {
+  real_fft::analysis_groups<real_fft::Plan<LOG2N>, real_fft::kPacked>(
+      x, g.x_stride, g.nf, g.batch, g.nfs, g.ra, win, twc, tws, spec, nullptr);
 }
 
 // (c), N not served by fft_real.cuh: one block per frame, frames[i] =
@@ -842,12 +879,37 @@ __global__ void ola_gather(const float* __restrict__ frames,
   ob[n] = acc * norm[nrow * g.rs + t];
 }
 
-// The analysis (the fold pass when fft_half, the table of the N/2-point
-// transform, is given) and the synthesis over `grid` frames, each in the
-// instantiation of its plan's body.
-void launch_analysis(const float* x, const float* fft, const float* fft_half,
-                     float* spec, const Geo& g, dim3 grid,
-                     cudaStream_t stream) {
+template <int LOG2N>
+cudaError_t launch_analysis_real(const float* x, const float* fft, float* spec,
+                                 const Geo& g, cudaStream_t stream) {
+  using P = real_fft::Plan<LOG2N>;
+  const size_t smem = real_fft::analysis_smem<P>(g.ra);
+  unsigned grid = 0;
+  const cudaError_t err = real_fft::grid_for(
+      analysis_real<LOG2N>, smem, (g.nf + P::F - 1) / P::F * g.batch, &grid);
+  if (err != cudaSuccess) return err;
+  analysis_real<LOG2N><<<grid, real_fft::kThreads, smem, stream>>>(
+      x, fft, fft + P::N, fft + P::N + P::M, spec, g);
+  return cudaGetLastError();
+}
+
+// The analysis over g.nf frames of each batch row (g.nf > 0):
+// analysis_real, for the full and the fold request alike, where
+// fft_real.cuh serves N; else one block a frame, in the instantiation of
+// its plan's body: fft_analysis_fold when fft_half (the table of the
+// N/2-point transform) is given, fft_analysis when not.
+cudaError_t launch_analysis(const float* x, const float* fft,
+                            const float* fft_half, float* spec, const Geo& g,
+                            cudaStream_t stream) {
+  switch (real_fft::real_log2(g.n_fft)) {
+    case 8: return launch_analysis_real<8>(x, fft, spec, g, stream);
+    case 9: return launch_analysis_real<9>(x, fft, spec, g, stream);
+    case 10: return launch_analysis_real<10>(x, fft, spec, g, stream);
+    case 11: return launch_analysis_real<11>(x, fft, spec, g, stream);
+    case 12: return launch_analysis_real<12>(x, fft, spec, g, stream);
+    default: break;
+  }
+  const dim3 grid((unsigned)g.nf, (unsigned)g.batch);
   const float* twc = fft + g.n_fft;
   const float* tws = fft + g.n_fft + g.nh;
   const size_t smem = 2 * g.n_fft * sizeof(float);
@@ -868,6 +930,7 @@ void launch_analysis(const float* x, const float* fft, const float* fft_half,
     fft_analysis<false><<<grid, kThreads, smem, stream>>>(x, fft, twc, tws,
                                                           spec, g);
   }
+  return cudaGetLastError();
 }
 
 template <int LOG2N, bool PLANES>
@@ -985,12 +1048,10 @@ cudaError_t run_tsm(const float* x, float* out, float* tail_out,
                     cudaStream_t stream) {
   const int m = (g.n_fft + g.rs - 1) / g.rs;
   const int ng = g.nh - 1;
-  const dim3 per_frame((unsigned)g.nf, (unsigned)g.batch);
   cudaError_t err;
 
   if (g.nf > 0) {
-    launch_analysis(x, fft, fft_half, spec, g, per_frame, stream);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = launch_analysis(x, fft, fft_half, spec, g, stream)) != cudaSuccess) return err;
     if (carry_out != nullptr) {
       carry_phasor<<<blocks_for(ng, kThreads), kThreads, 0, stream>>>(
           spec, carry_in, carry_out, g);
@@ -1052,7 +1113,10 @@ extern "C" int pvoc_fused(const float* x, float* out, float* spec, float* y,
 
 // pvoc_fused with the fold analysis: fft_half (n_fft) = [Hann window
 // (n_fft/2, unused) | cos (n_fft/4) | sin (n_fft/4)], the table of the
-// n_fft/2-point transform. n_fft a multiple of 4.
+// n_fft/2-point transform. n_fft a multiple of 4. Where fft_real.cuh
+// serves n_fft (a power of two from 256 to 4096), pvoc_fused's analysis
+// is this fold already (analysis_real), so the output is pvoc_fused's bit
+// for bit and fft_half goes unread.
 extern "C" int pvoc_fused_zrev(const float* x, float* out, float* spec,
                                float* y, float* frames, float* tot,
                                float* carry, const float* fft,
@@ -1138,9 +1202,7 @@ extern "C" int pvoc_terms(const float* x, float* spec, float* mag, float* t,
   g.batch = batch;
   g.x_stride = x_stride;
   cudaError_t err;
-  launch_analysis(x, fft, nullptr, spec, g,
-                  dim3((unsigned)nf, (unsigned)batch), stream);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_analysis(x, fft, nullptr, spec, g, stream)) != cudaSuccess) return err;
   terms_all<<<grid_for(nf * g.nb, g), kThreads, 0, stream>>>(spec, consts,
                                                              mag, t, u, g);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;

@@ -25,7 +25,9 @@
 // operand split with a ~2^-17 floor failed its 1e-4 gate.
 //
 // What the design does about it, for a power-of-two N from 256 to 4096
-// (stft_real_kernel, istft_real_kernel; the transform is fft_real.cuh).
+// (stft_real_kernel, istft_real_kernel; the transform is fft_real.cuh,
+// and so is the whole analysis body, analysis_groups, which
+// pvoc_fused.cu's analysis_real runs too).
 // It replaces, at those N, one 256-thread block per frame running a
 // complex N-point radix-2 FFT of the real frame in shared memory (10
 // stages at N = 1024, each ending in a block barrier; a 32-way
@@ -201,202 +203,17 @@ unsigned blocks_for(int64_t n, int threads) {
 
 using real_fft::kV;
 
-// Asynchronous copies global -> shared (cp.async; 4 bytes through L1,
-// 16 bytes around it), and the wait for all of the thread's copies.
-__device__ __forceinline__ void async_copy4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void async_copy16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void async_wait_all() {
-  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::: "memory");
-}
-
-// Starts the copy of the span src[0 : len) into sp[o : o+len), o being
-// src's offset in floats from the 16-byte boundary below it, so that
-// aligned 16-byte chunks of src land on aligned shared words; the partial
-// chunks at either end go element by element. The whole block; returns
-// o. The span is in once the block's threads have waited and met at a
-// barrier.
-__device__ int load_span(float* sp, const float* __restrict__ src, int len) {
-  const int o = (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
-  const float* base = src - o;
-  const int chunks = (len + o + 3) >> 2;
-  for (int q = threadIdx.x; q < chunks; q += blockDim.x) {
-    const int e0 = 4 * q - o;
-    if (e0 >= 0 && e0 + 4 <= len) {
-      async_copy16(sp + 4 * q, base + 4 * q);
-    } else {
-      for (int e = 0; e < 4; ++e) {
-        const int t = e0 + e;
-        if (t >= 0 && t < len) async_copy4(sp + 4 * q + e, src + t);
-      }
-    }
-  }
-  return o;
-}
-
-// Bin k of a real frame's spectrum from Z = the N/2-point FFT of its
-// packed samples: X[k] = (Z[k] + conj Z[M-k])/2 - i W^k (Z[k] - conj
-// Z[M-k])/2 with (zr, zi) = Z[k], (mr, mi) = conj Z[M-k], (wr, wi) = W^k;
-// (oa, ob) = (|X|, arg X) when POLAR, (Re X, Im X) when not.
-template <bool POLAR>
-__device__ __forceinline__ void split_bin(float zr, float zi, float mr,
-                                          float mi, float wr, float wi,
-                                          float& oa, float& ob) {
-  const float er = 0.5f * (zr + mr), ei = 0.5f * (zi + mi);
-  const float pr = 0.5f * (zi - mi), pi = -0.5f * (zr - mr);
-  const float re = er + (pr * wr - pi * wi);
-  const float im = ei + (pr * wi + pi * wr);
-  oa = POLAR ? sqrtf(re * re + im * im) : re;
-  ob = POLAR ? atan2f(im, re) : im;
-}
-
-// Floats of an analysis span of F frames at this hop: (F-1) hop + N and
-// up to 3 floats of alignment, rounded up to whole 16-byte chunks.
-template <class P>
-__host__ __device__ constexpr int span_floats(int hop) {
-  return ((P::F - 1) * hop + P::N + 7) & ~3;
-}
-
-// The analysis, F frames a group: X = rfft(x[i*hop : i*hop+N] * w) from
-// the N/2-point FFT of z[n] = g[2n] + i g[2n+1], g = x w, split with the
-// post-twiddle W^k = twc[k] - i tws[k] (W^(N/2) = -1); (oa, ob)[i] =
-// (|X|, arg X) when POLAR, (Re X, Im X) when not. The next group's span
-// comes in while this group transforms (two span buffers). Where a frame
-// has a warp or more (N >= 1024) its threads write its rows, 32
-// consecutive floats a store; below, each frame's bins are split in
-// place in its buffer (bin k at slot k, bin M at slot M) and the block
-// writes the group's contiguous rows in one sweep, where a warp's 2-4
-// frames would store 32- or 64-byte pieces of their rows at once.
-// Shared memory: stage twiddles (2 M), F frame buffers (2 FS each), two
-// spans (span_floats each).
+// The analysis, F frames a group (fft_real.cuh's analysis_groups over one
+// batch row): X = rfft(x[i*hop : i*hop+N] * w); (oa, ob)[i] = (|X|,
+// arg X) when POLAR, (Re X, Im X) when not.
 template <int LOG2N, bool POLAR>
 __global__ void __launch_bounds__(real_fft::kThreads, real_fft::kMinBlocks)
 stft_real_kernel(const float* __restrict__ x, const float* __restrict__ win,
                  const float* __restrict__ twc, const float* __restrict__ tws,
                  float* __restrict__ oa, float* __restrict__ ob, long long nf,
                  int hop) {
-  using P = real_fft::Plan<LOG2N>;
-  using real_fft::pad;
-  constexpr int M = P::M, T = P::T, F = P::F;
-  constexpr int R0 = 1 << P::lr(0), RL = 1 << P::lr(P::S - 1);
-  constexpr bool kStaged = T < 32;
-  extern __shared__ __align__(16) float sm[];
-  float* twr = sm;
-  float* twi = sm + M;
-  float* bufs = sm + 2 * M;
-  const int slot = threadIdx.x / T, t = threadIdx.x % T;
-  float* br = bufs + slot * 2 * P::FS;
-  float* bi = br + P::FS;
-  float* spans = bufs + F * 2 * P::FS;
-  const int span_len = span_floats<P>(hop);
-  real_fft::build_twiddles<P>(twr, twi, twc, tws);
-  const float2* win2 = reinterpret_cast<const float2*>(win);
-  const long long groups = (nf + F - 1) / F;
-  auto start_span = [&](long long g, float* sp) {
-    const long long i0 = g * F;
-    const int fg = (int)(nf - i0 < F ? nf - i0 : F);
-    return load_span(sp, x + i0 * hop, (fg - 1) * hop + P::N);
-  };
-  int o_next = start_span(blockIdx.x, spans);
-  int cur = 0;
-  for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
-    const long long i0 = g * F;
-    const int fg = (int)(nf - i0 < F ? nf - i0 : F);
-    const int o = o_next;
-    // The span and the twiddles are in; the last group's buffers and the
-    // other span are read.
-    async_wait_all();
-    __syncthreads();
-    if (g + gridDim.x < groups) o_next = start_span(g + gridDim.x, spans + (cur ^ 1) * span_len);
-    const float* xf = spans + cur * span_len + o + slot * hop;  // past fg: stale, not stored
-    cur ^= 1;
-    float vr[kV], vi[kV];
-#pragma unroll
-    for (int kk = 0; kk < kV / R0; ++kk) {
-#pragma unroll
-      for (int r = 0; r < R0; ++r) {
-        const int n = real_fft::source<P, 0>(t, kk, r);
-        const float2 w = __ldg(win2 + n);
-        vr[kk * R0 + r] = xf[2 * n] * w.x;
-        vi[kk * R0 + r] = xf[2 * n + 1] * w.y;
-      }
-    }
-    real_fft::fft<P, true>(vr, vi, br, bi, twr, twi, t, slot);
-    real_fft::group_sync<T>(slot);
-#pragma unroll
-    for (int kk = 0; kk < kV / RL; ++kk) {
-#pragma unroll
-      for (int r = 0; r < RL; ++r) {
-        const int q = pad(real_fft::dest<P, P::S - 1>(t, kk, r));
-        br[q] = vr[kk * RL + r];
-        bi[q] = vi[kk * RL + r];
-      }
-    }
-    real_fft::group_sync<T>(slot);
-    const long long i = i0 + slot;
-    float* arow = oa + i * (M + 1);
-    float* brow = ob + i * (M + 1);
-    // Bins k and M - k from the same two values Z[k], Z[M - k] (Z[M] =
-    // Z[0], so k = 0 gives bins 0 and M), which only this thread reads:
-    // k = t + T u covers 0 .. M/2 - 1, and M/2 is its own mirror.
-#pragma unroll
-    for (int u = 0; u < kV / 2; ++u) {
-      const int k = t + T * u;
-      const int m = k == 0 ? 0 : M - k;
-      const float zr = br[pad(k)], zi = bi[pad(k)];
-      const float yr = br[pad(m)], yi = bi[pad(m)];
-      float a0, b0, a1, b1;
-      split_bin<POLAR>(zr, zi, yr, -yi, __ldg(twc + k), -__ldg(tws + k), a0, b0);
-      if (k == 0) {
-        split_bin<POLAR>(zr, zi, zr, -zi, -1.f, 0.f, a1, b1);
-      } else {
-        split_bin<POLAR>(yr, yi, zr, -zi, __ldg(twc + m), -__ldg(tws + m), a1, b1);
-      }
-      const int km = k == 0 ? M : m;
-      if constexpr (kStaged) {
-        br[pad(k)] = a0;
-        bi[pad(k)] = b0;
-        br[pad(km)] = a1;
-        bi[pad(km)] = b1;
-      } else if (i < nf) {
-        arow[k] = a0;
-        brow[k] = b0;
-        arow[km] = a1;
-        brow[km] = b1;
-      }
-    }
-    if (t == 0) {
-      constexpr int k = M / 2;
-      float a0, b0;
-      split_bin<POLAR>(br[pad(k)], bi[pad(k)], br[pad(k)], -bi[pad(k)], __ldg(twc + k),
-                       -__ldg(tws + k), a0, b0);
-      if constexpr (kStaged) {
-        br[pad(k)] = a0;
-        bi[pad(k)] = b0;
-      } else if (i < nf) {
-        arow[k] = a0;
-        brow[k] = b0;
-      }
-    }
-    if constexpr (kStaged) {
-      __syncthreads();
-      // Rows i0 .. i0 + fg - 1: element e is bin e mod (M + 1) of frame
-      // e / (M + 1).
-      float* ga = oa + i0 * (M + 1);
-      float* gb = ob + i0 * (M + 1);
-      for (int e = threadIdx.x; e < fg * (M + 1); e += real_fft::kThreads) {
-        const int f = e / (M + 1);
-        const int q = f * 2 * P::FS + pad(e - f * (M + 1));
-        ga[e] = bufs[q];
-        gb[e] = bufs[q + P::FS];
-      }
-    }
-  }
+  real_fft::analysis_groups<real_fft::Plan<LOG2N>, POLAR ? real_fft::kPolar : real_fft::kCart>(
+      x, 0, nf, 1, nullptr, hop, win, twc, tws, oa, ob);
 }
 
 // Y = mask * a * e^{i b} (POLAR) or mask * (a + i b) (cartesian).
@@ -513,8 +330,7 @@ cudaError_t launch_stft_real(const float* x, const float* fft, float* oa,
                              float* ob, long long nf, int hop,
                              cudaStream_t stream) {
   using P = real_fft::Plan<LOG2N>;
-  const size_t smem =
-      sizeof(float) * (2 * P::M + P::F * 2 * P::FS + 2 * (size_t)span_floats<P>(hop));
+  const size_t smem = real_fft::analysis_smem<P>(hop);
   unsigned grid = 0;
   const cudaError_t err = real_fft::grid_for(stft_real_kernel<LOG2N, POLAR>, smem,
                                              (nf + P::F - 1) / P::F, &grid);

@@ -23,9 +23,13 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 LIB_PATH = BUILD_DIR / "libpvoc_kernels.so"
+# The library links the shared CUDA runtime (libcudart.so.12): in a process
+# that has imported torch, the loader binds it to the runtime torch already
+# loaded, so the kernels launch through the runtime that torch.profiler
+# traces. The rpath to the toolkit's lib64 serves any other process.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-cudart", "shared",
 )
 
 _P = ctypes.c_void_p
@@ -98,10 +102,17 @@ def _csrc_files(csrc: Path) -> list[Path]:
     return sorted(p for p in csrc.rglob("*") if p.is_file())
 
 
-def _digest(csrc: Path) -> str:
-    """sha256 of the nvcc flags and of every file under csrc/ (path and
-    bytes), so that editing a shared header also triggers a rebuild."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _link_flags(nvcc: str) -> list[str]:
+    """The link's own flags: an rpath to the toolkit's runtime."""
+    lib64 = Path(nvcc).resolve().parent.parent / "lib64"
+    return ["-Xlinker", f"-rpath,{lib64}"]
+
+
+def _digest(csrc: Path, extra: tuple = ()) -> str:
+    """sha256 of the nvcc flags (and `extra` ones) and of every file under
+    csrc/ (path and bytes), so that editing a shared header also triggers
+    a rebuild."""
+    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *extra]).encode())
     for f in _csrc_files(csrc):
         h.update(f.relative_to(csrc).as_posix().encode())
         h.update(f.read_bytes())
@@ -125,11 +136,11 @@ def _run_all(cmds: list[list[str]]) -> None:
 
 def build() -> Path:
     """Compile csrc/*.cu into LIB_PATH unless the stamp says it is current."""
-    digest = _digest(CSRC)
+    nvcc = _nvcc()
+    digest = _digest(CSRC, tuple(_link_flags(nvcc)))
     stamp = LIB_PATH.with_suffix(".so.sha256")
     if LIB_PATH.exists() and stamp.exists() and stamp.read_text() == digest:
         return LIB_PATH
-    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     pid = os.getpid()
     sources = [f for f in _csrc_files(CSRC) if f.suffix == ".cu"]
@@ -141,7 +152,8 @@ def build() -> Path:
             [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
             for src, obj in zip(sources, objects)
         ])
-        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]])
+        _run_all([[nvcc, *NVCC_FLAGS, *_link_flags(nvcc), "-shared", "-o", str(tmp),
+                   *map(str, objects)]])
         os.replace(tmp, LIB_PATH)
     finally:
         for obj in objects:

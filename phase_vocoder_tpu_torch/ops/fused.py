@@ -36,13 +36,16 @@ launch in `.launches`) or raises, a CPU tensor runs the plain version:
                            DFT and overlap-add, normalized without a mask
                            (the chunked bodies' synthesis).
 
-Which kernel body does the synthesis: for n_fft a power of two from 256
-to 4096 (real_body), every entry above synthesizes on csrc/fft_real.cuh's
-n_fft/2-point body (synth_real: N/32 threads a frame, several frames a
-block), which phasor_istft_ola(_batch) feed straight from the magnitude
-and phasor planes; for any other even n_fft, a block a frame on
-csrc/fft_common.cuh's FFT (fft_synthesis), after a pass that packs Y.
-The analysis passes run on fft_common.cuh at every n_fft.
+Which kernel body does the transforms: for n_fft a power of two from 256
+to 4096 (real_body), every entry above runs its analysis and its
+synthesis on csrc/fft_real.cuh's n_fft/2-point body (N/32 threads a
+frame, several frames a block): the analysis in analysis_real (a group of
+frames read as one span, the packed real frame transformed and split;
+the fold pass of zrev=True is this same kernel there), the synthesis in
+synth_real, which phasor_istft_ola(_batch) feed straight from the
+magnitude and phasor planes. For any other even n_fft, a block a frame
+on csrc/fft_common.cuh's FFT: fft_analysis (fft_analysis_fold for
+zrev=True) and fft_synthesis, after a pass that packs Y.
 
 The plain helpers of the chunked bodies (phasor_scan,
 phasor_prefix_exclusive, boundary_step_term) sit beside them.
@@ -125,7 +128,15 @@ def fold_analysis_applies(n_fft: int, hop: int) -> bool:
     """True when fused_time_stretch(zrev=True) runs the fold analysis: an
     even overlap n_fft/hop, the JAX package's rule for its pre-reversed
     view, and n_fft a multiple of 4, what the fold pass needs for its
-    n_fft/2-point transform. Otherwise zrev changes nothing."""
+    n_fft/2-point transform. Otherwise zrev changes nothing.
+
+    On the card, where real_body(n_fft) the fold analysis and the default
+    analysis are one kernel (analysis_real: the real-input transform is
+    the fold), so the pvoc_fused_zrev entry returns pvoc_fused's output
+    bit for bit; it stays an entry with its own launch count, for parity
+    with the JAX package's _pvoc_kernel_z. At the other multiples of 4
+    it runs its own kernel (fft_analysis_fold). The plain version of
+    zrev=True is _rfft_fold at every n_fft."""
     return n_fft % hop == 0 and (n_fft // hop) % 2 == 0 and n_fft % 4 == 0
 
 
@@ -143,9 +154,11 @@ def phasor_terms_supported(n_fft: int, ra: int, rs: int) -> bool:
 
 def real_body(n_fft: int) -> bool:
     """True when csrc/fft_real.cuh's n_fft/2-point body serves n_fft (a
-    power of two from 256 to 4096, real_fft::real_log2 in C): there the
-    synthesis runs synth_real, and pvoc_phasor_synth needs no packed-Y
-    scratch."""
+    power of two from 256 to 4096, real_fft::real_log2 in C): there every
+    entry's analysis runs analysis_real (for zrev=True too) and its
+    synthesis synth_real, and pvoc_phasor_synth needs no packed-Y scratch;
+    at every other even n_fft, fft_analysis / fft_analysis_fold and
+    fft_synthesis, a block a frame."""
     return 256 <= n_fft <= MAX_N_FFT and n_fft & (n_fft - 1) == 0
 
 
@@ -563,9 +576,12 @@ def fused_time_stretch(
     counted in `fused_time_stretch_zrev.launches`. As in the JAX package
     the geometry decides: it applies when fold_analysis_applies(n_fft, hop)
     (an even overlap n_fft/hop, and n_fft a multiple of 4) and is otherwise
-    the same call as zrev=False. Its output is within ~1e-5 interior
-    relative of zrev=False (another rounding of the forward transform), and
-    its reruns are bitwise equal.
+    the same call as zrev=False. On the card, where real_body(n_fft), the
+    kernel's analysis is the fold pass for zrev=False as well, so the two
+    outputs are equal bit for bit; at the other N, and in the plain
+    versions (_rfft_fold against torch.fft.rfft), zrev=True is within
+    ~1e-5 interior relative of zrev=False (another rounding of the forward
+    transform). Its reruns are bitwise equal.
     """
     nf = _check_args(x, n_fft, hop, rs)
     if zrev and fold_analysis_applies(n_fft, hop):
