@@ -45,7 +45,11 @@ each; any failure raises and the script exits non-zero:
          -7 st on 300 s of 16 kHz audio;
      4b. the kernels of 4a against their plain versions at those shapes,
          and pvoc_fused's passes at 2.0x / 3600 s from one torch.profiler
-         trace (analysis_real, phase_closed, synth_real, ola_gather);
+         trace (analysis_real, phase_anchor, synth_real with the integer-k
+         phase in its load, ola_rows); the kernels pvoc_fused launches at
+         integer k at N = 256-4096 (no phase_closed) and 768 (phase_closed);
+         resample_lerp, the three select variants and F.interpolate at the
+         -7 st shape as medians of 101 calls each;
      4c. the branch-faithful route through branch_policy="auto" on 660 s
          (41,247 frames, past the 37,500-frame reroute): time_stretch 0.5x
          and pitch_shift -7 st on the chirp+tone+noise signal, timed, with
@@ -118,7 +122,9 @@ each; any failure raises and the script exits non-zero:
      N = 256, 1024, 4096 are bitwise equal.
 
 The line before the last holds the per-kernel JSON record: each kernel's
-launches on its main path, its agreement with its plain version, its time,
+launches on its main path, its agreement with its plain version, its time
+(for resample_lerp and the three select variants, and for F.interpolate as
+their library call, the median of 101 calls of phase 4b),
 the plain version's, one PyTorch call's computing the same function where
 there is one (null otherwise), and its bound: the larger of the bytes it
 must move over 3.35 TB/s and the FP32 operations its FFTs need (2.5 N
@@ -140,7 +146,8 @@ bytes as one JSON line.
 compares this checkout's kernels with those of another checkout of the
 repository (an earlier commit unpacked at OTHER_ROOT) on one card: four
 processes in turn (other, this, this, other), each building its own
-checkout's kernels and timing, at the main paths' shapes, the entries
+checkout's kernels and timing (and for pvoc_fused at 2.0x / 3600 s
+reading the peak device memory), at the main paths' shapes, the entries
 that run csrc/pvoc_fused.cu's analysis and synthesis passes: pvoc_fused
 and pvoc_fused_zrev at 2.0x / 3600 s, pvoc_fused at 2.0x / 3600 s at
 every power of two from 256 to 4096 (hop N/4), pvoc_fused_segment (8192
@@ -151,11 +158,15 @@ pvoc_terms at 3.0x / 3600 s and over 8 x 600 s, phasor_istft_ola
 at every power of two from 256 to 4096 (224,997 * 1024 / N random rows,
 Rs = N/8) beside torch.istft; then the stft.cu kernels at the main
 paths' shapes as a control; and hashing outputs that must not move: the
-stft.cu outputs at N = 1024, and the sizes that keep the
-one-block-a-frame analysis and fft_synthesis (pvoc_fused, stft/istft and
-phasor_istft_ola at N = 768; pvoc_fused at N = 128); the phasor terms
-(3.0x / 3600 s scanned, 60 s with unit phasors) are hashed as outputs
-that may move with the analysis. Prints one JSON line per process and a
+stft.cu outputs at N = 1024, the sizes that keep the
+one-block-a-frame analysis and fft_synthesis (stft/istft and
+phasor_istft_ola at N = 768; pvoc_fused at N = 128 with q >= 2), and
+phasor_istft_ola(_batch) on seeded random planes; the phasor terms
+(3.0x / 3600 s scanned, 60 s with unit phasors) and every integer-k
+output (pvoc_fused, zrev, one stream segment and a ragged batch at N =
+256, 1024 and 4096; pvoc_fused at N = 768 and 128), whose closed form is
+rounded as written since the phase moved into the synthesis, are hashed
+as outputs that may move. Prints one JSON line per process and a
 summary (speed-ups, hashes, whether this checkout's phasor_istft_ola(_batch)
 are ahead of torch.istft); fails if a must-not-move hash differs or a
 may-move one differs between this checkout's two runs.
@@ -533,6 +544,7 @@ def _ab_worker(root: str) -> int:
     # 3600 s, one 8192-frame stream segment, the 2.0x group of the
     # 64-utterance batch.
     rec["pvoc_fused_2x_3600s_ms"] = _time_ms(lambda: fused.fused_time_stretch(x_long, N_FFT, HOP, 512), reps=5)
+    rec["pvoc_fused_2x_3600s_peak_gb"] = _peak_gb(lambda: fused.fused_time_stretch(x_long, N_FFT, HOP, 512))
     rec["pvoc_fused_zrev_2x_3600s_ms"] = _time_ms(
         lambda: fused.fused_time_stretch(x_long, N_FFT, HOP, 512, zrev=True), reps=5)
     nf_long = (len(x_long) - N_FFT) // HOP + 1
@@ -630,15 +642,49 @@ def _ab_worker(root: str) -> int:
     rec["hash_stft_cu_1024"] = digest(m_a, p_a, r_a, i_a, stft.istft_ola(m_, p_, N_FFT, 128),
                                       stft.istft_frames(m_, p_, N_FFT), stft.istft_frames_cart(r_a, i_a, N_FFT))
     del x, m_a, p_a, r_a, i_a
-    rec["hash_pvoc_fused_768_2x_3600s"] = digest(fused.fused_time_stretch(x_long, 768, 192, 384))
+    # Integer k at N = 768 and 128 (phase_closed): its closed form is
+    # rounded as written since this checkout (closed_bin), so it may move.
+    rec["moved_pvoc_fused_768_2x_3600s"] = digest(fused.fused_time_stretch(x_long, 768, 192, 384))
     m768, p768 = stft.stft_polar(x60, 768, 192)
     rec["hash_n768_stft_istft"] = digest(m768, p768, stft.istft_frames(m768, p768, 768),
                                          stft.istft_ola(m768, p768, 768, 96))
     t768 = fused.stft_phasor_terms(x60, 768, 192, 96)
     rec["hash_n768_phasor_istft_ola"] = digest(fused.phasor_istft_ola(*t768[:3], 768, 96, t768[3]),
                                                fused.fused_time_stretch(x60, 768, 192, 128))
-    rec["hash_n128_pvoc_fused"] = digest(fused.fused_time_stretch(x60, 128, 32, 64),
-                                         fused.fused_time_stretch(x60, 128, 32, 21))
+    rec["moved_n128_pvoc_fused_int_k"] = digest(fused.fused_time_stretch(x60, 128, 32, 64))
+    rec["hash_n128_pvoc_fused_rs21"] = digest(fused.fused_time_stretch(x60, 128, 32, 21))
+    # Integer k at N = 256, 1024 and 4096 (2.0x, hop N/4; the closed-form
+    # phase in synth_real's load and the row gather, against the parent's
+    # phase_closed pass and per-sample gather): pvoc_fused, zrev, one
+    # segment from a state two segments in, a ragged batch (may move: the
+    # closed form is rounded as written, closed_bin); then
+    # phasor_istft_ola(_batch) on seeded random planes, with and without a
+    # mask, which must give another checkout's bits (the gather keeps each
+    # sample's order).
+    for n in (256, 1024, 4096):
+        hop, rs = n // 4, n // 2
+        nf60 = (len(x60) - n) // hop + 1
+        F_n, _ = streaming.fused_plan_segments(nf60, n, rs, 256)
+        _, st2 = streaming._fused_scan_from(x60, streaming.fused_init_state(n, rs, dev), nf60, n, hop, rs,
+                                            F_n, 2)
+        seg = fused.fused_stream_segment(x60, st2.carry, st2.tail, 1, 2 * F_n, nf60, n, hop, rs, F_n)
+        rows_n = [x60[: 20 * SR], x60[5 * SR : 12 * SR], x60[: n + 3 * hop]]
+        xb_n = torch.stack([torch.nn.functional.pad(r, (0, len(rows_n[0]) - len(r))) for r in rows_n])
+        nfs_n = [(len(r) - n) // hop + 1 for r in rows_n]
+        rec[f"moved_int_k_N{n}"] = digest(fused.fused_time_stretch(x60, n, hop, rs),
+                                         fused.fused_time_stretch(x60, n, hop, rs, zrev=True), *seg,
+                                         fused.fused_time_stretch_batch(xb_n, n, hop, rs, nfs_n))
+    g1 = torch.Generator(device=dev)
+    g1.manual_seed(1)
+    nb = N_FFT // 2 + 1
+    a = torch.rand((2, 3000, nb), device=dev, generator=g1)
+    ph = torch.rand(a.shape, device=dev, generator=g1) * (2 * np.pi)
+    c, s_ = torch.cos(ph), torch.sin(ph)
+    mask = (torch.rand((2, 3000), device=dev, generator=g1) > 0.1).float()
+    rec["hash_phasor_istft_ola"] = digest(
+        fused.phasor_istft_ola(a[0], c[0], s_[0], N_FFT, 128, 3000),
+        fused.phasor_istft_ola(a[0], c[0], s_[0], N_FFT, 128, 3000, mask[0]),
+        fused.phasor_istft_ola_batch(a, c, s_, N_FFT, 256, 2900, mask))
     print(json.dumps(rec), flush=True)
     return 0
 
@@ -709,8 +755,10 @@ def _ab(other: str) -> int:
     ahead = {k: recs[1][k] < recs[1][lib] and recs[2][k] < recs[2][lib]
              for k, lib in (("phasor_istft_ola_ms", "torch_istft_ms"),
                             ("phasor_istft_ola_batch_ms", "torch_istft_batch_ms"))}
+    peak = {k: {"this": [recs[1][k], recs[2][k]], "other": [recs[0].get(k), recs[3].get(k)]}
+            for k in recs[1] if k.endswith("_peak_gb")}
     print(json.dumps({"ab_summary": summary, "bitwise_equal": same, "may_move": moved,
-                      "this_ahead_of_torch_istft": ahead}), flush=True)
+                      "peak_gb": peak, "this_ahead_of_torch_istft": ahead}), flush=True)
     _check(all(same.values()), f"outputs moved: {same}")
     _check(all(v["this_reruns_equal"] for v in moved.values()), f"outputs differ between two runs: {moved}")
     return 0
@@ -1307,12 +1355,26 @@ def main() -> int:
         }
         del a, b
     # Row 1's passes, from one profiled call: the analysis (analysis_real),
-    # the closed-form phase pass, the synthesis (synth_real) and the gather.
+    # the anchor table (phase_anchor), the synthesis with the integer-k
+    # phase in its load (synth_real<10, 2>: kClosed) and the row gather
+    # (ola_rows<4>: float4 runs).
     split = _profile_call(lambda: fused_time_stretch(x_long, N_FFT, HOP, 512))
-    passes = ("analysis_real<10>", "phase_closed", "synth_real<10, false>", "ola_gather")
+    passes = ("analysis_real<10>", "phase_anchor", "synth_real<10, 2>", "ola_rows<4>")
     _check(sorted(split["by_kernel_ms"]) == sorted(passes) and split["kernels"] == len(passes),
            f"pvoc_fused at 2.0x / 3600 s: passes {split}")
     shapes["stretch_2x_3600s"]["passes"] = split
+    # Which kernels pvoc_fused launches at integer k (2.0x, hop N/4) at each
+    # N, from a profiled call on 60 s: no phase_closed where fft_real.cuh
+    # serves N (the phase in synth_real's load), phase_closed at N = 768.
+    routes = {}
+    for n in POW2_SIZES + (768,):
+        names = _profile_call(lambda: fused_time_stretch(x60, n, n // 4, n // 2))["by_kernel_ms"]
+        routes[n] = sorted(names)
+        l2 = {256: 8, 512: 9, 1024: 10, 2048: 11, 4096: 12}.get(n)
+        want = (("analysis_real<%d>" % l2, "phase_anchor", "synth_real<%d, 2>" % l2, "ola_rows<4>")
+                if l2 else ("fft_analysis<false>", "phase_closed", "fft_synthesis<false>", "ola_rows<4>"))
+        _check(routes[n] == sorted(want), f"pvoc_fused at N={n}, integer k: kernels {routes[n]}")
+    shapes["stretch_2x_3600s"]["kernels_by_n_fft"] = routes
     factor = 2.0 ** (-7 / 12)
     y_st = fused_time_stretch(x_pitch, N_FFT, HOP, rs_pitch)
     out_len = int(round(len(y_st) / factor))
@@ -1330,10 +1392,34 @@ def main() -> int:
     res_lib_ms = _time_ms(lambda: torch.nn.functional.interpolate(
         y_st[None, None], size=out_len, mode="linear", align_corners=True), reps=20)
     res_bound = _bound(4 * (len(y_st) + out_len), 3 * out_len)
+    # Rows 2 and 15-17 and F.interpolate at this shape, each the median of
+    # 101 single calls timed by CUDA events, in turns, in this phase (their
+    # means over 20 calls spread by up to 2x between runs).
+    bt = block_tables(1.0 / factor, out_len, dev)
+    t1 = select_tables(1.0 / factor, out_len, len(y_st), "roll", dev)
+    t2 = select_tables(1.0 / factor, out_len, len(y_st), "roll2", dev)
+    med_fns = {
+        "resample_lerp": lambda: resample_linear(y_st, 1.0 / factor, out_len),
+        "resample_blocked": lambda: resample_blocked(y_st, *bt, out_len),
+        "select_lerp_roll2": lambda: select_lerp_two_level(y_st, t2["origin"], t2["bases"], t2["k"],
+                                                           t2["fr"], t2["c"]),
+        "select_lerp": lambda: select_lerp(y_st, t1["origin"], t1["k"], t1["fr"], t1["c"]),
+        "F.interpolate": lambda: torch.nn.functional.interpolate(
+            y_st[None, None], size=out_len, mode="linear", align_corners=True),
+    }
+    med_calls = {name: [] for name in med_fns}
+    for _ in range(101):
+        for name, fn in med_fns.items():
+            med_calls[name] += _time_calls(fn, reps=1)
+    medians = {name: float(np.median(v)) for name, v in med_calls.items()}
+    spread = {name: [float(np.percentile(v, 10)), float(np.percentile(v, 90))]
+              for name, v in med_calls.items()}
+    del bt, t1, t2, med_fns
     _emit("4b_kernel_vs_plain_main_shapes", card=smi, pvoc_fused=shapes,
           resample_m7_300s={"max_abs": res_abs, "ms": res_ms, "plain_ms": res_plain_ms,
                             "library_ms": res_lib_ms, **res_bound,
-                            "n_in": len(y_st), "n_out": out_len})
+                            "n_in": len(y_st), "n_out": out_len},
+          select_medians_ms_101_calls=medians, select_p10_p90_ms=spread)
 
     del y_st, a, b
     torch.cuda.empty_cache()
@@ -2135,7 +2221,8 @@ def main() -> int:
         _row("pvoc_fused", "pvoc_fused.cu", "ops/pallas/fused.py:1526",
              launches["stretch_2x_3600s"]["pvoc_fused"], fused_2x, fused_2x["max_abs"]),
         _row("resample_lerp", "resample.cu", "ops/resample.py:372", launches["pitch_m7_300s"]["resample_lerp"],
-             {"ms": res_ms, "plain_ms": res_plain_ms, "library_ms": res_lib_ms, **res_bound}, res_abs),
+             {"ms": medians["resample_lerp"], "plain_ms": res_plain_ms, "library_ms": medians["F.interpolate"],
+              **res_bound}, res_abs),
         _row("stft_polar", "stft.cu", "ops/pallas/stft.py:117", ff_launches["stretch_0.5x_660s"]["stft_polar"],
              stft_main, stft_main["mag_max_abs"]),
         _row("stft_fused", "stft.cu", "ops/pallas/stft.py:155", fused_launches["stft_fused"],
@@ -2160,14 +2247,12 @@ def main() -> int:
              bc["0.5x"]["launches"]["phasor_istft_ola_batch"], sb_main, sb_main["max_abs"]),
         _row("pvoc_fused_zrev", "pvoc_fused.cu", "ops/pallas/fused.py:1569",
              zr_launches["2x_3600s"]["pvoc_fused_zrev"], zr["2x_3600s"], zr["2x_3600s"]["max_abs"]),
-        _row("resample_blocked", "resample.cu", "ops/resample.py:715",
-             sel_launches["fused"]["resample_blocked"], sel_k["resample_blocked"],
-             sel_k["resample_blocked"]["max_abs"]),
-        _row("select_lerp_roll2", "resample.cu", "ops/resample.py:786",
-             sel_launches["roll2"]["select_lerp_roll2"], sel_k["select_lerp_roll2"],
-             sel_k["select_lerp_roll2"]["max_abs"]),
-        _row("select_lerp", "resample.cu", "ops/resample.py:662",
-             sel_launches["matmul"]["select_lerp"], sel_k["select_lerp"], sel_k["select_lerp"]["max_abs"]),
+        *(_row(name, "resample.cu", replaces, sel_launches[impl][name],
+               {**sel_k[name], "ms": medians[name], "library_ms": medians["F.interpolate"]},
+               sel_k[name]["max_abs"])
+          for name, replaces, impl in (("resample_blocked", "ops/resample.py:715", "fused"),
+                                       ("select_lerp_roll2", "ops/resample.py:786", "roll2"),
+                                       ("select_lerp", "ops/resample.py:662", "matmul"))),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,8 +37,11 @@
 // time in DFT matrix products on the MXU; here each frame's DFT is an FFT
 // in FP32 (~2.5-5 N log2 N FLOP per transform, about a hundredth of a
 // matrix DFT), so the passes are bound by the spectra (nf x (N+2) floats,
-// written and read twice) and the windowed frames (nf x N floats) that go
-// through device memory between launches.
+// written once and read once at integer k where fft_real.cuh serves N,
+// and a packed Y besides elsewhere) and the windowed frames (nf x N
+// floats) that go through device memory between launches; at integer k
+// the synthesis pass also does the closed form's square roots and
+// divisions.
 // FP32 FMA, no tensor cores: the forward transform feeds the unit phasors,
 // and every operand split with a ~2^-17 floor failed the 1e-4 golden gate
 // on the TPU; the FFT also sums with less rounding error than a direct
@@ -80,6 +83,12 @@
 //       signal reaches device memory;
 //   (b) phase: elementwise per (frame, bin). Integer k = Rs/Ra uses the
 //       closed form P_i = u_0 (u_i conj u_0)^k, which needs only frame 0.
+//       Where fft_real.cuh serves N this is no pass of its own: a small
+//       pass (phase_anchor) makes each batch row's anchor table u_0 (a
+//       stream segment has it in its carry already), and synth_real forms
+//       Y = |X| P from the packed spectrum and that table as it loads each
+//       bin, so the spectra are read once and no packed Y goes through
+//       device memory. Every other N keeps the elementwise phase_closed.
 //       q >= 2 builds the step terms, then a three-pass chunked prefix
 //       product (in-chunk products -> serial scan of chunk carries per
 //       bin -> apply and renormalize), with no atomics;
@@ -93,18 +102,24 @@
 //       at N = 1024), 8192/N frames a 256-thread block, stage twiddles in
 //       shared memory, a grid of as many blocks as run at once walking
 //       over the frame groups of every batch row. synth_real reads Y from
-//       the packed rows of the phase passes or, in pvoc_phasor_synth,
-//       forms it from the magnitude and phasor planes as it loads them, so
-//       that no packed copy of Y goes through device memory. Every other N
+//       the packed rows of the q >= 2 phase passes, forms it at integer k
+//       from the spectrum and the anchor table (b), or, in
+//       pvoc_phasor_synth, forms it from the magnitude and phasor planes as
+//       it loads them, so that in those two no packed copy of Y goes
+//       through device memory. Every other N
 //       takes fft_synthesis: one block a frame, a complex N-point FFT in
 //       shared memory (fft_common.cuh: radix 2 at N = 128, mixed radix for
 //       N not a power of two), after phasor_y packs Y;
-//   (d) overlap-add in gather form: a thread per output sample sums the
-//       <= m frames covering it in increasing frame order and multiplies
-//       by the inverse window energy of its row (head, interior or tail).
+//   (d) overlap-add in gather form (ola_rows): a warp (or, for short
+//       rows, a part of one) owns an output row of Rs samples and sums, for each sample, the <= m frames covering
+//       it in increasing frame order, then multiplies by the inverse window
+//       energy of its row (head, interior or tail), chosen once a row; the
+//       frames are read and the row written in contiguous float4 runs
+//       where Rs allows, and a resident grid walks over the rows.
 // A batch is the same launches with the batch row as gridDim.y (in
 // analysis_real and synth_real, the batch rows' frame groups flattened
-// over one grid, a group never across two rows): every buffer holds B
+// over one grid, a group never across two rows; in ola_rows, the batch
+// rows' output rows): every buffer holds B
 // rows of nf frames, a row's passes touch only its own frames (the first
 // n_b of them, n_b read from a device array of frame counts), so each row
 // computes exactly what the single-recording launch computes for its own
@@ -267,167 +282,6 @@ analysis_real(const float* __restrict__ x, const float* __restrict__ win,
       x, g.x_stride, g.nf, g.batch, g.nfs, g.ra, win, twc, tws, spec, nullptr);
 }
 
-// (c), N not served by fft_real.cuh: one block per frame, frames[i] =
-// w * irfft(Y_i) (imaginary parts of DC and Nyquist are zero by
-// construction).
-template <bool kPow2>
-__global__ void __launch_bounds__(kThreads)
-fft_synthesis(const float* __restrict__ y, const float* __restrict__ win,
-              const float* __restrict__ twc, const float* __restrict__ tws,
-              float* __restrict__ frames, Geo g) {
-  extern __shared__ float sm[];
-  float* sr = sm;
-  float* si = sm + g.n_fft;
-  const int bat = blockIdx.y;
-  const int64_t i = blockIdx.x;
-  if (i >= row_frames(g, bat)) return;
-  const int64_t fr = bat * g.nf + i;
-  const float* row = y + fr * 2 * g.nb;
-  for (int k = threadIdx.x; k < g.n_fft; k += blockDim.x) {
-    const int r = fft_slot<kPow2>(k, g.fft);
-    if (k <= g.nh) {
-      sr[r] = row[k];
-      si[r] = row[g.nb + k];
-    } else {  // Hermitian half: Y[N-k] conjugated
-      sr[r] = row[g.n_fft - k];
-      si[r] = -row[g.nb + g.n_fft - k];
-    }
-  }
-  __syncthreads();
-  fft_run<kPow2>(sr, si, g.fft, twc, tws, 1.f);
-  const float scale = 1.f / g.n_fft;
-  float* out = frames + fr * g.n_fft;
-  for (int t = threadIdx.x; t < g.n_fft; t += blockDim.x) {
-    out[t] = sr[t] * scale * win[t];
-  }
-}
-
-// (c) on fft_real.cuh's body, N = 2^LOG2N from 256 to 4096:
-// frames[i] = w * irfft(Y_i) with the imaginary parts of DC and Nyquist
-// dropped, through the merge Z[k] = (Y[k] + conj Y[M-k]) + i W^-k (Y[k] -
-// conj Y[M-k]), W^-k = twc[k] + i tws[k], the inverse M-point FFT z and
-// frames[i][2n], [2n+1] = (Re z[n], Im z[n]) / N * w. Y comes from one of
-// two sources: the packed rows [re(nb) | im(nb)] that the phase passes
-// leave in y (PLANES false), or Y = (|X| P_re) mask + i (|X| P_im) mask
-// formed from the (B, nf, nb) planes mag, pre, pim and the optional
-// (B, nf) mask, in phasor_y's order (PLANES true), so that no packed copy
-// of Y goes through device memory. A group is F consecutive frames of
-// one batch row; the rows' groups are flattened over a resident grid. A
-// group wholly past its row's frames is skipped by the whole block; in a
-// group that is not, a frame past the row's frames runs the transform
-// with its group (its barriers are its group's) and writes nothing.
-// Shared memory: stage twiddles (2 M), F frame buffers (2 FS each).
-// Registers: fft_real.cuh's cap of 64 (kMinBlocks blocks an SM), but at
-// N = 2048 three blocks an SM (80 registers, no spill): under the cap of
-// 64 this kernel spilled 44-68 bytes there (nvcc -Xptxas -v) and ran
-// slower on an H100.
-template <int LOG2N, bool PLANES>
-__global__ void __launch_bounds__(real_fft::kThreads, LOG2N == 11 ? 3 : real_fft::kMinBlocks)
-synth_real(const float* __restrict__ y, const float* __restrict__ mag,
-           const float* __restrict__ pre, const float* __restrict__ pim,
-           const float* __restrict__ mask, const float* __restrict__ win,
-           const float* __restrict__ twc, const float* __restrict__ tws,
-           float* __restrict__ frames, Geo g) {
-  using P = real_fft::Plan<LOG2N>;
-  using real_fft::kV;
-  using real_fft::pad;
-  constexpr int M = P::M, T = P::T, F = P::F;
-  constexpr int R0 = 1 << P::lr(0), RL = 1 << P::lr(P::S - 1);
-  extern __shared__ __align__(16) float sm[];
-  float* twr = sm;
-  float* twi = sm + M;
-  const int slot = threadIdx.x / T, t = threadIdx.x % T;
-  float* br = sm + 2 * M + slot * 2 * P::FS;
-  float* bi = br + P::FS;
-  real_fft::build_twiddles<P>(twr, twi, twc, tws);
-  __syncthreads();
-  const float2* win2 = reinterpret_cast<const float2*>(win);
-  float2* out2 = reinterpret_cast<float2*>(frames);
-  const float scale = 1.f / P::N;
-  const int64_t per_row = (g.nf + F - 1) / F;
-  const int64_t groups = per_row * g.batch;
-  for (int64_t gi = blockIdx.x; gi < groups; gi += gridDim.x) {
-    const int bat = (int)(gi / per_row);
-    const int64_t i0 = (gi - bat * per_row) * F;
-    const int64_t n_row = row_frames(g, bat);
-    if (i0 >= n_row) continue;  // the same for the whole block
-    const int64_t i = i0 + slot;
-    const bool live = i < n_row;
-    const int64_t fr = bat * g.nf + i;  // the frame's row in the buffers
-    real_fft::group_sync<T>(slot);  // the last group's buffer reads done
-    if (live) {
-      // All of a round's loads first, so that they are in flight
-      // together; bin k = t + T u, u < 16, then bin M (thread 0).
-      float ra[kV], rb[kV];
-      if constexpr (PLANES) {
-        const float mk = mask != nullptr ? __ldg(mask + fr) : 1.f;
-        const float* m_row = mag + fr * (M + 1);
-        const float* re_row = pre + fr * (M + 1);
-        const float* im_row = pim + fr * (M + 1);
-#pragma unroll
-        for (int u = 0; u < kV; ++u) {
-          ra[u] = __ldg(m_row + t + T * u);
-          rb[u] = __ldg(re_row + t + T * u);
-        }
-#pragma unroll
-        for (int u = 0; u < kV; ++u) br[pad(t + T * u)] = (ra[u] * rb[u]) * mk;
-#pragma unroll
-        for (int u = 0; u < kV; ++u) rb[u] = __ldg(im_row + t + T * u);
-#pragma unroll
-        for (int u = 0; u < kV; ++u) {
-          const int k = t + T * u;
-          bi[pad(k)] = k == 0 ? 0.f : (ra[u] * rb[u]) * mk;
-        }
-        if (t == 0) br[pad(M)] = (__ldg(m_row + M) * __ldg(re_row + M)) * mk;
-      } else {
-        const float* row = y + fr * 2 * (M + 1);
-#pragma unroll
-        for (int u = 0; u < kV; ++u) {
-          ra[u] = __ldg(row + t + T * u);
-          rb[u] = __ldg(row + M + 1 + t + T * u);
-        }
-#pragma unroll
-        for (int u = 0; u < kV; ++u) {
-          const int k = t + T * u;
-          br[pad(k)] = ra[u];
-          bi[pad(k)] = k == 0 ? 0.f : rb[u];
-        }
-        if (t == 0) br[pad(M)] = __ldg(row + M);
-      }
-      if (t == 0) bi[pad(M)] = 0.f;
-    }
-    real_fft::group_sync<T>(slot);
-    float vr[kV], vi[kV];
-#pragma unroll
-    for (int kk = 0; kk < kV / R0; ++kk) {
-#pragma unroll
-      for (int r = 0; r < R0; ++r) {
-        const int n = real_fft::source<P, 0>(t, kk, r);
-        const float yr = br[pad(n)], yi = bi[pad(n)];
-        const float cr = br[pad(M - n)], ci = -bi[pad(M - n)];  // conj Y[M-n]
-        const float sr = yr + cr, si = yi + ci;
-        const float dr = yr - cr, di = yi - ci;
-        const float c = __ldg(twc + n), s = __ldg(tws + n);
-        vr[kk * R0 + r] = sr - (c * di + s * dr);
-        vi[kk * R0 + r] = si + (c * dr - s * di);
-      }
-    }
-    real_fft::fft<P, false>(vr, vi, br, bi, twr, twi, t, slot);
-    if (live) {
-#pragma unroll
-      for (int kk = 0; kk < kV / RL; ++kk) {
-#pragma unroll
-        for (int r = 0; r < RL; ++r) {
-          const int n = real_fft::dest<P, P::S - 1>(t, kk, r);
-          const float2 w = __ldg(win2 + n);
-          out2[fr * M + n] = make_float2(vr[kk * RL + r] * scale * w.x,
-                                         vi[kk * RL + r] * scale * w.y);
-        }
-      }
-    }
-  }
-}
-
 // ------------------------------------------------------- phasor algebra
 // Twins of fused.py _int_pow, _principal_sqrt and _pow_k (angle path with
 // atan2f in place of the Cephes polynomial Mosaic needed).
@@ -504,6 +358,280 @@ __device__ __forceinline__ void normalize(float& re, float& im) {
   im = im / r;
 }
 
+// The integer-k closed form, rounded as written: every product and sum
+// of the next three functions is its own IEEE operation (__fmul_rn,
+// __fadd_rn: nvcc contracts none of them into an FMA), so that every
+// kernel that forms the closed form or its anchor rounds it alike. nvcc
+// picks which product of a*b + c*d it fuses by the surrounding code, so
+// the same expression inlined into two kernels could round two ways.
+// This is also the plain version's order (ops/fused.py _unit, _int_pow,
+// _cmul on the CPU, where nothing is fused).
+__device__ __forceinline__ float mul_add(float a, float b, float c, float d) {
+  return __fadd_rn(__fmul_rn(a, b), __fmul_rn(c, d));
+}
+__device__ __forceinline__ float mul_sub(float a, float b, float c, float d) {
+  return __fsub_rn(__fmul_rn(a, b), __fmul_rn(c, d));
+}
+
+// unit_phasor of the closed form (its anchors and bins).
+__device__ __forceinline__ void unit_phasor_rn(float re, float im, float& mag,
+                                               float& ur, float& ui) {
+  const float n2 = mul_add(re, re, im, im);
+  mag = __fsqrt_rn(n2);
+  if (n2 > kTiny) {
+    ur = __fdiv_rn(re, mag);
+    ui = __fdiv_rn(im, mag);
+  } else {
+    ur = 1.f;
+    ui = 0.f;
+  }
+}
+
+// Y of general bin X = (re, im) at integer k = p: |X| u_0 (u conj u_0)^k,
+// u = X/|X|; z^k by repeated squaring (int_pow's order) where g.alg, else
+// pow_k's angle domain. phase_closed and synth_real's closed-form load
+// both call it, so that the two make the same Y.
+__device__ __forceinline__ void closed_bin(float re, float im, float u0r,
+                                           float u0i, const Geo& g,
+                                           float& yr, float& yi) {
+  float mag, ur, ui;
+  unit_phasor_rn(re, im, mag, ur, ui);
+  const float zr = mul_add(ur, u0r, ui, u0i);
+  const float zi = mul_sub(ui, u0r, ur, u0i);
+  float wr = zr, wi = zi;
+  if (!g.alg) {
+    pow_k(zr, zi, g, wr, wi);
+  } else if (g.p != 1) {
+    float ar = 1.f, ai = 0.f, br = zr, bi = zi;
+    for (int e = g.p; e > 0;) {
+      if (e & 1) {
+        const float t = mul_sub(ar, br, ai, bi);
+        ai = mul_add(ar, bi, ai, br);
+        ar = t;
+      }
+      e >>= 1;
+      if (e) {
+        const float t = mul_sub(br, br, bi, bi);
+        bi = __fmul_rn(__fmul_rn(2.f, br), bi);
+        br = t;
+      }
+    }
+    wr = ar;
+    wi = ai;
+  }
+  yr = __fmul_rn(mag, mul_sub(wr, u0r, wi, u0i));
+  yi = __fmul_rn(mag, mul_add(wr, u0i, wi, u0r));
+}
+
+// (c), N not served by fft_real.cuh: one block per frame, frames[i] =
+// w * irfft(Y_i) (imaginary parts of DC and Nyquist are zero by
+// construction).
+template <bool kPow2>
+__global__ void __launch_bounds__(kThreads)
+fft_synthesis(const float* __restrict__ y, const float* __restrict__ win,
+              const float* __restrict__ twc, const float* __restrict__ tws,
+              float* __restrict__ frames, Geo g) {
+  extern __shared__ float sm[];
+  float* sr = sm;
+  float* si = sm + g.n_fft;
+  const int bat = blockIdx.y;
+  const int64_t i = blockIdx.x;
+  if (i >= row_frames(g, bat)) return;
+  const int64_t fr = bat * g.nf + i;
+  const float* row = y + fr * 2 * g.nb;
+  for (int k = threadIdx.x; k < g.n_fft; k += blockDim.x) {
+    const int r = fft_slot<kPow2>(k, g.fft);
+    if (k <= g.nh) {
+      sr[r] = row[k];
+      si[r] = row[g.nb + k];
+    } else {  // Hermitian half: Y[N-k] conjugated
+      sr[r] = row[g.n_fft - k];
+      si[r] = -row[g.nb + g.n_fft - k];
+    }
+  }
+  __syncthreads();
+  fft_run<kPow2>(sr, si, g.fft, twc, tws, 1.f);
+  const float scale = 1.f / g.n_fft;
+  float* out = frames + fr * g.n_fft;
+  for (int t = threadIdx.x; t < g.n_fft; t += blockDim.x) {
+    out[t] = sr[t] * scale * win[t];
+  }
+}
+
+// Where synth_real finds Y: the packed rows [re(nb) | im(nb)] that the
+// phase passes leave in y (kRows); Y = (|X| P_re) mask + i (|X| P_im) mask
+// formed from the (B, nf, nb) planes mag, pre, pim and the optional
+// (B, nf) mask, in phasor_y's order (kPlanes); or, at integer k, the
+// closed form of phase_closed formed from the packed spectrum rows X in y
+// and the anchor table u0 (kClosed).
+enum SynthSource { kRows, kPlanes, kClosed };
+
+// (c) on fft_real.cuh's body, N = 2^LOG2N from 256 to 4096:
+// frames[i] = w * irfft(Y_i) with the imaginary parts of DC and Nyquist
+// dropped, through the merge Z[k] = (Y[k] + conj Y[M-k]) + i W^-k (Y[k] -
+// conj Y[M-k]), W^-k = twc[k] + i tws[k], the inverse M-point FFT z and
+// frames[i][2n], [2n+1] = (Re z[n], Im z[n]) / N * w. Y comes from SRC
+// (SynthSource). With kPlanes and kClosed it is formed as the bins are
+// loaded, so that no packed copy of Y goes through device memory; kClosed
+// runs phase_closed's arithmetic (closed_bin, DC passed through, Nyquist
+// times (-1)^(Rs (goff + i))) on each bin as it arrives, so its Y is
+// phase_closed's bit for bit. A group is F consecutive frames of
+// one batch row; the rows' groups are flattened over a resident grid. A
+// group wholly past its row's frames is skipped by the whole block; in a
+// group that is not, a frame past the row's frames runs the transform
+// with its group (its barriers are its group's) and writes nothing.
+// Shared memory: stage twiddles (2 M), F frame buffers (2 FS each).
+// Registers: fft_real.cuh's cap of 64 (kMinBlocks blocks an SM), but at
+// N = 2048 three blocks an SM (80 registers, no spill): under the cap of
+// 64 this kernel spilled 44-68 bytes there (nvcc -Xptxas -v) and ran
+// slower on an H100. kClosed at N = 4096 also takes three (80 registers):
+// under 64 it spilled 44 bytes. kClosed loads the frame's X first (32
+// values a thread, as kRows), then each bin's anchor from L1 as it forms
+// that bin's Y: in four rounds of four bins, loads first in each, its
+// pass ran slower on an H100.
+template <int LOG2N, int SRC>
+__global__ void __launch_bounds__(real_fft::kThreads,
+                                  LOG2N == 11 || (LOG2N == 12 && SRC == kClosed) ? 3
+                                                                             : real_fft::kMinBlocks)
+synth_real(const float* __restrict__ y, const float* __restrict__ u0,
+           const float* __restrict__ mag,
+           const float* __restrict__ pre, const float* __restrict__ pim,
+           const float* __restrict__ mask, const float* __restrict__ win,
+           const float* __restrict__ twc, const float* __restrict__ tws,
+           float* __restrict__ frames, Geo g) {
+  using P = real_fft::Plan<LOG2N>;
+  using real_fft::kV;
+  using real_fft::pad;
+  constexpr int M = P::M, T = P::T, F = P::F;
+  constexpr int R0 = 1 << P::lr(0), RL = 1 << P::lr(P::S - 1);
+  extern __shared__ __align__(16) float sm[];
+  float* twr = sm;
+  float* twi = sm + M;
+  const int slot = threadIdx.x / T, t = threadIdx.x % T;
+  float* br = sm + 2 * M + slot * 2 * P::FS;
+  float* bi = br + P::FS;
+  real_fft::build_twiddles<P>(twr, twi, twc, tws);
+  __syncthreads();
+  const float2* win2 = reinterpret_cast<const float2*>(win);
+  float2* out2 = reinterpret_cast<float2*>(frames);
+  const float scale = 1.f / P::N;
+  const int64_t per_row = (g.nf + F - 1) / F;
+  const int64_t groups = per_row * g.batch;
+  for (int64_t gi = blockIdx.x; gi < groups; gi += gridDim.x) {
+    const int bat = (int)(gi / per_row);
+    const int64_t i0 = (gi - bat * per_row) * F;
+    const int64_t n_row = row_frames(g, bat);
+    if (i0 >= n_row) continue;  // the same for the whole block
+    const int64_t i = i0 + slot;
+    const bool live = i < n_row;
+    const int64_t fr = bat * g.nf + i;  // the frame's row in the buffers
+    real_fft::group_sync<T>(slot);  // the last group's buffer reads done
+    if (live) {
+      // All of a round's loads first, so that they are in flight
+      // together; bin k = t + T u, u < 16, then bin M (thread 0).
+      if constexpr (SRC == kPlanes) {
+        float ra[kV], rb[kV];
+        const float mk = mask != nullptr ? __ldg(mask + fr) : 1.f;
+        const float* m_row = mag + fr * (M + 1);
+        const float* re_row = pre + fr * (M + 1);
+        const float* im_row = pim + fr * (M + 1);
+#pragma unroll
+        for (int u = 0; u < kV; ++u) {
+          ra[u] = __ldg(m_row + t + T * u);
+          rb[u] = __ldg(re_row + t + T * u);
+        }
+#pragma unroll
+        for (int u = 0; u < kV; ++u) br[pad(t + T * u)] = (ra[u] * rb[u]) * mk;
+#pragma unroll
+        for (int u = 0; u < kV; ++u) rb[u] = __ldg(im_row + t + T * u);
+#pragma unroll
+        for (int u = 0; u < kV; ++u) {
+          const int k = t + T * u;
+          bi[pad(k)] = k == 0 ? 0.f : (ra[u] * rb[u]) * mk;
+        }
+        if (t == 0) br[pad(M)] = (__ldg(m_row + M) * __ldg(re_row + M)) * mk;
+      } else if constexpr (SRC == kClosed) {
+        // X of bins k (all loads first, as kRows), then each bin's anchor
+        // (bins 1..M-1 of the frame's batch row, u0 + bat 2 (M-1): [re |
+        // im]; the same table for every frame of the row, so it stays in
+        // L1) and its Y.
+        const float* row = y + fr * 2 * (M + 1);
+        const float* a_row = u0 + (int64_t)bat * 2 * (M - 1);
+        float ra[kV], rb[kV];
+#pragma unroll
+        for (int u = 0; u < kV; ++u) {
+          ra[u] = __ldg(row + t + T * u);
+          rb[u] = __ldg(row + M + 1 + t + T * u);
+        }
+#pragma unroll
+        for (int u = 0; u < kV; ++u) {
+          const int k = t + T * u;
+          const int a = k > 0 ? k - 1 : 0;  // bin 0 takes no anchor
+          const float ar = __ldg(a_row + a), ai = __ldg(a_row + M - 1 + a);
+          if (k == 0) {  // DC passes through
+            br[pad(0)] = ra[u];
+            bi[pad(0)] = 0.f;
+          } else {
+            float yr, yi;
+            closed_bin(ra[u], rb[u], ar, ai, g, yr, yi);
+            br[pad(k)] = yr;
+            bi[pad(k)] = yi;
+          }
+        }
+        if (t == 0) {  // Nyquist times (-1)^(Rs (goff + i))
+          const float sign = ((g.rs & 1) && ((g.goff + i) & 1)) ? -1.f : 1.f;
+          br[pad(M)] = __ldg(row + M) * sign;
+        }
+      } else {
+        const float* row = y + fr * 2 * (M + 1);
+        float ra[kV], rb[kV];
+#pragma unroll
+        for (int u = 0; u < kV; ++u) {
+          ra[u] = __ldg(row + t + T * u);
+          rb[u] = __ldg(row + M + 1 + t + T * u);
+        }
+#pragma unroll
+        for (int u = 0; u < kV; ++u) {
+          const int k = t + T * u;
+          br[pad(k)] = ra[u];
+          bi[pad(k)] = k == 0 ? 0.f : rb[u];
+        }
+        if (t == 0) br[pad(M)] = __ldg(row + M);
+      }
+      if (t == 0) bi[pad(M)] = 0.f;
+    }
+    real_fft::group_sync<T>(slot);
+    float vr[kV], vi[kV];
+#pragma unroll
+    for (int kk = 0; kk < kV / R0; ++kk) {
+#pragma unroll
+      for (int r = 0; r < R0; ++r) {
+        const int n = real_fft::source<P, 0>(t, kk, r);
+        const float yr = br[pad(n)], yi = bi[pad(n)];
+        const float cr = br[pad(M - n)], ci = -bi[pad(M - n)];  // conj Y[M-n]
+        const float sr = yr + cr, si = yi + ci;
+        const float dr = yr - cr, di = yi - ci;
+        const float c = __ldg(twc + n), s = __ldg(tws + n);
+        vr[kk * R0 + r] = sr - (c * di + s * dr);
+        vi[kk * R0 + r] = si + (c * dr - s * di);
+      }
+    }
+    real_fft::fft<P, false>(vr, vi, br, bi, twr, twi, t, slot);
+    if (live) {
+#pragma unroll
+      for (int kk = 0; kk < kV / RL; ++kk) {
+#pragma unroll
+        for (int r = 0; r < RL; ++r) {
+          const int n = real_fft::dest<P, P::S - 1>(t, kk, r);
+          const float2 w = __ldg(win2 + n);
+          out2[fr * M + n] = make_float2(vr[kk * RL + r] * scale * w.x,
+                                         vi[kk * RL + r] * scale * w.y);
+        }
+      }
+    }
+  }
+}
+
 // The step term of general bin b: c (u conj(u_prev) h)^k.
 __device__ __forceinline__ void step_term(float ur, float ui, float pr,
                                           float pi, int b,
@@ -557,9 +685,10 @@ __device__ __forceinline__ bool write_real_bin(const float* spec, float* y,
   return true;
 }
 
-// (b), integer k: Y_i = |X_i| u_0 (u_i conj u_0)^k. The anchor u_0 comes
-// from the row's frame 0 until the recording has started, then from rows
-// 0-1 of the carry (ng = nh-1 general bins per row).
+// (b), integer k, where fft_real.cuh does not serve N: Y_i = |X_i| u_0
+// (u_i conj u_0)^k into the packed rows y. The anchor u_0 comes from the
+// row's frame 0 until the recording has started, then from rows 0-1 of
+// the carry (ng = nh-1 general bins per row).
 __global__ void phase_closed(const float* __restrict__ spec,
                              const float* __restrict__ carry_in,
                              float* __restrict__ y, Geo g) {
@@ -572,21 +701,41 @@ __global__ void phase_closed(const float* __restrict__ spec,
   const int64_t f0 = bat * g.nf;  // the row's frame 0 in the buffers
   if (write_real_bin(spec, y, f0 + i, i, b, g)) return;
   const int64_t row = (f0 + i) * 2 * g.nb;
-  float mag, ur, ui, m0, u0r, u0i;
-  unit_phasor(spec[row + b], spec[row + g.nb + b], mag, ur, ui);
+  float m0, u0r, u0i;
   if (g.started) {
     u0r = carry_in[b - 1];
     u0i = carry_in[g.nh - 1 + b - 1];
   } else {
     const int64_t row0 = f0 * 2 * g.nb;
-    unit_phasor(spec[row0 + b], spec[row0 + g.nb + b], m0, u0r, u0i);
+    unit_phasor_rn(spec[row0 + b], spec[row0 + g.nb + b], m0, u0r, u0i);
   }
-  const float zr = ur * u0r + ui * u0i;
-  const float zi = ui * u0r - ur * u0i;
-  float wr, wi;
-  pow_k(zr, zi, g, wr, wi);
-  y[row + b] = mag * (wr * u0r - wi * u0i);
-  y[row + g.nb + b] = mag * (wr * u0i + wi * u0r);
+  closed_bin(spec[row + b], spec[row + g.nb + b], u0r, u0i, g, y[row + b],
+             y[row + g.nb + b]);
+}
+
+// The anchor table of the closed-form load (integer k): row b of anchor,
+// (batch, 2, ng) = [re | im], is u_0 of batch row b, the unit phasor of its
+// frame 0 until the recording has started, then rows 0-1 of carry_in.
+// A stream segment reads carry_phasor's output instead, which holds the
+// same anchor.
+__global__ void phase_anchor(const float* __restrict__ spec,
+                             const float* __restrict__ carry_in,
+                             float* __restrict__ anchor, Geo g) {
+  const int ng = g.nh - 1;
+  const int bat = blockIdx.y;
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= ng) return;
+  float m, ur, ui;
+  if (g.started) {
+    ur = carry_in[k];
+    ui = carry_in[ng + k];
+  } else {
+    const int64_t row = (int64_t)bat * g.nf * 2 * g.nb;
+    unit_phasor_rn(spec[row + k + 1], spec[row + g.nb + k + 1], m, ur, ui);
+  }
+  float* out = anchor + (int64_t)bat * 2 * ng;
+  out[k] = ur;
+  out[ng + k] = ui;
 }
 
 // (b), q >= 2, pass 1: step terms into y's general bins. The recording's
@@ -783,8 +932,10 @@ __global__ void carry_phasor(const float* __restrict__ spec,
   if (g.q == 1 && g.started) {
     ur = carry_in[k];
     ui = carry_in[ng + k];
-  } else {
-    const int64_t row = (g.q == 1 ? 0 : g.nf - 1) * 2 * g.nb;
+  } else if (g.q == 1) {  // the anchor, as phase_anchor makes it
+    unit_phasor_rn(spec[b], spec[g.nb + b], m, ur, ui);
+  } else {  // as phase_terms makes the previous frame's
+    const int64_t row = (g.nf - 1) * 2 * g.nb;
     unit_phasor(spec[row + b], spec[row + g.nb + b], m, ur, ui);
   }
   carry_out[k] = ur;
@@ -831,52 +982,149 @@ __global__ void phasor_y(const float* __restrict__ mag,
 // batch (g.nfs set) each batch row has nf_total = its own frame count and
 // norm_rows is a stack of such tables, one for each count 1..m-1 (the
 // table of a count >= m-1 is the last).
-__global__ void ola_gather(const float* __restrict__ frames,
-                           const float* __restrict__ norm_rows,
-                           const float* __restrict__ tail_in,
-                           float* __restrict__ out,
-                           float* __restrict__ tail_out, int64_t n_out,
-                           int64_t n_main, Geo g, int m) {
-  const int bat = blockIdx.y;
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= n_out) return;
-  const int64_t r = n / g.rs;
-  const int t = (int)(n % g.rs);
-  const int64_t n_row = row_frames(g, bat);
-  const float* fb = frames + bat * g.nf * g.n_fft;
-  float* ob = out + bat * n_out;
-  int64_t nf_total = g.nf_total;
-  const float* norm = norm_rows;
-  if (g.nfs != nullptr) {
-    nf_total = n_row;
-    const int64_t key = n_row < m - 1 ? (n_row > 1 ? n_row : 1) : m - 1;
-    norm += (key - 1) * (2 * m - 1) * (int64_t)g.rs;
-  }
-  float acc = (tail_in != nullptr && r < m - 1) ? tail_in[n] : 0.f;
-  const int64_t jlo = r - m + 1 > 0 ? r - m + 1 : 0;
-  const int64_t jhi = r < n_row - 1 ? r : n_row - 1;
-  for (int64_t j = jlo; j <= jhi; ++j) {
-    const int off = (int)(r - j) * g.rs + t;
-    if (off < g.n_fft) acc += fb[j * g.n_fft + off];
-  }
-  if (n >= n_main) {
-    tail_out[n - n_main] = acc;
-    return;
-  }
-  const int64_t gr = g.goff + r;
-  int64_t nrow;
-  if (gr >= nf_total) {
-    nrow = m - 1 + (gr - nf_total);
-    if (nrow > 2 * m - 3) {
-      ob[n] = 0.f;
-      return;
-    }
-  } else if (gr < m - 1) {
-    nrow = gr;
+//
+// A group of 2^lg lanes (a warp, or for Rs < 32 W a part of one: the
+// fewest lanes that cover Rs / W, so that no lane idles) owns output row r
+// (Rs samples, r Rs .. r Rs + Rs - 1, the last row of the output cut at
+// n_out) of one batch row, and the groups of a resident grid walk over the
+// rows of every batch row: what depends on the row (which frames cover
+// it, its normalization row, the ragged table, tail or output) is decided
+// once per row and is the same for the whole group. Its lanes walk the
+// row's samples, W at a time (W = 4, a float4, when Rs, N, n_out and
+// n_main are multiples of 4 and every buffer is 16-byte aligned; else 1):
+// sample t of the row takes sample
+// d Rs + t of frame r - d, d = m-1 .. 0 (oldest first), all but the oldest
+// inside the frame since (m-1) Rs < N. Frames and output are read and
+// written in runs of contiguous samples; the lane arithmetic is 32-bit
+// with no division. Each output is the same float sum, in the same order,
+// as one thread a sample made it (tail_in, then the frames oldest first,
+// then times the inverse energy), so the result does not depend on W.
+// W consecutive floats: a float4 (16-byte aligned) or one float.
+template <int W>
+__device__ __forceinline__ void load_w(const float* __restrict__ p, float (&a)[W]) {
+  if constexpr (W == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    a[0] = q.x;
+    a[1] = q.y;
+    a[2] = q.z;
+    a[3] = q.w;
   } else {
-    nrow = 2 * m - 2;
+    a[0] = __ldg(p);
   }
-  ob[n] = acc * norm[nrow * g.rs + t];
+}
+template <int W>
+__device__ __forceinline__ void store_w(float* p, const float (&a)[W]) {
+  if constexpr (W == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+  } else {
+    p[0] = a[0];
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+ola_rows(const float* __restrict__ frames, const float* __restrict__ norm_rows,
+         const float* __restrict__ tail_in, float* __restrict__ out,
+         float* __restrict__ tail_out, int64_t n_out, int64_t n_main, Geo g,
+         int m, int lg) {
+  const int lanes = 1 << lg;  // a row's lanes, a power of two <= 32
+  const int lane = threadIdx.x & (lanes - 1);
+  const int per_block = kThreads >> lg;  // rows a block holds at once
+  const int rs = g.rs, n_fft = g.n_fft;
+  const int64_t rows = (n_out + rs - 1) / rs;  // rows per batch row
+  const int64_t total = rows * g.batch;
+  for (int64_t w = (int64_t)blockIdx.x * per_block + (threadIdx.x >> lg); w < total;
+       w += (int64_t)gridDim.x * per_block) {
+    const int bat = (int)(w / rows);
+    const int64_t r = w - bat * rows;
+    const int64_t n_row = row_frames(g, bat);
+    const int64_t n0 = r * rs;  // the row's first sample
+    const int len = (int)(n_out - n0 < rs ? n_out - n0 : rs);
+    // Frames r - d for d in [d_lo, d_hi] cover the row.
+    const int d_hi = (int)(r < m - 1 ? r : m - 1);
+    const int d_lo = (int)(r - (n_row - 1) > 0 ? r - (n_row - 1) : 0);
+    // Frame r - d at sample d Rs: frame r's start, d (N - Rs) back.
+    const float* fr = frames + ((int64_t)bat * g.nf + r) * n_fft;
+    const float* tin = tail_in != nullptr && r < m - 1 ? tail_in + n0 : nullptr;
+    float* dst;
+    const float* nrm = nullptr;  // null: un-normalized, into tail_out
+    bool zero = false;
+    if (n0 >= n_main) {
+      dst = tail_out + (n0 - n_main);
+    } else {
+      dst = out + bat * n_out + n0;
+      int64_t nf_total = g.nf_total;
+      const float* norm = norm_rows;
+      if (g.nfs != nullptr) {
+        nf_total = n_row;
+        const int64_t key = n_row < m - 1 ? (n_row > 1 ? n_row : 1) : m - 1;
+        norm += (key - 1) * (2 * m - 1) * (int64_t)rs;
+      }
+      const int64_t gr = g.goff + r;
+      int64_t nrow;
+      if (gr >= nf_total) {
+        nrow = m - 1 + (gr - nf_total);
+        zero = nrow > 2 * m - 3;
+      } else if (gr < m - 1) {
+        nrow = gr;
+      } else {
+        nrow = 2 * m - 2;
+      }
+      nrm = norm + nrow * rs;
+    }
+    for (int t = lane * W; t < len; t += lanes * W) {
+      float acc[W], v[W];
+#pragma unroll
+      for (int e = 0; e < W; ++e) acc[e] = 0.f;
+      if (!zero) {
+        if (tin != nullptr) load_w<W>(tin + t, acc);
+#pragma unroll 4
+        for (int d = d_hi; d >= d_lo; --d) {
+          const int off = d * rs + t;
+          if (d == m - 1 && off >= n_fft) continue;  // past the oldest frame's end
+          load_w<W>(fr - (int64_t)d * n_fft + off, v);
+#pragma unroll
+          for (int e = 0; e < W; ++e) acc[e] += v[e];
+        }
+        if (nrm != nullptr) {
+          load_w<W>(nrm + t, v);
+#pragma unroll
+          for (int e = 0; e < W; ++e) acc[e] = acc[e] * v[e];
+        }
+      }
+      store_w<W>(dst + t, acc);
+    }
+  }
+}
+
+// The gather of n_out samples per batch row, in float4 runs where the
+// geometry and the buffers' alignment allow.
+cudaError_t launch_ola(const float* frames, const float* norm_rows,
+                       const float* tail_in, float* out, float* tail_out,
+                       int64_t n_out, int64_t n_main, const Geo& g, int m,
+                       cudaStream_t stream) {
+  auto a16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const bool vec = g.rs % 4 == 0 && g.n_fft % 4 == 0 && n_out % 4 == 0 && n_main % 4 == 0 &&
+                   a16(frames) && a16(norm_rows) && a16(tail_in) && a16(out) && a16(tail_out);
+  const int w = vec ? 4 : 1;
+  int lg = 0;  // lanes a row: the least power of two >= Rs / W, at most 32
+  while (lg < 5 && (w << lg) < g.rs) ++lg;
+  const int64_t rows = (n_out + g.rs - 1) / g.rs * g.batch;
+  const int64_t per_block = kThreads >> lg;
+  const int64_t blocks = (rows + per_block - 1) / per_block;
+  if (blocks == 0) return cudaSuccess;
+  unsigned grid = 0;
+  cudaError_t err = vec ? real_fft::grid_for(ola_rows<4>, 0, blocks, &grid)
+                        : real_fft::grid_for(ola_rows<1>, 0, blocks, &grid);
+  if (err != cudaSuccess) return err;
+  if (vec) {
+    ola_rows<4><<<grid, kThreads, 0, stream>>>(frames, norm_rows, tail_in, out, tail_out,
+                                               n_out, n_main, g, m, lg);
+  } else {
+    ola_rows<1><<<grid, kThreads, 0, stream>>>(frames, norm_rows, tail_in, out, tail_out,
+                                               n_out, n_main, g, m, lg);
+  }
+  return cudaGetLastError();
 }
 
 template <int LOG2N>
@@ -933,34 +1181,41 @@ cudaError_t launch_analysis(const float* x, const float* fft,
   return cudaGetLastError();
 }
 
-template <int LOG2N, bool PLANES>
-cudaError_t launch_synth_real(const float* y, const float* mag,
-                              const float* pre, const float* pim,
-                              const float* mask, const float* fft,
-                              float* frames, const Geo& g,
-                              cudaStream_t stream) {
+// synth_real's inputs: y and u0 (kRows: y; kClosed: y the spectrum rows,
+// u0 the anchor table), or the planes mag, pre, pim and mask (kPlanes).
+struct SynthIn {
+  const float* y;
+  const float* u0;
+  const float* mag;
+  const float* pre;
+  const float* pim;
+  const float* mask;
+};
+
+template <int LOG2N, int SRC>
+cudaError_t launch_synth_real(const SynthIn& in, const float* fft, float* frames,
+                              const Geo& g, cudaStream_t stream) {
   using P = real_fft::Plan<LOG2N>;
   const size_t smem = sizeof(float) * (2 * P::M + P::F * 2 * P::FS);
   unsigned grid = 0;
   const cudaError_t err = real_fft::grid_for(
-      synth_real<LOG2N, PLANES>, smem, (g.nf + P::F - 1) / P::F * g.batch, &grid);
+      synth_real<LOG2N, SRC>, smem, (g.nf + P::F - 1) / P::F * g.batch, &grid);
   if (err != cudaSuccess) return err;
-  synth_real<LOG2N, PLANES><<<grid, real_fft::kThreads, smem, stream>>>(
-      y, mag, pre, pim, mask, fft, fft + P::N, fft + P::N + P::M, frames, g);
+  synth_real<LOG2N, SRC><<<grid, real_fft::kThreads, smem, stream>>>(
+      in.y, in.u0, in.mag, in.pre, in.pim, in.mask, fft, fft + P::N, fft + P::N + P::M,
+      frames, g);
   return cudaGetLastError();
 }
 
-template <bool PLANES>
-cudaError_t synthesis_real(int log2n, const float* y, const float* mag,
-                           const float* pre, const float* pim,
-                           const float* mask, const float* fft, float* frames,
+template <int SRC>
+cudaError_t synthesis_real(int log2n, const SynthIn& in, const float* fft, float* frames,
                            const Geo& g, cudaStream_t stream) {
   switch (log2n) {
-    case 8: return launch_synth_real<8, PLANES>(y, mag, pre, pim, mask, fft, frames, g, stream);
-    case 9: return launch_synth_real<9, PLANES>(y, mag, pre, pim, mask, fft, frames, g, stream);
-    case 10: return launch_synth_real<10, PLANES>(y, mag, pre, pim, mask, fft, frames, g, stream);
-    case 11: return launch_synth_real<11, PLANES>(y, mag, pre, pim, mask, fft, frames, g, stream);
-    default: return launch_synth_real<12, PLANES>(y, mag, pre, pim, mask, fft, frames, g, stream);
+    case 8: return launch_synth_real<8, SRC>(in, fft, frames, g, stream);
+    case 9: return launch_synth_real<9, SRC>(in, fft, frames, g, stream);
+    case 10: return launch_synth_real<10, SRC>(in, fft, frames, g, stream);
+    case 11: return launch_synth_real<11, SRC>(in, fft, frames, g, stream);
+    default: return launch_synth_real<12, SRC>(in, fft, frames, g, stream);
   }
 }
 
@@ -970,7 +1225,8 @@ cudaError_t synthesis_real(int log2n, const float* y, const float* mag,
 cudaError_t launch_synthesis(const float* y, const float* fft, float* frames,
                              const Geo& g, cudaStream_t stream) {
   if (const int l = real_fft::real_log2(g.n_fft)) {
-    return synthesis_real<false>(l, y, nullptr, nullptr, nullptr, nullptr, fft, frames, g, stream);
+    return synthesis_real<kRows>(l, {y, nullptr, nullptr, nullptr, nullptr, nullptr}, fft,
+                                 frames, g, stream);
   }
   const dim3 grid((unsigned)g.nf, (unsigned)g.batch);
   const float* twc = fft + g.n_fft;
@@ -1034,13 +1290,21 @@ cudaError_t run_scan(float* y, float* tot, float* carry,
   return cudaGetLastError();
 }
 
+// True where the integer-k phase runs in synth_real's load (kClosed):
+// q = 1 and fft_real.cuh serves N. Then no packed Y is made (y may be
+// null) and the anchor table is carry_out's rows 0-1 in a stream segment,
+// else `anchor` (batch, 2, ng), made by phase_anchor.
+bool closed_in_synth(const Geo& g) {
+  return g.q == 1 && real_fft::real_log2(g.n_fft) != 0;
+}
+
 // The TSM passes over g.nf frames of each batch row of x (any of them may
 // be 0), then the gather of n_out samples per row. carry_in/carry_out/
 // tail_in/tail_out are null for whole recordings. With fft_half (the table
 // of the N/2-point transform) the analysis is the fold pass.
 cudaError_t run_tsm(const float* x, float* out, float* tail_out,
-                    float* carry_out, float* spec, float* y, float* frames,
-                    float* tot, float* carry, const float* fft,
+                    float* carry_out, float* spec, float* y, float* anchor,
+                    float* frames, float* tot, float* carry, const float* fft,
                     const float* fft_half, const float* consts,
                     const float* norm_rows,
                     const float* carry_in, const float* tail_in,
@@ -1057,32 +1321,45 @@ cudaError_t run_tsm(const float* x, float* out, float* tail_out,
           spec, carry_in, carry_out, g);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
-    if (g.q == 1) {
-      phase_closed<<<grid_for(g.nf * g.nb, g), kThreads, 0, stream>>>(
-          spec, carry_in, y, g);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if (closed_in_synth(g)) {
+      const float* u0 = carry_out;
+      if (u0 == nullptr) {
+        if (anchor == nullptr) return cudaErrorInvalidValue;
+        phase_anchor<<<grid_for(ng, g), kThreads, 0, stream>>>(spec, carry_in, anchor, g);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+        u0 = anchor;
+      }
+      err = synthesis_real<kClosed>(real_fft::real_log2(g.n_fft),
+                                    {spec, u0, nullptr, nullptr, nullptr, nullptr}, fft,
+                                    frames, g, stream);
+      if (err != cudaSuccess) return err;
     } else {
-      const Lanes L = {2 * g.nb, g.nb, 1, ng};
-      phase_terms<<<grid_for(g.nf * ng, g), kThreads, 0, stream>>>(
-          spec, consts, carry_in, y, g);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
-      if ((err = run_scan(y, tot, carry, carry_in, carry_out, g, L,
-                          stream)) != cudaSuccess)
-        return err;
-      phase_apply<<<grid_for(g.nf * g.nb, g), kThreads, 0, stream>>>(
-          spec, carry, y, g, L);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      if (y == nullptr) return cudaErrorInvalidValue;
+      if (g.q == 1) {
+        phase_closed<<<grid_for(g.nf * g.nb, g), kThreads, 0, stream>>>(
+            spec, carry_in, y, g);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      } else {
+        const Lanes L = {2 * g.nb, g.nb, 1, ng};
+        phase_terms<<<grid_for(g.nf * ng, g), kThreads, 0, stream>>>(
+            spec, consts, carry_in, y, g);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+        if ((err = run_scan(y, tot, carry, carry_in, carry_out, g, L,
+                            stream)) != cudaSuccess)
+          return err;
+        phase_apply<<<grid_for(g.nf * g.nb, g), kThreads, 0, stream>>>(
+            spec, carry, y, g, L);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      }
+      if ((err = launch_synthesis(y, fft, frames, g, stream)) != cudaSuccess) return err;
     }
-    if ((err = launch_synthesis(y, fft, frames, g, stream)) != cudaSuccess) return err;
   } else if (carry_out != nullptr) {  // a segment past the last frame
     err = cudaMemcpyAsync(carry_out, carry_in, 4 * ng * sizeof(float),
                           cudaMemcpyDeviceToDevice, stream);
     if (err != cudaSuccess) return err;
   }
 
-  ola_gather<<<grid_for(n_out, g), kThreads, 0, stream>>>(
-      frames, norm_rows, tail_in, out, tail_out, n_out, n_main, g, m);
-  return cudaGetLastError();
+  return launch_ola(frames, norm_rows, tail_in, out, tail_out, n_out, n_main, g, m, stream);
 }
 
 }  // namespace
@@ -1093,20 +1370,23 @@ extern "C" const char* pvoc_cuda_error_string(int err) {
 
 // Buffers (all float32, allocated by the caller):
 //   x (>= (nf-1)*ra + n_fft), out ((nf-1)*rs + n_fft),
-//   spec and y (nf, 2*(n_fft/2+1)), frames (nf, n_fft),
+//   spec (nf, 2*(n_fft/2+1)), frames (nf, n_fft);
+//   y (nf, 2*(n_fft/2+1)), the packed Y, except where the phase runs in
+//   synth_real's load (q == 1 and fft_real.cuh serves n_fft: null there);
+//   anchor (2, n_fft/2-1), the anchor table, there only (else null);
 //   tot and carry (ceil(nf/chunk), n_fft/2-1, 2), unused when q == 1;
 // tables: fft (2*n_fft) = [Hann window (n_fft) | cos (n_fft/2) |
 //   sin (n_fft/2)], consts (4, n_fft/2) = hre, him, cre, cim,
 //   norm_rows (2m-1, rs).
 extern "C" int pvoc_fused(const float* x, float* out, float* spec, float* y,
-                          float* frames, float* tot, float* carry,
+                          float* anchor, float* frames, float* tot, float* carry,
                           const float* fft, const float* consts,
                           const float* norm_rows, long long nf, int n_fft,
                           int ra, int rs, int p, int q, int alg, int chunk,
                           float kf, cudaStream_t stream) {
   const Geo g = make_geo(nf, n_fft, ra, rs, p, q, alg, chunk, kf);
   const int64_t out_len = (nf - 1) * (int64_t)rs + n_fft;
-  return run_tsm(x, out, nullptr, nullptr, spec, y, frames, tot, carry, fft,
+  return run_tsm(x, out, nullptr, nullptr, spec, y, anchor, frames, tot, carry, fft,
                  nullptr, consts, norm_rows, nullptr, nullptr, out_len,
                  out_len, g, stream);
 }
@@ -1118,7 +1398,7 @@ extern "C" int pvoc_fused(const float* x, float* out, float* spec, float* y,
 // is this fold already (analysis_real), so the output is pvoc_fused's bit
 // for bit and fft_half goes unread.
 extern "C" int pvoc_fused_zrev(const float* x, float* out, float* spec,
-                               float* y, float* frames, float* tot,
+                               float* y, float* anchor, float* frames, float* tot,
                                float* carry, const float* fft,
                                const float* fft_half, const float* consts,
                                const float* norm_rows, long long nf,
@@ -1128,7 +1408,7 @@ extern "C" int pvoc_fused_zrev(const float* x, float* out, float* spec,
   if (n_fft % 4 != 0 || fft_half == nullptr) return cudaErrorInvalidValue;
   const Geo g = make_geo(nf, n_fft, ra, rs, p, q, alg, chunk, kf);
   const int64_t out_len = (nf - 1) * (int64_t)rs + n_fft;
-  return run_tsm(x, out, nullptr, nullptr, spec, y, frames, tot, carry, fft,
+  return run_tsm(x, out, nullptr, nullptr, spec, y, anchor, frames, tot, carry, fft,
                  fft_half, consts, norm_rows, nullptr, nullptr, out_len,
                  out_len, g, stream);
 }
@@ -1136,12 +1416,12 @@ extern "C" int pvoc_fused_zrev(const float* x, float* out, float* spec,
 // The TSM of every row of a (batch, x_stride) signal, row b's first
 // nfs[b] frames (0 <= nfs[b] <= nf). out (batch, (nf+m-1)*rs): row b's
 // output, normalized at its own frame count, then zeros. Scratch as for
-// pvoc_fused with batch*nf frames, tot and carry
-// (batch*ceil(nf/chunk), n_fft/2-1, 2); norm_stack (m-1, 2m-1, rs) holds
+// pvoc_fused with batch*nf frames (anchor (batch, 2, n_fft/2-1)), tot
+// and carry (batch*ceil(nf/chunk), n_fft/2-1, 2); norm_stack (m-1, 2m-1, rs) holds
 // the normalization rows of the frame counts 1..m-1 (m = ceil(n_fft/rs)).
 extern "C" int pvoc_fused_batch(
     const float* x, const int* nfs, float* out, float* spec, float* y,
-    float* frames, float* tot, float* carry, const float* fft,
+    float* anchor, float* frames, float* tot, float* carry, const float* fft,
     const float* consts, const float* norm_stack, int batch,
     long long x_stride, long long nf, int n_fft, int ra, int rs, int p,
     int q, int alg, int chunk, float kf, cudaStream_t stream) {
@@ -1151,7 +1431,7 @@ extern "C" int pvoc_fused_batch(
   g.nfs = nfs;
   const int m = (n_fft + rs - 1) / rs;
   const int64_t out_len = (nf + m - 1) * (int64_t)rs;
-  return run_tsm(x, out, nullptr, nullptr, spec, y, frames, tot, carry, fft,
+  return run_tsm(x, out, nullptr, nullptr, spec, y, anchor, frames, tot, carry, fft,
                  nullptr, consts, norm_stack, nullptr, nullptr, out_len,
                  out_len, g, stream);
 }
@@ -1166,11 +1446,12 @@ extern "C" int pvoc_fused_batch(
 //   tail_in/tail_out (m-1, rs): un-normalized partial sums of the first
 //     m-1 output rows of this / the next segment;
 //   spec, y, frames, tot, carry: scratch for F frames, as for pvoc_fused;
+//     anchor may be null (the closed-form load reads carry_out's anchor);
 //   started: 0 for the recording's first segment.
 // Needs F a multiple of chunk and F >= m-1.
 extern "C" int pvoc_fused_segment(
     const float* x_seg, float* out, float* tail_out, float* carry_out,
-    float* spec, float* y, float* frames, float* tot, float* carry,
+    float* spec, float* y, float* anchor, float* frames, float* tot, float* carry,
     const float* fft, const float* consts, const float* norm_rows,
     const float* carry_in, const float* tail_in, long long n_valid,
     long long seg_frames, long long goff, long long nf_total, int started,
@@ -1182,7 +1463,7 @@ extern "C" int pvoc_fused_segment(
   g.started = started;
   const int m = (n_fft + rs - 1) / rs;
   const int64_t n_main = seg_frames * (int64_t)rs;
-  return run_tsm(x_seg, out, tail_out, carry_out, spec, y, frames, tot,
+  return run_tsm(x_seg, out, tail_out, carry_out, spec, y, anchor, frames, tot,
                  carry, fft, nullptr, consts, norm_rows, carry_in, tail_in,
                  n_main + (int64_t)(m - 1) * rs, n_main, g, stream);
 }
@@ -1236,7 +1517,8 @@ extern "C" int pvoc_phasor_synth(const float* mag, const float* pre,
   const int64_t out_len = (nf - 1) * (int64_t)rs + n_fft;
   cudaError_t err;
   if (const int l = real_fft::real_log2(n_fft)) {
-    err = synthesis_real<true>(l, nullptr, mag, pre, pim, mask, fft, frames, g, stream);
+    err = synthesis_real<kPlanes>(l, {nullptr, nullptr, mag, pre, pim, mask}, fft, frames, g,
+                                  stream);
   } else if (y == nullptr) {
     err = cudaErrorInvalidValue;
   } else {
@@ -1246,7 +1528,5 @@ extern "C" int pvoc_phasor_synth(const float* mag, const float* pre,
     err = launch_synthesis(y, fft, frames, g, stream);
   }
   if (err != cudaSuccess) return err;
-  ola_gather<<<grid_for(out_len, g), kThreads, 0, stream>>>(
-      frames, norm_rows, nullptr, out, nullptr, out_len, out_len, g, m);
-  return cudaGetLastError();
+  return launch_ola(frames, norm_rows, nullptr, out, nullptr, out_len, out_len, g, m, stream);
 }

@@ -38,23 +38,23 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     # name: argtypes (every pointer and the stream as c_void_p)
     "pvoc_fused": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # buffers and tables
+        *[_P] * 11,  # buffers and tables
         _LL, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,  # geometry
         _P,  # stream
     ],
     "pvoc_fused_zrev": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # ... and the half table
+        *[_P] * 12,  # ... and the half table
         _LL, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
         _P,
     ],
     "pvoc_fused_segment": [
-        *[_P] * 14,  # signal, outputs, state, scratch and tables
+        *[_P] * 15,  # signal, outputs, state, scratch and tables
         _LL, _LL, _LL, _LL,  # n_valid, seg_frames, goff, nf_total
         _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,  # started, geometry
         _P,  # stream
     ],
     "pvoc_fused_batch": [
-        *[_P] * 11,  # x, frame counts, out, scratch and tables
+        *[_P] * 12,  # x, frame counts, out, scratch and tables
         _I, _LL, _LL,  # batch, x row stride, frames per row
         _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,  # geometry
         _P,  # stream

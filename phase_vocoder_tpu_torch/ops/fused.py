@@ -43,9 +43,12 @@ frame, several frames a block): the analysis in analysis_real (a group of
 frames read as one span, the packed real frame transformed and split;
 the fold pass of zrev=True is this same kernel there), the synthesis in
 synth_real, which phasor_istft_ola(_batch) feed straight from the
-magnitude and phasor planes. For any other even n_fft, a block a frame
-on csrc/fft_common.cuh's FFT: fft_analysis (fft_analysis_fold for
-zrev=True) and fft_synthesis, after a pass that packs Y.
+magnitude and phasor planes, and which at integer k forms the closed form
+itself from the spectra and a per-row anchor table (closed_in_synth: no
+phase pass, no packed Y). For any other even n_fft, a block a frame on
+csrc/fft_common.cuh's FFT: fft_analysis (fft_analysis_fold for zrev=True)
+and fft_synthesis, after a pass that packs Y. The overlap-add of every
+entry is one gather (ola_rows) that gives each output row to a warp.
 
 The plain helpers of the chunked bodies (phasor_scan,
 phasor_prefix_exclusive, boundary_step_term) sit beside them.
@@ -90,6 +93,7 @@ __all__ = [
     "fused_stream_segment",
     "fused_stream_segment_reference",
     "stream_norm_tables",
+    "anchor_table_reference",
     "stft_phasor_terms",
     "stft_phasor_terms_reference",
     "stft_phasor_terms_batch",
@@ -299,15 +303,30 @@ def _int_pow(zre, zim, k: int):
     return rre, rim
 
 
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root, as the kernels' sqrtf (IEEE, no
+    fast math) gives it. On the CPU, numpy's (the processor's square root
+    instruction): torch.sqrt of a CPU tensor goes through the math
+    library's vector routine, which is not correctly rounded (about 0.7%
+    of float32 results one ulp off, torch 2.13) and, now and then under
+    load, returns a few results far less accurate (a float64 call once
+    gave 2 of 32,832 values 2.4e-10 off, right again when recomputed). In
+    the phasor algebra such a value can flip a branch choice of q >= 2 in
+    a quiet bin. On a card, torch.sqrt is the IEEE square root."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
+
+
 def _principal_sqrt(zre, zim):
     """Principal square root (Re >= 0) of unit-modulus z, elementwise.
 
     Branches on sign(zre) so neither square root suffers cancellation; at
     zre = -1 the zim >= 0 branch picks +i (princarg(pi) = pi -> pi/2).
     """
-    re_pos = torch.sqrt(torch.clamp_min(0.5 * (1.0 + zre), 0.25))
+    re_pos = _sqrt_rn(torch.clamp_min(0.5 * (1.0 + zre), 0.25))
     im_pos = zim / (2.0 * re_pos)
-    t_neg = torch.sqrt(torch.clamp_min(0.5 * (1.0 - zre), 0.25))
+    t_neg = _sqrt_rn(torch.clamp_min(0.5 * (1.0 - zre), 0.25))
     im_neg = torch.where(zim >= 0, t_neg, -t_neg)
     re_neg = torch.abs(zim) / (2.0 * t_neg)
     pos = zre >= 0
@@ -359,7 +378,7 @@ def _angle_pow(zre, zim, k: float):
 def _unit(re, im):
     """(|X|, u_re, u_im) with u = 1 where |X|^2 <= 1e-30."""
     n2 = re * re + im * im
-    mag = torch.sqrt(n2)
+    mag = _sqrt_rn(n2)
     safe = n2 > _TINY
     return mag, torch.where(safe, re / mag, 1.0), torch.where(safe, im / mag, 0.0)
 
@@ -369,7 +388,7 @@ def _cmul(ar, ai, br, bi):
 
 
 def _normalize(re, im):
-    r = torch.sqrt(torch.clamp_min(re * re + im * im, _TINY))
+    r = _sqrt_rn(torch.clamp_min(re * re + im * im, _TINY))
     return re / r, im / r
 
 
@@ -456,6 +475,25 @@ def _rfft_fold(g: torch.Tensor) -> torch.Tensor:
     return 0.5 * (zk + zm) + w * (-0.5j * (zk - zm))
 
 
+def anchor_table_reference(
+    re0: torch.Tensor, im0: torch.Tensor, carry: torch.Tensor | None = None,
+    started: bool = False,
+) -> torch.Tensor:
+    """The anchor table of the integer-k closed form, (..., 2, n_fft/2-1) =
+    [re | im] of u_0 over the general bins 1..n_fft/2-1: the unit phasor
+    (u = 1 where |X|^2 <= 1e-30) of the recording's frame 0, whose bins
+    0..n_fft/2 are re0, im0 (..., n_fft/2+1), until the recording has
+    started; after that, rows 0-1 of a stream's carry (4, n_fft/2-1). The
+    plain version of csrc/pvoc_fused.cu's phase_anchor (one table per batch
+    row) and of the integer-k rows 0-1 that carry_phasor leaves in a
+    segment's carry, which synth_real's closed-form load reads."""
+    if started:
+        return carry[:2]
+    nh = re0.shape[-1] - 1
+    _, ure, uim = _unit(re0[..., 1:nh], im0[..., 1:nh])
+    return torch.stack([ure, uim], dim=-2)
+
+
 def _tsm_frames_reference(
     x: torch.Tensor, goff: int, n_valid: int, n_fft: int, hop: int, rs: int,
     carry: torch.Tensor, started: bool, x_frame0: int = 0, fold: bool = False,
@@ -474,10 +512,8 @@ def _tsm_frames_reference(
     mag, ure, uim = _unit(re[:, 1:nh], im[:, 1:nh])  # general bins
     p, q = _rational_k(rs, hop)
     if q == 1:
-        if started:
-            u0re, u0im = carry[0:1], carry[1:2]
-        else:
-            u0re, u0im = ure[0:1], uim[0:1]
+        anchor = anchor_table_reference(re[0], im[0], carry, started)
+        u0re, u0im = anchor[0:1], anchor[1:2]
         zre = ure * u0re + uim * u0im
         zim = uim * u0re - ure * u0im
         wre, wim = _pow_k(zre, zim, rs, hop)
@@ -644,14 +680,29 @@ def _check_cuda(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} needs a contiguous tensor")
 
 
-def _workspace(frames: int, n_fft: int, q: int, device, batch: int = 1) -> dict:
+def closed_in_synth(n_fft: int, q: int) -> bool:
+    """True where the kernels run the integer-k phase in the synthesis's
+    load (csrc/pvoc_fused.cu closed_in_synth): q = 1 and real_body(n_fft).
+    There synth_real forms Y = |X| u_0 (u conj u_0)^k from the spectra and
+    an anchor table as it loads them, so the TSM entries need no packed-Y
+    scratch; everywhere else phase_closed or the q >= 2 passes write Y."""
+    return q == 1 and real_body(n_fft)
+
+
+def _workspace(frames: int, n_fft: int, q: int, device, batch: int = 1,
+               segment: bool = False) -> dict:
     """Scratch of the TSM passes for `batch` rows of `frames` frames:
-    spectra, Y, windowed frames, and the chunk totals and carries of the
-    q >= 2 scan."""
+    spectra, windowed frames, and either the packed Y or, where
+    closed_in_synth, the (batch, 2, n_fft/2-1) anchor table (none for a
+    stream segment, whose carry holds its anchor); and the chunk totals and
+    carries of the q >= 2 scan."""
     f32 = dict(dtype=torch.float32, device=device)
+    closed = closed_in_synth(n_fft, q)
     work = {
         "spec": torch.empty((batch * frames, n_fft + 2), **f32),
-        "y": torch.empty((batch * frames, n_fft + 2), **f32),
+        "y": None if closed else torch.empty((batch * frames, n_fft + 2), **f32),
+        "anchor": (torch.empty((batch, 2, n_fft // 2 - 1), **f32)
+                   if closed and not segment else None),
         "frames": torch.empty((batch * frames, n_fft), **f32),
         "tot": None,
         "carry": None,
@@ -666,7 +717,7 @@ def _workspace(frames: int, n_fft: int, q: int, device, batch: int = 1) -> dict:
 def _ptrs(work: dict) -> list:
     return [
         None if work[k] is None else work[k].data_ptr()
-        for k in ("spec", "y", "frames", "tot", "carry")
+        for k in ("spec", "y", "anchor", "frames", "tot", "carry")
     ]
 
 
@@ -794,7 +845,7 @@ fused_stream_segment.launches = 0
 def segment_workspace(seg_frames: int, n_fft: int, hop: int, rs: int, device) -> dict:
     """Scratch of pvoc_fused_segment for F-frame segments, allocated once
     per stream call and reused by every segment."""
-    return _workspace(seg_frames, n_fft, _rational_k(rs, hop)[1], device)
+    return _workspace(seg_frames, n_fft, _rational_k(rs, hop)[1], device, segment=True)
 
 
 # ------------------------------------------------------------ phasor terms
