@@ -29,7 +29,10 @@ each; any failure raises and the script exits non-zero:
          and 4096 the stream and a checkpointed stream killed and resumed
          bitwise equal to the monolithic kernel;
      2d. pvoc_terms (stft_phasor_terms: |X| and P, scan on and off) at
-         Rs = 640/768/767, and istft_frames / istft_frames_cart with a
+         Rs = 640/768/767, at the chunk edges (1, 63, 64, 65, 129 frames;
+         Rs = 768 and 640, unit phasors) and over a batch of 3 rows at
+         N = 256 and 4096 (rows bitwise the single kernel's), and
+         istft_frames / istft_frames_cart with a
          frame mask whose last 100 frames are 0, also at each of those
          five N, with rows r0..r1 alone bitwise equal to the whole call's;
   3. the golden gate through the public API (60 s input):
@@ -49,7 +52,9 @@ each; any failure raises and the script exits non-zero:
          phase in its load, ola_rows); the kernels pvoc_fused launches at
          integer k at N = 256-4096 (no phase_closed) and 768 (phase_closed);
          resample_lerp, the three select variants and F.interpolate at the
-         -7 st shape as medians of 101 calls each;
+         -7 st shape as medians of 101 calls each and as device time (one
+         torch.profiler trace of 101 calls each, by kernel name); pvoc_fused
+         at -7 st (q >= 2) by pass from one trace;
      4c. the branch-faithful route through branch_policy="auto" on 660 s
          (41,247 frames, past the 37,500-frame reroute): time_stretch 0.5x
          and pitch_shift -7 st on the chirp+tone+noise signal, timed, with
@@ -124,7 +129,8 @@ each; any failure raises and the script exits non-zero:
 The line before the last holds the per-kernel JSON record: each kernel's
 launches on its main path, its agreement with its plain version, its time
 (for resample_lerp and the three select variants, and for F.interpolate as
-their library call, the median of 101 calls of phase 4b),
+their library call, the device time of phase 4b: the mean of 101 calls in
+one torch.profiler trace),
 the plain version's, one PyTorch call's computing the same function where
 there is one (null otherwise), and its bound: the larger of the bytes it
 must move over 3.35 TB/s and the FP32 operations its FFTs need (2.5 N
@@ -160,13 +166,20 @@ Rs = N/8) beside torch.istft; then the stft.cu kernels at the main
 paths' shapes as a control; and hashing outputs that must not move: the
 stft.cu outputs at N = 1024, the sizes that keep the
 one-block-a-frame analysis and fft_synthesis (stft/istft and
-phasor_istft_ola at N = 768; pvoc_fused at N = 128 with q >= 2), and
-phasor_istft_ola(_batch) on seeded random planes; the phasor terms
-(3.0x / 3600 s scanned, 60 s with unit phasors) and every integer-k
-output (pvoc_fused, zrev, one stream segment and a ragged batch at N =
-256, 1024 and 4096; pvoc_fused at N = 768 and 128), whose closed form is
-rounded as written since the phase moved into the synthesis, are hashed
-as outputs that may move. Prints one JSON line per process and a
+phasor_istft_ola at N = 768; pvoc_fused at N = 128 with q >= 2),
+phasor_istft_ola(_batch) on seeded random planes, the phasor terms
+(3.0x / 3600 s scanned, 60 s with unit phasors), q >= 2 at N = 1024 and
+Rs = 171 (pvoc_fused, zrev, one stream segment, a ragged batch: the carry
+scan of every q >= 2 caller) and select_lerp with and without chunk bases
+on seeded tables at strides 0, 1 and 2; every integer-k output
+(pvoc_fused, zrev, one stream segment and a ragged batch at N = 256, 1024
+and 4096; pvoc_fused at N = 768 and 128), whose closed form is rounded as
+written since the phase moved into the synthesis, is hashed as an output
+that may move. Also times pvoc_fused and zrev at Rs = 171 on 300 s,
+pitch_shift -7 st on 300 s, and select_lerp in both modes beside
+F.interpolate (per-call means and profiler device times), and records
+pvoc_terms' and the q >= 2 pvoc_fused's passes by name. Prints one JSON
+line per process and a
 summary (speed-ups, hashes, whether this checkout's phasor_istft_ola(_batch)
 are ahead of torch.istft); fails if a must-not-move hash differs or a
 may-move one differs between this checkout's two runs.
@@ -265,14 +278,16 @@ def _time_calls(fn, reps: int) -> list[float]:
     return times
 
 
-def _profile_call(fn) -> dict:
-    """One call of fn() under torch.profiler, after one traced but discarded
-    (a first traced call lost its first kernels once the process had
-    profiled before): its device kernels, their summed time, the span from
-    the first kernel's start to the last one's end (one stream, so the
-    kernels do not overlap), and the time of each kernel by name (the
-    port's kernels launch through the CUDA runtime that torch loaded, so
-    the profiler sees them beside torch's)."""
+def _profile_call(fn, reps: int = 1) -> dict:
+    """`reps` calls of fn() under torch.profiler, after as many traced but
+    discarded (a first traced call lost its first kernels once the process
+    had profiled before): the device kernels of one call, their summed
+    time, the span from the first kernel's start to the last one's end (one
+    stream, so the kernels do not overlap), and the time of each kernel by
+    name (the port's kernels launch through the CUDA runtime that torch
+    loaded, so the profiler sees them beside torch's); with reps > 1 each
+    is the mean over the calls, and the span covers them all, host gaps
+    between the calls included."""
     import re
 
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -281,7 +296,8 @@ def _profile_call(fn) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         for _ in range(2):
-            fn()
+            for _ in range(reps):
+                fn()
             torch.cuda.synchronize()
             prof.step()
     kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
@@ -292,8 +308,8 @@ def _profile_call(fn) -> dict:
     by_kernel = {}
     for e in kern:
         name = re.sub(r"\(.*", "", e.name.replace("(anonymous namespace)::", "")).replace("void ", "")
-        by_kernel[name] = by_kernel.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
-    return {"kernels": len(kern), "device_busy_ms": busy, "device_span_ms": span,
+        by_kernel[name] = by_kernel.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return {"kernels": len(kern) / reps, "device_busy_ms": busy / reps, "device_span_ms": span,
             "idle_share": 1.0 - busy / span, "by_kernel_ms": by_kernel}
 
 
@@ -528,7 +544,7 @@ def _ab_worker(root: str) -> int:
     sys.path.insert(0, root)
     import phase_vocoder_tpu_torch as pv
     from phase_vocoder_tpu_torch import streaming
-    from phase_vocoder_tpu_torch.ops import fused, stft
+    from phase_vocoder_tpu_torch.ops import fused, resample, stft
     from phase_vocoder_tpu_torch.ops import _build
 
     _check(pv.__file__.startswith(root), f"imported {pv.__file__}, not from {root}")
@@ -575,6 +591,41 @@ def _ab_worker(root: str) -> int:
     xs8 = torch.stack([x_long[i * 428 * SR : (i * 428 + 600) * SR] for i in range(8)])
     rec["pvoc_terms_batch_8x600s_ms"] = _time_ms(
         lambda: fused.stft_phasor_terms_batch(xs8, N_FFT, HOP, 128, scan=False, return_u=True), reps=5)
+    rec["pvoc_terms_3x_3600s_passes"] = _profile_call(
+        lambda: fused.stft_phasor_terms(x_long, N_FFT, HOP, 768))["by_kernel_ms"]
+    rec["pvoc_terms_batch_8x600s_passes"] = _profile_call(
+        lambda: fused.stft_phasor_terms_batch(xs8, N_FFT, HOP, 128, scan=False, return_u=True))["by_kernel_ms"]
+    # The q >= 2 TSM, whose carry scan is pvoc_terms' (run_scan): pvoc_fused
+    # and zrev at -7 st (Rs = 171) on 300 s, by pass from one trace, and
+    # pitch_shift -7 st on 300 s through the public API (with its
+    # resample_lerp).
+    x_pitch = torch.as_tensor(_signal(300.0, seed=1), dtype=torch.float32, device=dev)
+    rs_p = cfg.synthesis_hop(2.0 ** (-7 / 12))
+    rec["pvoc_fused_rs171_300s_ms"] = _time_ms(lambda: fused.fused_time_stretch(x_pitch, N_FFT, HOP, rs_p), reps=10)
+    rec["pvoc_fused_zrev_rs171_300s_ms"] = _time_ms(
+        lambda: fused.fused_time_stretch(x_pitch, N_FFT, HOP, rs_p, zrev=True), reps=10)
+    rec["pvoc_fused_rs171_300s_passes"] = _profile_call(
+        lambda: fused.fused_time_stretch(x_pitch, N_FFT, HOP, rs_p))["by_kernel_ms"]
+    rec["pitch_m7_300s_ms"] = _time_ms(lambda: pv.pitch_shift(x_pitch, -7.0, cfg), reps=10)
+    # select_lerp with and without chunk bases on the -7 st shape's tables,
+    # beside F.interpolate: the mean of 101 calls between CUDA events (host
+    # time of the wrappers included) and the device time of 101 calls from
+    # one torch.profiler trace.
+    factor = 2.0 ** (-7 / 12)
+    y_st = fused.fused_time_stretch(x_pitch, N_FFT, HOP, rs_p)
+    out_len = int(round(len(y_st) / factor))
+    t1 = resample.select_tables(1.0 / factor, out_len, len(y_st), "roll", dev)
+    t2 = resample.select_tables(1.0 / factor, out_len, len(y_st), "roll2", dev)
+    for name, fn in (
+        ("select_lerp", lambda: resample.select_lerp(y_st, t1["origin"], t1["k"], t1["fr"], t1["c"])),
+        ("select_lerp_roll2", lambda: resample.select_lerp_two_level(y_st, t2["origin"], t2["bases"], t2["k"],
+                                                                     t2["fr"], t2["c"])),
+        ("F_interpolate", lambda: torch.nn.functional.interpolate(y_st[None, None], size=out_len, mode="linear",
+                                                                  align_corners=True)),
+    ):
+        rec[f"{name}_m7_300s_ms"] = _time_ms(fn, reps=101)
+        rec[f"{name}_m7_300s_device_ms"] = _profile_call(fn, reps=101)["device_busy_ms"]
+    del y_st, t1, t2
     # phasor_istft_ola on 224,997 frames of 0.5x phasors, Rs = 128, the
     # mask of one rank (ones); phasor_istft_ola_batch on 8 x 37,497 frames
     # of 600 s pieces; torch.istft at each shape.
@@ -628,13 +679,13 @@ def _ab_worker(root: str) -> int:
     # analysis keeps its own body; only its span loader moved into
     # fft_real.cuh), and the sizes that
     # keep the one-block-a-frame analysis and fft_synthesis (768: the mixed
-    # radix; 128: radix 2, below fft_real.cuh's sizes). The phasor terms
-    # (3.0x / 3600 s, scanned; 60 s, terms and unit phasors) move with the
-    # analysis: hashed under moved_, reported, not required equal.
+    # radix; 128: radix 2, below fft_real.cuh's sizes); the phasor terms
+    # (3.0x / 3600 s, scanned; 60 s, terms and unit phasors), whose chunk
+    # passes keep the roundings of the passes they replaced.
     x60 = x_long[: 60 * SR]
-    rec["moved_terms_3x_3600s"] = digest(*kt[:3])
-    rec["moved_terms_unscanned_u_60s"] = digest(*fused.stft_phasor_terms(x60, N_FFT, HOP, 768, scan=False,
-                                                                           return_u=True)[:5])
+    rec["hash_terms_3x_3600s"] = digest(*kt[:3])
+    rec["hash_terms_unscanned_u_60s"] = digest(*fused.stft_phasor_terms(x60, N_FFT, HOP, 768, scan=False,
+                                                                         return_u=True)[:5])
     del kt
     # istft_frames_cart hashed on stft.cu's own spectra (stft_fused), so
     # that the hash reads stft.cu alone, not the phasor terms.
@@ -674,6 +725,35 @@ def _ab_worker(root: str) -> int:
         rec[f"moved_int_k_N{n}"] = digest(fused.fused_time_stretch(x60, n, hop, rs),
                                          fused.fused_time_stretch(x60, n, hop, rs, zrev=True), *seg,
                                          fused.fused_time_stretch_batch(xb_n, n, hop, rs, nfs_n))
+    # q >= 2 at N = 1024, Rs = 171 (the carry scan through run_scan):
+    # pvoc_fused, zrev, one segment from a state two segments in, a ragged
+    # batch; must give another checkout's bits.
+    nf60 = (len(x60) - N_FFT) // HOP + 1
+    F_q, _ = streaming.fused_plan_segments(nf60, N_FFT, 171, 256)
+    _, st2 = streaming._fused_scan_from(x60, streaming.fused_init_state(N_FFT, 171, dev), nf60, N_FFT, HOP, 171,
+                                        F_q, 2)
+    seg = fused.fused_stream_segment(x60, st2.carry, st2.tail, 1, 2 * F_q, nf60, N_FFT, HOP, 171, F_q)
+    rows_q = [x60[: 20 * SR], x60[5 * SR : 12 * SR], x60[: N_FFT + 3 * HOP]]
+    xb_q = torch.stack([torch.nn.functional.pad(r, (0, len(rows_q[0]) - len(r))) for r in rows_q])
+    rec["hash_q2_rs171_N1024"] = digest(
+        fused.fused_time_stretch(x60, N_FFT, HOP, 171), fused.fused_time_stretch(x60, N_FFT, HOP, 171, zrev=True),
+        *seg, fused.fused_time_stretch_batch(xb_q, N_FFT, HOP, 171, [(len(r) - N_FFT) // HOP + 1 for r in rows_q]))
+    del st2, seg, xb_q
+    # select_lerp with and without chunk bases on seeded random input, at
+    # steps of each stride c = 1, 1, 0 and 2 (select_tables' "roll" and
+    # "roll2" tables); must give another checkout's bits.
+    gs = torch.Generator(device=dev)
+    gs.manual_seed(2)
+    xs_sel = torch.rand(200_000, device=dev, generator=gs) * 2.0 - 1.0
+    sel_outs = []
+    for fac in (2.0 ** (7 / 12), 2.0 ** (-7 / 12), 1.0 / 0.3, 1.0 / 2.7):
+        n_out = int(len(xs_sel) * fac) + 77
+        for impl in ("roll", "roll2"):
+            t = resample.select_tables(fac, n_out, len(xs_sel), impl, dev)
+            sel_outs.append(resample.select_lerp_two_level(xs_sel, t["origin"], t["bases"], t["k"], t["fr"], t["c"])
+                            if "bases" in t else resample.select_lerp(xs_sel, t["origin"], t["k"], t["fr"], t["c"]))
+    rec["hash_select_lerp"] = digest(*sel_outs)
+    del xs_sel, sel_outs
     g1 = torch.Generator(device=dev)
     g1.manual_seed(1)
     nb = N_FFT // 2 + 1
@@ -1065,6 +1145,39 @@ def main() -> int:
             _check(rec["mag_rel"] < 1e-5 and rec["p_weighted"] < 1e-4,
                    f"pvoc_terms vs plain at Rs={rs}, scan={scan}: {rec}")
             terms[f"{rs}/{'scan' if scan else 'terms'}"] = rec
+    # The chunk passes of pvoc_terms (terms_chunks, scan_carry_staged,
+    # scan_apply_chunks) at the chunk edges: nf = 1, 63, 64, 65, 129 frames
+    # at Rs = 768 (k = 3) and 640 (q = 2), scan on (P) and off (the terms),
+    # with unit phasors; then at N = 256 and 4096 (hop N/4, k = 3 and
+    # 5/2) over a batch of 3 rows, each row also bitwise the
+    # single-recording kernel's. Bounds as above, and no flipped term.
+    edges = {}
+    for nf_e in (1, 63, 64, 65, 129):
+        xe = x60[: (nf_e - 1) * HOP + N_FFT]
+        for rs in (768, 640):
+            for scan in (True, False):
+                k_ = stft_phasor_terms(xe, N_FFT, HOP, rs, scan=scan, return_u=True)
+                rec = _terms_errors(k_, stft_phasor_terms_reference(xe, N_FFT, HOP, rs, scan=scan, return_u=True))
+                _check(k_[-1] == nf_e and rec["mag_rel"] < 1e-5 and rec["flip_share"] == 0
+                       and max(rec["u_weighted"], rec["t_weighted"]) < 1e-4,
+                       f"pvoc_terms vs plain at {nf_e} frames, Rs={rs}, scan={scan}: {rec}")
+                edges[f"nf{nf_e}/{rs}/{'scan' if scan else 'terms'}"] = rec
+    xb3 = torch.stack([x60[: 20 * SR], x60[7 * SR : 27 * SR],
+                       torch.as_tensor(_signal(20.0, seed=5), dtype=torch.float32, device=dev)])
+    for n in (256, 4096):
+        for rs in (3 * n // 4, 5 * n // 8):
+            for scan in (True, False):
+                kb_ = stft_phasor_terms_batch(xb3, n, n // 4, rs, scan=scan, return_u=True)
+                pb_ = stft_phasor_terms_batch_reference(xb3, n, n // 4, rs, scan=scan, return_u=True)
+                for b in range(3):
+                    rec = _terms_errors([a[b] for a in kb_[:5]], [a[b] for a in pb_[:5]])
+                    one = stft_phasor_terms(xb3[b], n, n // 4, rs, scan=scan, return_u=True)
+                    rec["bitwise_vs_single_kernel"] = all(bool(torch.equal(a[b], o)) for a, o in zip(kb_[:5], one[:5]))
+                    _check(rec["mag_rel"] < 1e-5 and rec["flip_share"] == 0
+                           and max(rec["u_weighted"], rec["t_weighted"]) < 1e-4 and rec["bitwise_vs_single_kernel"],
+                           f"pvoc_terms_batch vs plain at N={n}, Rs={rs}, scan={scan}, row {b}: {rec}")
+                    edges[f"N{n}/{rs}/{'scan' if scan else 'terms'}/row{b}"] = rec
+    del xb3, kb_, pb_, k_
     frames = {}
     re_p, im_p = mag_p * torch.cos(phi_p), mag_p * torch.sin(phi_p)
     for name, a, b in (
@@ -1095,7 +1208,7 @@ def main() -> int:
                 _check(bool(torch.equal(fn(a_[r0:r1], b_[r0:r1], n, mask_n[r0:r1]), a[r0:r1])),
                        f"{name} at N={n}: rows {r0}..{r1} alone differ from the whole call's")
         del mp_, pp_, rp_, ip_, a, b
-    _emit("2d_general_hop_kernels_vs_plain", seconds=60, pvoc_terms=terms,
+    _emit("2d_general_hop_kernels_vs_plain", seconds=60, pvoc_terms=terms, pvoc_terms_chunk_edges=edges,
           frames_rel_to_max=frames, masked_frames=100, rows_bitwise=True,
           bounds={"mag_rel": 1e-5, "p_weighted": 1e-4, "frames": 1e-5})
     del re_p, im_p
@@ -1414,12 +1527,30 @@ def main() -> int:
     medians = {name: float(np.median(v)) for name, v in med_calls.items()}
     spread = {name: [float(np.percentile(v, 10)), float(np.percentile(v, 90))]
               for name, v in med_calls.items()}
+    # The same five as device time (what the card spends in each call's
+    # kernels, without the host time of the wrappers that the medians
+    # include), the mean over 101 calls from one torch.profiler trace each,
+    # with the kernels' names: one kernel a call.
+    device = {name: _profile_call(fn, reps=101) for name, fn in med_fns.items()}
+    for name, rec in device.items():
+        _check(rec["kernels"] == 1 or name == "F.interpolate", f"{name}: {rec['kernels']} kernels a call")
+    device_ms = {name: rec["device_busy_ms"] for name, rec in device.items()}
+    device_kernels = {name: sorted(rec["by_kernel_ms"]) for name, rec in device.items()}
+    _check(device_kernels["select_lerp"] == ["select_lerp_kernel<true>"]
+           and device_kernels["select_lerp_roll2"] == ["select_lerp_kernel<true>"],
+           f"the select kernels by name: {device_kernels}")
     del bt, t1, t2, med_fns
+    # Row 1 at -7 st (q >= 2) by pass, from one profiled call: the carry
+    # scan is scan_carry_staged.
+    split_q2 = _profile_call(lambda: fused_time_stretch(x_pitch, N_FFT, HOP, rs_pitch))
+    _check("scan_carry_staged" in split_q2["by_kernel_ms"], f"pvoc_fused at Rs={rs_pitch}: passes {split_q2}")
+    shapes["pitch_m7_300s"]["passes"] = split_q2
     _emit("4b_kernel_vs_plain_main_shapes", card=smi, pvoc_fused=shapes,
           resample_m7_300s={"max_abs": res_abs, "ms": res_ms, "plain_ms": res_plain_ms,
                             "library_ms": res_lib_ms, **res_bound,
                             "n_in": len(y_st), "n_out": out_len},
-          select_medians_ms_101_calls=medians, select_p10_p90_ms=spread)
+          select_medians_ms_101_calls=medians, select_p10_p90_ms=spread,
+          select_device_ms_101_calls=device_ms, select_device_kernels=device_kernels)
 
     del y_st, a, b
     torch.cuda.empty_cache()
@@ -1679,10 +1810,10 @@ def main() -> int:
     # (7.9e-5 measured on an H100; 1.1e-5 to 1.6e-5 at 60 s), so 3e-4 here.
     _check(terms_main["mag_rel"] < 1e-5 and terms_main["p_weighted"] < 3e-4,
            f"pvoc_terms vs plain at 3.0x / 3600 s: {terms_main}")
-    # Its passes from one torch.profiler trace: the analysis, the terms and
-    # the three scan passes.
+    # Its passes from one torch.profiler trace: the analysis, the terms
+    # with the in-chunk products, the carry scan and the apply pass.
     split = _profile_call(lambda: stft_phasor_terms(x_long, N_FFT, HOP, 768))
-    passes = ("analysis_real<10>", "terms_all", "scan_chunks", "scan_carry", "scan_apply")
+    passes = ("analysis_real<10>", "terms_chunks<true, 1>", "scan_carry_staged", "scan_apply_chunks<1>")
     _check(sorted(split["by_kernel_ms"]) == sorted(passes) and split["kernels"] == len(passes),
            f"pvoc_terms at 3.0x / 3600 s: passes {split}")
     terms_main["passes"] = split
@@ -2221,7 +2352,7 @@ def main() -> int:
         _row("pvoc_fused", "pvoc_fused.cu", "ops/pallas/fused.py:1526",
              launches["stretch_2x_3600s"]["pvoc_fused"], fused_2x, fused_2x["max_abs"]),
         _row("resample_lerp", "resample.cu", "ops/resample.py:372", launches["pitch_m7_300s"]["resample_lerp"],
-             {"ms": medians["resample_lerp"], "plain_ms": res_plain_ms, "library_ms": medians["F.interpolate"],
+             {"ms": device_ms["resample_lerp"], "plain_ms": res_plain_ms, "library_ms": device_ms["F.interpolate"],
               **res_bound}, res_abs),
         _row("stft_polar", "stft.cu", "ops/pallas/stft.py:117", ff_launches["stretch_0.5x_660s"]["stft_polar"],
              stft_main, stft_main["mag_max_abs"]),
@@ -2248,7 +2379,7 @@ def main() -> int:
         _row("pvoc_fused_zrev", "pvoc_fused.cu", "ops/pallas/fused.py:1569",
              zr_launches["2x_3600s"]["pvoc_fused_zrev"], zr["2x_3600s"], zr["2x_3600s"]["max_abs"]),
         *(_row(name, "resample.cu", replaces, sel_launches[impl][name],
-               {**sel_k[name], "ms": medians[name], "library_ms": medians["F.interpolate"]},
+               {**sel_k[name], "ms": device_ms[name], "library_ms": device_ms["F.interpolate"]},
                sel_k[name]["max_abs"])
           for name, replaces, impl in (("resample_blocked", "ops/resample.py:715", "fused"),
                                        ("select_lerp_roll2", "ops/resample.py:786", "roll2"),

@@ -91,7 +91,14 @@
 //       device memory. Every other N keeps the elementwise phase_closed.
 //       q >= 2 builds the step terms, then a three-pass chunked prefix
 //       product (in-chunk products -> serial scan of chunk carries per
-//       bin -> apply and renormalize), with no atomics;
+//       bin -> apply and renormalize), with no atomics. pvoc_terms runs
+//       the terms and the in-chunk products as one pass (terms_chunks: a
+//       block walks the frames of one chunk over every bin, a thread a
+//       bin, the spectrum rows copied into shared memory a tile of rows
+//       ahead), and its apply pass on the same layout
+//       (scan_apply_chunks); the serial carry scan (scan_carry_staged,
+//       every caller) is one warp a block, its chunk totals staged into
+//       shared memory a stage ahead of the chain;
 //   (c) synthesis: Y = |X| P, then per frame the inverse FFT of the
 //       Hermitian spectrum, scaled by 1/N and windowed, to (nf, N) frames.
 //       For a power-of-two N from 256 to 4096 (synth_real) a real frame
@@ -339,23 +346,47 @@ __device__ __forceinline__ void pow_k(float zr, float zi, const Geo& g,
   }
 }
 
+// a / r for r > 0: a zero dividend is kept as it is (that is the
+// quotient, sign included) and 1 is divided in its place, since IEEE
+// division takes its slow path for a zero dividend; the DC and Nyquist
+// bins carry exact zeros through the phasor passes.
+__device__ __forceinline__ float div_nz(float a, float r) {
+  const float q = __fdiv_rn(a == 0.f ? 1.f : a, r);
+  return a == 0.f ? a : q;
+}
+
 __device__ __forceinline__ void unit_phasor(float re, float im, float& mag,
                                             float& ur, float& ui) {
   const float n2 = re * re + im * im;
   mag = sqrtf(n2);
   if (n2 > kTiny) {
-    ur = re / mag;
-    ui = im / mag;
+    ur = div_nz(re, mag);  // the DC and Nyquist bins' imaginary parts are 0
+    ui = div_nz(im, mag);
   } else {
     ur = 1.f;
     ui = 0.f;
   }
 }
 
+// The chunked prefix product's complex products and renormalization, each
+// rounding written out (__fmaf_rn, __fmul_rn, IEEE square root and
+// division): nvcc picks which product of a*b +- c*d it fuses by the
+// surrounding code, so the same expression in two kernels could round two
+// ways. These are the roundings nvcc gave the passes as they were first
+// written (one thread an element or a bin), kept so that every scanned
+// phasor keeps its bits whichever kernel forms it.
+// a b with a the running product and b the next factor (the in-chunk
+// products, the chain of chunk totals).
+__device__ __forceinline__ void cmul_scan(float ar, float ai, float br,
+                                          float bi, float& re, float& im) {
+  re = __fmaf_rn(ar, br, -__fmul_rn(ai, bi));
+  im = __fmaf_rn(ai, br, __fmul_rn(ar, bi));
+}
+
 __device__ __forceinline__ void normalize(float& re, float& im) {
-  const float r = sqrtf(fmaxf(re * re + im * im, kTiny));
-  re = re / r;
-  im = im / r;
+  const float r = __fsqrt_rn(fmaxf(__fmaf_rn(re, re, __fmul_rn(im, im)), kTiny));
+  re = div_nz(re, r);
+  im = div_nz(im, r);
 }
 
 // The integer-k closed form, rounded as written: every product and sum
@@ -632,14 +663,12 @@ synth_real(const float* __restrict__ y, const float* __restrict__ u0,
   }
 }
 
-// The step term of general bin b: c (u conj(u_prev) h)^k.
-__device__ __forceinline__ void step_term(float ur, float ui, float pr,
-                                          float pi, int b,
-                                          const float* __restrict__ consts,
-                                          const Geo& g, float& tr,
-                                          float& ti) {
-  const float hr = consts[b], hi = consts[g.nh + b];
-  const float cr = consts[2 * g.nh + b], ci = consts[3 * g.nh + b];
+// The step term of a general bin with constants h = (hr, hi) and
+// c = (cr, ci): c (u conj(u_prev) h)^k.
+__device__ __forceinline__ void step_term_hc(float ur, float ui, float pr,
+                                             float pi, float hr, float hi,
+                                             float cr, float ci, const Geo& g,
+                                             float& tr, float& ti) {
   const float dr = ur * pr + ui * pi;
   const float di = ui * pr - ur * pi;
   const float zr = dr * hr - di * hi;
@@ -650,23 +679,38 @@ __device__ __forceinline__ void step_term(float ur, float ui, float pr,
   ti = wr * ci + wi * cr;
 }
 
+// The step term of general bin b, its constants read from consts.
+__device__ __forceinline__ void step_term(float ur, float ui, float pr,
+                                          float pi, int b,
+                                          const float* __restrict__ consts,
+                                          const Geo& g, float& tr,
+                                          float& ti) {
+  step_term_hc(ur, ui, pr, pi, consts[b], consts[g.nh + b],
+               consts[2 * g.nh + b], consts[3 * g.nh + b], g, tr, ti);
+}
+
 // Chunks of the prefix product per batch row in the scan buffers.
 __device__ __forceinline__ int64_t row_chunks(const Geo& g) {
   return (g.nf + g.chunk - 1) / g.chunk;
 }
 
-// P = normalize(carry of frame i's chunk * L), L the in-chunk product;
-// frame i of batch row bat.
+// P = normalize(c L), c = (cr, ci) the carry of the frame's chunk and L
+// the frame's in-chunk product.
+__device__ __forceinline__ void apply_carry(float cr, float ci, float lr,
+                                            float li, float& pr, float& pi) {
+  pr = __fmaf_rn(cr, lr, -__fmul_rn(ci, li));
+  pi = __fmaf_rn(cr, li, __fmul_rn(ci, lr));
+  normalize(pr, pi);
+}
+
+// apply_carry with the carry of frame i's chunk; frame i of batch row bat.
 __device__ __forceinline__ void carry_apply(const float* __restrict__ carry,
                                             int bat, int64_t i, int k,
                                             const Geo& g, const Lanes& L,
                                             float lr, float li, float& pr,
                                             float& pi) {
   const int64_t c = ((bat * row_chunks(g) + i / g.chunk) * L.n + k) * 2;
-  const float cr = carry[c], ci = carry[c + 1];
-  pr = cr * lr - ci * li;
-  pi = cr * li + ci * lr;
-  normalize(pr, pi);
+  apply_carry(carry[c], carry[c + 1], lr, li, pr, pi);
 }
 
 // Y for the forced-real bins, which bypass the phasor machinery: DC passes
@@ -771,42 +815,187 @@ __global__ void phase_terms(const float* __restrict__ spec,
   y[row + g.nb + b] = ti;
 }
 
-// pvoc_terms pass 1, every bin of every frame: |X|, the unit phasors, and
-// the step terms; the forced-real bins take u conj(u_prev) times
-// spin = (-1)^Rs at Nyquist, the first frame takes u_0. mag and u are
-// (B, nf, nb); t holds the terms as (2, B, nf, nb) = [re | im].
-__global__ void terms_all(const float* __restrict__ spec,
-                          const float* __restrict__ consts,
-                          float* __restrict__ mag, float* __restrict__ t,
-                          float* __restrict__ u, Geo g) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= g.nf * g.nb) return;
+// ------------------------------------------- the chunk passes of pvoc_terms
+// A block owns a run of consecutive frames of one batch row, over every
+// lane (bin): a scan chunk of g.chunk frames where the pass chains along
+// it, else a few tiles. Its T threads take lanes k = t + q T (q < R), and
+// each walks the run's frames in order. The frames' rows come into shared
+// memory a tile of F rows at a time, copied by the whole block with
+// coalesced asynchronous copies, double-buffered (tile s+1 copies while
+// tile s is used), so that what a block reads and writes is a few tiles of
+// contiguous rows. (One thread a (chunk, bin), each reading its own bin
+// row by row, scatters a warp's 128-byte accesses over every chunk in
+// flight; on an H100 that ran slower than the one-thread-an-element passes
+// it was to replace.) No 64-bit division: the run and the batch row come
+// from the grid.
+struct ChunkPlan {
+  int R;  // lanes a thread
+  int T;  // threads a block, a multiple of 32
+  int F;  // rows a tile
+};
+
+// n lanes a row (<= 3072), rows of n_fft / 2 + 1 lanes: a tile of about
+// 8192 floats a plane (two tiles of two planes: ~64 KB of shared memory).
+ChunkPlan chunk_plan(int n, int n_fft) {
+  ChunkPlan p;
+  p.R = (n + 1023) / 1024;
+  p.T = 32 * ((n + 32 * p.R - 1) / (32 * p.R));
+  const int f = 8192 / n_fft;
+  p.F = f < 1 ? 1 : (f > 32 ? 32 : f);
+  return p;
+}
+
+// Shared memory of a chunk pass: two tiles of F rows of two planes of n.
+size_t chunk_smem(const ChunkPlan& p, int n) { return sizeof(float) * 4 * p.F * n; }
+
+template <class K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  return smem > 48 * 1024
+             ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
+             : cudaSuccess;
+}
+
+__device__ __forceinline__ void async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// Waits until at most N of the thread's copy groups are pending.
+template <int N>
+__device__ __forceinline__ void async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+// An asynchronous 8-byte copy global -> shared (through L1).
+__device__ __forceinline__ void async_copy8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)), "l"(src) : "memory");
+}
+
+// The block's copy of `count` floats (even; src and dst 8-byte aligned)
+// into shared memory, as one copy group of each thread.
+__device__ __forceinline__ void copy_pairs(float* dst, const float* src, int count) {
+  for (int i = threadIdx.x; i < count / 2; i += blockDim.x) async_copy8(dst + 2 * i, src + 2 * i);
+  async_commit();
+}
+// The same for any count and alignment, 4 bytes at a time, from two
+// places (the two planes) into dst and dst + im_off.
+__device__ __forceinline__ void copy_planes(float* dst, int im_off, const float* re,
+                                            const float* im, int count) {
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    real_fft::async_copy4(dst + i, re + i);
+    real_fft::async_copy4(dst + im_off + i, im + i);
+  }
+  async_commit();
+}
+
+// pvoc_terms pass 1 (with kScan also scan pass 2, the in-chunk products):
+// the lanes are the bins 0..nb-1. A thread keeps each of its bins'
+// previous unit phasor in registers (only the run's first frame reads its
+// predecessor's row from device memory) and writes, for each frame, |X|
+// into mag and u into u (when not null), both (B, nf, nb), and into t
+// ((2, B, nf, nb) = [re | im]) either the step terms or, with kScan
+// (runs = chunks), their inclusive product inside the chunk, whose last
+// value (the chunk's total) goes to tot (B*nch, nb, 2). The terms:
+// c (u conj(u_prev) h)^k at the general bins, u conj(u_prev) times
+// spin = (-1)^Rs at Nyquist and times 1 at DC, u_0 at the recording's
+// first frame. Tiles hold F spectrum rows ([re(nb) | im(nb)], contiguous
+// in spec). Each value is the expression the one-thread-an-element terms
+// pass evaluated, and the in-chunk product that of scan_chunks.
+template <bool kScan, int R>
+__global__ void __launch_bounds__(1024)
+terms_chunks(const float* __restrict__ spec, const float* __restrict__ consts,
+             float* __restrict__ mag, float* __restrict__ t,
+             float* __restrict__ u, float* __restrict__ tot, Geo g, int run,
+             int F) {
+  extern __shared__ float tiles[];
+  const int64_t i0 = (int64_t)blockIdx.x * run;
+  const int n = (int)(g.nf - i0 < run ? g.nf - i0 : run);  // frames of the run
+  const int rs2 = 2 * g.nb;  // floats of a spectrum row
+  const int64_t f0 = blockIdx.y * g.nf + i0;  // the run's first frame in the buffers
+  const float* sp = spec + f0 * rs2;
+  const int ntiles = (n + F - 1) / F;
+  copy_pairs(tiles, sp, (n < F ? n : F) * rs2);
+
   const int64_t plane = g.batch * g.nf * g.nb;
-  const int64_t e = blockIdx.y * g.nf * g.nb + idx;  // element of (B, nf, nb)
-  const int64_t i = idx / g.nb;
-  const int b = (int)(idx % g.nb);
-  const int64_t row = (e / g.nb) * 2 * g.nb;
-  float m, ur, ui;
-  unit_phasor(spec[row + b], spec[row + g.nb + b], m, ur, ui);
-  float tr = ur, ti = ui;
-  if (i > 0) {
-    const int64_t prev = row - 2 * g.nb;
-    float mp, pr, pi;
-    unit_phasor(spec[prev + b], spec[prev + g.nb + b], mp, pr, pi);
-    if (b == 0 || b == g.nh) {
-      const float spin = (b == g.nh && (g.rs & 1)) ? -1.f : 1.f;
-      tr = (ur * pr + ui * pi) * spin;
-      ti = (ui * pr - ur * pi) * spin;
-    } else {
-      step_term(ur, ui, pr, pi, b, consts, g, tr, ti);
+  int b[R];
+  bool real_bin[R];
+  float spin[R], hr[R], hi[R], cr[R], ci[R], pr[R], pi[R], lr[R], li[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    b[q] = threadIdx.x + q * blockDim.x;
+    real_bin[q] = b[q] == 0 || b[q] == g.nh;
+    spin[q] = (b[q] == g.nh && (g.rs & 1)) ? -1.f : 1.f;
+    hr[q] = hi[q] = cr[q] = ci[q] = 0.f;
+    pr[q] = 1.f;
+    pi[q] = lr[q] = li[q] = 0.f;
+    if (b[q] < g.nb && !real_bin[q]) {
+      hr[q] = consts[b[q]];
+      hi[q] = consts[g.nh + b[q]];
+      cr[q] = consts[2 * g.nh + b[q]];
+      ci[q] = consts[3 * g.nh + b[q]];
+    }
+    if (b[q] < g.nb && i0 > 0) {
+      float m;
+      unit_phasor(sp[b[q] - rs2], sp[b[q] - g.nb], m, pr[q], pi[q]);
     }
   }
-  mag[e] = m;
-  t[e] = tr;
-  t[plane + e] = ti;
-  if (u != nullptr) {
-    u[e] = ur;
-    u[plane + e] = ui;
+  for (int s = 0; s < ntiles; ++s) {
+    const int rows = n - s * F < F ? n - s * F : F;
+    if (s + 1 < ntiles) {
+      const int next = n - (s + 1) * F < F ? n - (s + 1) * F : F;
+      copy_pairs(tiles + ((s + 1) & 1) * F * rs2, sp + (int64_t)(s + 1) * F * rs2, next * rs2);
+      async_wait<1>();
+    } else {
+      async_wait<0>();
+    }
+    __syncthreads();
+    const float* tile = tiles + (s & 1) * F * rs2;
+    for (int r = 0; r < rows; ++r) {
+      const int j = s * F + r;  // frame of the run
+      const int64_t e = (f0 + j) * g.nb;
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        if (b[q] >= g.nb) continue;
+        float m, ur, ui;
+        unit_phasor(tile[r * rs2 + b[q]], tile[r * rs2 + g.nb + b[q]], m, ur, ui);
+        float tr = ur, ti = ui;
+        if (i0 + j > 0) {
+          if (real_bin[q]) {
+            tr = (ur * pr[q] + ui * pi[q]) * spin[q];
+            ti = (ui * pr[q] - ur * pi[q]) * spin[q];
+          } else {
+            step_term_hc(ur, ui, pr[q], pi[q], hr[q], hi[q], cr[q], ci[q], g, tr, ti);
+          }
+        }
+        pr[q] = ur;
+        pi[q] = ui;
+        mag[e + b[q]] = m;
+        if (u != nullptr) {
+          u[e + b[q]] = ur;
+          u[plane + e + b[q]] = ui;
+        }
+        if constexpr (kScan) {
+          if (j == 0) {
+            lr[q] = tr;
+            li[q] = ti;
+          } else {
+            cmul_scan(lr[q], li[q], tr, ti, lr[q], li[q]);
+          }
+          tr = lr[q];
+          ti = li[q];
+        }
+        t[e + b[q]] = tr;
+        t[plane + e + b[q]] = ti;
+      }
+    }
+    __syncthreads();  // the tile is free for the copy after next
+  }
+  if constexpr (kScan) {
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      if (b[q] >= g.nb) continue;
+      const int64_t c = ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * g.nb + b[q];
+      tot[2 * c] = lr[q];
+      tot[2 * c + 1] = li[q];
+    }
   }
 }
 
@@ -846,33 +1035,72 @@ __global__ void scan_chunks(float* __restrict__ y, float* __restrict__ tot,
   tot[j + 1] = li;
 }
 
-// Scan pass 3: per bin, the exclusive product of the chunk totals,
-// renormalized at every step, starting from the carried P (rows 2-3 of
+// Scan pass 3: per lane, the exclusive product of the chunk totals,
+// renormalized at every step (carry[c] = running, then running =
+// normalize(running tot[c])), starting from the carried P (rows 2-3 of
 // carry_in) or from 1. The running value after the last chunk goes to rows
-// 2-3 of carry_out.
-__global__ void scan_carry(const float* __restrict__ tot,
-                           float* __restrict__ carry,
-                           const float* __restrict__ carry_in,
-                           float* __restrict__ carry_out, Geo g, Lanes L) {
-  const int bat = blockIdx.y;
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+// 2-3 of carry_out. The chain is serial, so a step's latency is the
+// pass's time: a block is one warp of 32 lanes (ceil(n/32) blocks a batch
+// row), and each lane copies the totals of the next kStage chunks into
+// shared memory asynchronously (a lane's 8-byte (re, im) pair; a warp's
+// copies of one chunk are 256 contiguous bytes), one stage ahead of the
+// chain, double-buffered, so that no step waits on device memory; the
+// chain is unrolled over a stage, so the reads and the stores' addresses
+// leave it. Every lane reads only what it copied, so no barrier is
+// needed. The chain's roundings (cmul_scan, normalize) and
+// order are those of the one-thread-a-bin scan before it, so each carry
+// keeps its bits.
+constexpr int kStage = 16;
+
+__global__ void __launch_bounds__(32)
+scan_carry_staged(const float* __restrict__ tot, float* __restrict__ carry,
+                  const float* __restrict__ carry_in,
+                  float* __restrict__ carry_out, Geo g, Lanes L) {
+  __shared__ float2 buf[2][kStage][32];
+  const int lane = threadIdx.x;
+  const int k = blockIdx.x * 32 + lane;
   if (k >= L.n) return;
+  const int bat = blockIdx.y;
   const int64_t nch = (row_frames(g, bat) + g.chunk - 1) / g.chunk;
   const int64_t c0 = bat * row_chunks(g);
+  const float2* src = reinterpret_cast<const float2*>(tot) + c0 * L.n + k;
+  float2* dst = reinterpret_cast<float2*>(carry) + c0 * L.n + k;
   float cr = 1.f, ci = 0.f;
   if (carry_in != nullptr) {
     cr = carry_in[2 * L.n + k];
     ci = carry_in[3 * L.n + k];
   }
-  for (int64_t c = 0; c < nch; ++c) {
-    const int64_t j = ((c0 + c) * L.n + k) * 2;
-    carry[j] = cr;
-    carry[j + 1] = ci;
-    const float tr = tot[j], ti = tot[j + 1];
-    const float t = cr * tr - ci * ti;
-    ci = cr * ti + ci * tr;
-    cr = t;
-    normalize(cr, ci);
+  const int64_t nst = (nch + kStage - 1) / kStage;
+  auto stage = [&](int64_t s) {
+    for (int r = 0; r < kStage; ++r) {
+      const int64_t c = s * kStage + r;
+      if (c < nch) async_copy8(&buf[s & 1][r][lane], src + c * L.n);
+    }
+    async_commit();
+  };
+  if (nst > 0) stage(0);
+  for (int64_t s = 0; s < nst; ++s) {
+    const int m = (int)(nch - s * kStage < kStage ? nch - s * kStage : kStage);
+    const float2(&b)[kStage][32] = buf[s & 1];
+    // The carry of the stage's first chunk depends on every total read
+    // before; once its store has issued, the buffer they came from is free
+    // for the next stage's copies.
+    dst[s * kStage * L.n] = make_float2(cr, ci);
+    if (s + 1 < nst) {
+      stage(s + 1);
+      async_wait<1>();
+    } else {
+      async_wait<0>();
+    }
+#pragma unroll
+    for (int r = 0; r < kStage; ++r) {
+      if (r < m) {
+        if (r > 0) dst[(s * kStage + r) * L.n] = make_float2(cr, ci);
+        const float2 tt = b[r][lane];
+        cmul_scan(cr, ci, tt.x, tt.y, cr, ci);
+        normalize(cr, ci);
+      }
+    }
   }
   if (carry_out != nullptr) {
     carry_out[2 * L.n + k] = cr;
@@ -903,19 +1131,59 @@ __global__ void phase_apply(const float* __restrict__ spec,
   y[row + g.nb + b] = mag * pi;
 }
 
-// Scan pass 4 of pvoc_terms: P_i = normalize(carry_c L_i) in place.
-__global__ void scan_apply(const float* __restrict__ carry,
-                           float* __restrict__ t, Geo g, Lanes L) {
-  const int bat = blockIdx.y;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= g.nf * L.n) return;
-  const int64_t i = idx / L.n;
-  const int k = (int)(idx % L.n);
-  const int64_t re = (bat * g.nf + i) * L.stride + L.b0 + k;
-  float pr, pi;
-  carry_apply(carry, bat, i, k, g, L, t[re], t[re + L.im_off], pr, pi);
-  t[re] = pr;
-  t[re + L.im_off] = pi;
+// Scan pass 4 of pvoc_terms: P = normalize(carry_c L) in place, a chunk
+// pass over the L.n lanes (runs = chunks): a thread loads its lanes'
+// carries once; the in-chunk products L come a tile of F rows of both
+// planes at a time.
+template <int R>
+__global__ void __launch_bounds__(1024)
+scan_apply_chunks(const float* __restrict__ carry, float* __restrict__ t,
+                  Geo g, Lanes L, int F) {
+  extern __shared__ float tiles[];
+  const int64_t i0 = (int64_t)blockIdx.x * g.chunk;
+  const int n = (int)(g.nf - i0 < g.chunk ? g.nf - i0 : g.chunk);
+  float* p = t + (blockIdx.y * g.nf + i0) * L.stride + L.b0;
+  const int w = F * (int)L.stride;  // floats of a tile of one plane
+  const int ntiles = (n + F - 1) / F;
+  copy_planes(tiles, w, p, p + L.im_off, (n < F ? n : F) * (int)L.stride);
+  int k[R];
+  float cr[R], ci[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    k[q] = threadIdx.x + q * blockDim.x;
+    cr[q] = ci[q] = 0.f;
+    if (k[q] < L.n) {
+      const int64_t c = (((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * L.n + k[q]) * 2;
+      cr[q] = carry[c];
+      ci[q] = carry[c + 1];
+    }
+  }
+  for (int s = 0; s < ntiles; ++s) {
+    const int rows = n - s * F < F ? n - s * F : F;
+    if (s + 1 < ntiles) {
+      const int next = n - (s + 1) * F < F ? n - (s + 1) * F : F;
+      const int64_t o = (int64_t)(s + 1) * w;
+      copy_planes(tiles + ((s + 1) & 1) * 2 * w, w, p + o, p + L.im_off + o, next * (int)L.stride);
+      async_wait<1>();
+    } else {
+      async_wait<0>();
+    }
+    __syncthreads();
+    const float* tile = tiles + (s & 1) * 2 * w;
+    for (int r = 0; r < rows; ++r) {
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        if (k[q] >= L.n) continue;
+        const int o = r * (int)L.stride + k[q];
+        float pr, pi;
+        apply_carry(cr[q], ci[q], tile[o], tile[w + o], pr, pi);
+        const int64_t e = (int64_t)s * w + o;
+        p[e] = pr;
+        p[e + L.im_off] = pi;
+      }
+    }
+    __syncthreads();
+  }
 }
 
 // The carried phasor of a segment (rows 0-1 of carry_out): integer k keeps
@@ -1277,7 +1545,50 @@ Geo make_geo(long long nf, int n_fft, int ra, int rs, int p, int q, int alg,
   return g;
 }
 
-// The three scan passes over the lanes L of y (q >= 2).
+// The chunk passes of pvoc_terms at the plan's lanes a thread.
+template <bool kScan, int R>
+cudaError_t launch_terms_r(const ChunkPlan& cp, dim3 grid, size_t smem, cudaStream_t stream,
+                           const float* spec, const float* consts, float* mag, float* t,
+                           float* u, float* tot, const Geo& g, int run) {
+  const cudaError_t err = allow_smem(terms_chunks<kScan, R>, smem);
+  if (err != cudaSuccess) return err;
+  terms_chunks<kScan, R><<<grid, cp.T, smem, stream>>>(spec, consts, mag, t, u, tot, g, run, cp.F);
+  return cudaGetLastError();
+}
+
+template <bool kScan>
+cudaError_t launch_terms(const ChunkPlan& cp, dim3 grid, size_t smem, cudaStream_t stream,
+                         const float* spec, const float* consts, float* mag, float* t, float* u,
+                         float* tot, const Geo& g, int run) {
+  switch (cp.R) {
+    case 1: return launch_terms_r<kScan, 1>(cp, grid, smem, stream, spec, consts, mag, t, u, tot, g, run);
+    case 2: return launch_terms_r<kScan, 2>(cp, grid, smem, stream, spec, consts, mag, t, u, tot, g, run);
+    default: return launch_terms_r<kScan, 3>(cp, grid, smem, stream, spec, consts, mag, t, u, tot, g, run);
+  }
+}
+
+template <int R>
+cudaError_t launch_apply(const ChunkPlan& cp, dim3 grid, size_t smem, cudaStream_t stream,
+                         const float* carry, float* t, const Geo& g, const Lanes& L) {
+  const cudaError_t err = allow_smem(scan_apply_chunks<R>, smem);
+  if (err != cudaSuccess) return err;
+  scan_apply_chunks<R><<<grid, cp.T, smem, stream>>>(carry, t, g, L, cp.F);
+  return cudaGetLastError();
+}
+
+// Scan pass 3 over the lanes L: one warp a block, ceil(L.n/32) blocks a
+// batch row.
+cudaError_t launch_scan_carry(const float* tot, float* carry,
+                              const float* carry_in, float* carry_out,
+                              const Geo& g, const Lanes& L,
+                              cudaStream_t stream) {
+  const dim3 grid((unsigned)((L.n + 31) / 32), (unsigned)g.batch);
+  scan_carry_staged<<<grid, 32, 0, stream>>>(tot, carry, carry_in, carry_out, g, L);
+  return cudaGetLastError();
+}
+
+// Scan passes 2 and 3 (the in-chunk products, the carry scan) over the
+// lanes L of y (q >= 2).
 cudaError_t run_scan(float* y, float* tot, float* carry,
                      const float* carry_in, float* carry_out, const Geo& g,
                      const Lanes& L, cudaStream_t stream) {
@@ -1285,9 +1596,7 @@ cudaError_t run_scan(float* y, float* tot, float* carry,
   scan_chunks<<<grid_for(nch * L.n, g), kThreads, 0, stream>>>(y, tot, g, L);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  scan_carry<<<grid_for(L.n, g), kThreads, 0, stream>>>(
-      tot, carry, carry_in, carry_out, g, L);
-  return cudaGetLastError();
+  return launch_scan_carry(tot, carry, carry_in, carry_out, g, L, stream);
 }
 
 // True where the integer-k phase runs in synth_real's load (kClosed):
@@ -1484,17 +1793,27 @@ extern "C" int pvoc_terms(const float* x, float* spec, float* mag, float* t,
   g.x_stride = x_stride;
   cudaError_t err;
   if ((err = launch_analysis(x, fft, nullptr, spec, g, stream)) != cudaSuccess) return err;
-  terms_all<<<grid_for(nf * g.nb, g), kThreads, 0, stream>>>(spec, consts,
-                                                             mag, t, u, g);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (!scan) return cudaSuccess;
-  const Lanes L = {g.nb, (int64_t)batch * nf * g.nb, 0, g.nb};
-  if ((err = run_scan(t, tot, carry, nullptr, nullptr, g, L, stream)) !=
+  const int64_t nch = (nf + chunk - 1) / chunk;
+  const ChunkPlan cp = chunk_plan(g.nb, n_fft);
+  const size_t smem = chunk_smem(cp, g.nb);
+  if (!scan) {
+    // Runs of a few tiles: the terms chain along nothing.
+    const int run = cp.F < 8 ? 8 : cp.F;
+    const dim3 grid((unsigned)((nf + run - 1) / run), (unsigned)batch);
+    return launch_terms<false>(cp, grid, smem, stream, spec, consts, mag, t, u, nullptr, g, run);
+  }
+  const dim3 grid((unsigned)nch, (unsigned)batch);
+  if ((err = launch_terms<true>(cp, grid, smem, stream, spec, consts, mag, t, u, tot, g, chunk)) !=
       cudaSuccess)
     return err;
-  scan_apply<<<grid_for(nf * g.nb, g), kThreads, 0, stream>>>(carry, t, g,
-                                                              L);
-  return cudaGetLastError();
+  const Lanes L = {g.nb, (int64_t)batch * nf * g.nb, 0, g.nb};
+  if ((err = launch_scan_carry(tot, carry, nullptr, nullptr, g, L, stream)) != cudaSuccess)
+    return err;
+  switch (cp.R) {
+    case 1: return launch_apply<1>(cp, grid, smem, stream, carry, t, g, L);
+    case 2: return launch_apply<2>(cp, grid, smem, stream, carry, t, g, L);
+    default: return launch_apply<3>(cp, grid, smem, stream, carry, t, g, L);
+  }
 }
 
 // Synthesis from given phasors, for each of the batch rows: Y = |X| P

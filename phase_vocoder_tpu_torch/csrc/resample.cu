@@ -26,8 +26,11 @@
 // writes one (select_lerp also an index and a weight), with no reuse
 // beyond what L1/L2 catch.
 //
-// What the design does about it. One thread per output sample, coalesced
-// store, neighbouring threads on neighbouring inputs. The TPU's span
+// What the design does about it. resample_lerp and resample_blocked: one
+// thread per output sample, coalesced store, neighbouring threads on
+// neighbouring inputs. select_lerp: one block per output block, four
+// outputs a thread through 16-byte loads and stores, the block's span of x
+// staged once in shared memory (select_lerp_kernel below). The TPU's span
 // matrices, superblock drift, lane rolls, bf16 splits and 0/1 matmuls
 // existed only because element gathers are slow there; the H100 gathers
 // well, so none is carried over: a span row is its origin in x, and a
@@ -76,27 +79,105 @@ __global__ void resample_blocked_kernel(const float* __restrict__ x,
                      __fmul_rn(x[hi], w));
 }
 
-// One thread per output (q, j) of (nb, B): i = origin[q] + c*j + k[q, j]
-// (+ bases[q, j / 128] when bases is not null), both taps clamped.
-__global__ void select_lerp_kernel(const float* __restrict__ x,
-                                   const long long* __restrict__ origin,
-                                   const int* __restrict__ bases,
-                                   const int* __restrict__ k,
-                                   const float* __restrict__ fr,
-                                   float* __restrict__ out, int64_t n,
-                                   int64_t total, int B, int c) {
-  const int64_t o = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= total) return;
-  const int64_t q = o / B;
-  const int j = (int)(o % B);
-  int64_t i = (int64_t)origin[q] + (int64_t)c * j + k[o];
-  if (bases != nullptr) i += bases[q * (B / 128) + j / 128];
-  const int64_t lo = i < 0 ? 0 : (i > n - 1 ? n - 1 : i);
-  const int64_t i1 = i + 1;
-  const int64_t hi = i1 < 0 ? 0 : (i1 > n - 1 ? n - 1 : i1);
-  const float w = fr[o];
-  out[o] = __fadd_rn(__fmul_rn(x[lo], __fadd_rn(1.0f, -w)),
-                     __fmul_rn(x[hi], w));
+// One block per output block q (one row of the (nb, B) tables), 4
+// outputs a thread: outputs j = 4t .. 4t+3 take i = origin[q] + c*j +
+// k[q, j] (+ bases[q, j / 128]: one chunk for the four, since 128 is a
+// multiple of 4), both taps clamped to [0, n-1]. origin[q] and the bases
+// are block- and warp-uniform loads; k and fr come in as int4/float4 and
+// the outputs leave as a float4 where kVec (B a multiple of 4 and the
+// three tables 16-byte aligned). The block's taps lie in one contiguous
+// span of x, from its smallest clamped index to its largest: the block
+// finds the span's ends by a min/max reduction over its indices and, when
+// it holds at most kSpan floats (every table select_tables makes with
+// c <= 2), copies it into shared memory with coalesced loads and selects
+// from there; a wider span reads its taps through the read-only path.
+// Each output is the same lerp of the same taps as one thread an output
+// computed it, so the result does not depend on the layout.
+constexpr int kSpan = 2048;
+
+__device__ __forceinline__ long long clamp_ll(long long v, long long n) {
+  return v < 0 ? 0 : (v > n - 1 ? n - 1 : v);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(1024)
+select_lerp_kernel(const float* __restrict__ x,
+                   const long long* __restrict__ origin,
+                   const int* __restrict__ bases, const int* __restrict__ k,
+                   const float* __restrict__ fr, float* __restrict__ out,
+                   long long n, int B, int c) {
+  __shared__ float span[kSpan];
+  __shared__ long long ends[2][32];  // each warp's smallest and largest index
+  const int64_t row = (int64_t)blockIdx.x * B;
+  const int j0 = 4 * threadIdx.x;
+  const int m = min(4, B - j0);  // outputs of this thread (<= 0: none)
+  int kk[4] = {0, 0, 0, 0};
+  float w[4] = {0.f, 0.f, 0.f, 0.f};
+  if (kVec && m == 4) {
+    const int4 kv = __ldg(reinterpret_cast<const int4*>(k + row + j0));
+    const float4 fv = __ldg(reinterpret_cast<const float4*>(fr + row + j0));
+    kk[0] = kv.x, kk[1] = kv.y, kk[2] = kv.z, kk[3] = kv.w;
+    w[0] = fv.x, w[1] = fv.y, w[2] = fv.z, w[3] = fv.w;
+  } else {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (r < m) {
+        kk[r] = __ldg(k + row + j0 + r);
+        w[r] = __ldg(fr + row + j0 + r);
+      }
+    }
+  }
+  long long base = __ldg(origin + blockIdx.x);
+  if (bases != nullptr && m > 0) base += __ldg(bases + (int64_t)blockIdx.x * (B / 128) + j0 / 128);
+  long long idx[4];
+  long long lo_i = INT64_MAX, hi_i = INT64_MIN;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    idx[r] = base + (long long)c * (j0 + r) + kk[r];
+    if (r < m) {
+      lo_i = min(lo_i, idx[r]);
+      hi_i = max(hi_i, idx[r] + 1);
+    }
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    lo_i = min(lo_i, __shfl_xor_sync(0xffffffffu, lo_i, d));
+    hi_i = max(hi_i, __shfl_xor_sync(0xffffffffu, hi_i, d));
+  }
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    ends[0][warp] = lo_i;
+    ends[1][warp] = hi_i;
+  }
+  __syncthreads();
+  for (int v = 0; v < (int)(blockDim.x >> 5); ++v) {
+    lo_i = min(lo_i, ends[0][v]);
+    hi_i = max(hi_i, ends[1][v]);
+  }
+  // The span of clamped taps: clamping is monotone, so every lo and hi of
+  // the block lies in [a, z].
+  const long long a = clamp_ll(lo_i, n), z = clamp_ll(hi_i, n);
+  const bool staged = z - a < kSpan;  // the same for the whole block
+  if (staged) {
+    for (int s = threadIdx.x; s <= (int)(z - a); s += blockDim.x) span[s] = __ldg(x + a + s);
+    __syncthreads();
+  }
+  float y[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const long long lo = clamp_ll(idx[r], n), hi = clamp_ll(idx[r] + 1, n);
+    const float xl = staged ? span[lo - a] : __ldg(x + lo);
+    const float xh = staged ? span[hi - a] : __ldg(x + hi);
+    y[r] = __fadd_rn(__fmul_rn(xl, __fadd_rn(1.0f, -w[r])), __fmul_rn(xh, w[r]));
+  }
+  if (kVec && m == 4) {
+    *reinterpret_cast<float4*>(out + row + j0) = make_float4(y[0], y[1], y[2], y[3]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (r < m) out[row + j0 + r] = y[r];
+    }
+  }
 }
 
 }  // namespace
@@ -125,15 +206,21 @@ extern "C" int resample_blocked(const float* x, const long long* start_int,
 }
 
 // x (n floats, n >= 1); origin (nb) int64; k and fr (nb, B); out (nb, B);
-// bases (nb, B / 128) int32 or null. c >= 0.
+// bases (nb, B / 128) int32 or null. c >= 0, 1 <= B <= 4096.
 extern "C" int select_lerp(const float* x, const long long* origin,
                            const int* bases, const int* k, const float* fr,
                            float* out, long long n, long long nb, int B, int c,
                            cudaStream_t stream) {
-  const int T = 256;
-  const int64_t total = nb * (int64_t)B;
-  const unsigned blocks = (unsigned)((total + T - 1) / T);
-  select_lerp_kernel<<<blocks, T, 0, stream>>>(x, origin, bases, k, fr, out,
-                                               n, total, B, c);
+  if (B < 1 || B > 4096 || nb < 1) return cudaErrorInvalidValue;
+  const unsigned threads = (unsigned)(((B + 3) / 4 + 31) / 32 * 32);
+  const bool vec = B % 4 == 0 &&
+                   (((uintptr_t)k | (uintptr_t)fr | (uintptr_t)out) & 15) == 0;
+  if (vec) {
+    select_lerp_kernel<true><<<(unsigned)nb, threads, 0, stream>>>(x, origin, bases, k, fr, out,
+                                                                 n, B, c);
+  } else {
+    select_lerp_kernel<false><<<(unsigned)nb, threads, 0, stream>>>(x, origin, bases, k, fr, out,
+                                                                  n, B, c);
+  }
   return cudaGetLastError();
 }

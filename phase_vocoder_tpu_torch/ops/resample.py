@@ -289,10 +289,17 @@ def select_lerp_reference(
     return x[lo] * (1.0 - fr) + x[hi] * fr
 
 
+# Outputs per table row that the select kernel takes: a block of B/4
+# threads serves a row.
+_SEL_MAX_B = 4096
+
+
 def _select_launch(x, origin, k, fr, c: int, bases, what: str) -> torch.Tensor:
     nb, B = _check_select(x, origin, k, fr, c, bases)
     for t in (x, origin, k, fr) + (() if bases is None else (bases,)):
         _check_cuda(t, what)
+    if B > _SEL_MAX_B:
+        raise ValueError(f"{what}: the kernel takes rows of at most {_SEL_MAX_B} outputs, got {B}")
     out = torch.empty((nb, B), dtype=torch.float32, device=x.device)
     lib = _build.kernels()
     with torch.cuda.device(x.device):

@@ -241,3 +241,73 @@ def test_unknown_select_raises(monkeypatch):
     monkeypatch.setattr(tres, "_SEL_IMPL", "vpu")
     with pytest.raises(ValueError):
         tres._resample_strided_select(torch.ones(64), 1.3, 80)
+
+
+# ------------- the select kernel's block edges (one block per 512 outputs)
+
+# (n, step, out_len): an input shorter than one block; a partial last
+# block; c = 0 (step < 0.5); c = 2 (step >= 2, small K so that the JAX
+# path compiles fast).
+BLOCK_EDGES = {
+    "n_below_block": (300, 0.83, 361),
+    "partial_last_block": (2000, 0.749, 3 * 512 + 77),
+    "c0": (400, 0.3, 1300),
+    "c2": (3000, 2.004, 1400),
+}
+
+
+def _edge_input(n):
+    return np.random.default_rng(n).uniform(-1, 1, n).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", sorted(BLOCK_EDGES))
+@pytest.mark.parametrize("impl", ["roll2", "roll", "matmul"], indirect=True)
+def test_select_block_edges_vs_jax(impl, case):
+    """The explicit selects' plain versions at the block edges the kernel
+    handles (a row shorter than its block, the partial last row, strides
+    0 and 2) against the JAX package's (its kernels in interpret mode) to
+    1e-6 and golden to 2e-6, the bounds above; the port's tables have
+    the stride the case names."""
+    n, step, out_len = BLOCK_EDGES[case]
+    x = _edge_input(n)
+    fac = 1.0 / step
+    t = tres.select_tables(fac, out_len, n, impl)
+    assert t["c"] == {"c0": 0, "c2": 2}.get(case, 1)
+    assert t["k"].shape == (-(-out_len // 512), 512)
+    y = _select(x, fac, out_len)
+    j = np.asarray(jres._resample_strided_select(jnp.asarray(x), fac, out_len))
+    ref = pv_ref.resample_linear(x.astype(np.float64), fac, out_len)
+    assert y.shape == (out_len,)
+    assert np.max(np.abs(y - j)) <= 1e-6
+    assert np.max(np.abs(y - ref)) < 2e-6
+
+
+@pytest.mark.parametrize("case", ["n_below_block", "partial_last_block", "c0"])
+@pytest.mark.parametrize("impl", ["roll2", "roll", "matmul"], indirect=True)
+def test_select_reference_on_jax_tensors_at_block_edges(impl, case, monkeypatch):
+    """select_lerp_reference fed the (k, fr) that the JAX select kernel
+    receives at the block edges (c <= 1: steps of 2 and more take no JAX
+    kernel) gives that kernel's output to one rounding of the lerp
+    (1.2e-7, as above), and the port's tables are those tensors."""
+    n, step, out_len = BLOCK_EDGES[case]
+    x = _edge_input(n)
+    fac = 1.0 / step
+    seen = {}
+    real_call = jres._select_kernel_call
+
+    def recorder(spans, k, fr, K, c, step=1.0, valid=None):
+        out = real_call(spans, k, fr, K=K, c=c, step=step, valid=valid)
+        seen.update(k=np.asarray(k), fr=np.asarray(fr), c=c, out=np.asarray(out))
+        return out
+
+    monkeypatch.setattr(jres, "_select_kernel_call", recorder)
+    jres._resample_strided_select(jnp.asarray(x), fac, out_len)
+    t = tres.select_tables(fac, out_len, n, impl)
+    assert t["c"] == seen["c"] and torch.equal(t["fr"], torch.as_tensor(seen["fr"].copy()))
+    xt = torch.as_tensor(x)
+    if impl == "roll2":
+        y = tres.select_lerp_reference(xt, t["origin"], t["k"], t["fr"], t["c"], t["bases"])
+    else:
+        assert torch.equal(t["k"], torch.as_tensor(seen["k"].copy()))
+        y = tres.select_lerp_reference(xt, t["origin"], t["k"], t["fr"], t["c"])
+    assert np.max(np.abs(y.numpy() - seen["out"])) <= 1.2e-7
