@@ -124,7 +124,20 @@ each; any failure raises and the script exits non-zero:
   5. determinism: two 2.0x runs, two faithful 0.5x runs, two 3.0x
      general-hop runs, two batch runs, two chunked 0.5x runs, two zrev
      runs, two N = 1000 runs and two runs of each stft.cu kernel at
-     N = 256, 1024, 4096 are bitwise equal.
+     N = 256, 1024, 4096 are bitwise equal;
+  5_bench. phase_vocoder_tpu_torch.bench.main in this process, 3 timed
+     calls a cell, on the cells of PERF.md section 4: 2.0x on 3600 s, the
+     checkpointed fused stream at 3600 s, 0.5x on 660 s (the faithful
+     route), 3.0x on 3600 s (the general route), pitch -7 st on 300 s, the
+     64-utterance batch and --scaling over the cards present at 3600 s a
+     card; each bench line printed, each gate green, 0 < vs_baseline <=
+     1.05, the card named, the route expected, and the headline's median
+     between pvoc_fused's device time of 4b and 1.5 times it.
+
+The bounds, the CUDA-event times of single calls, the profiler's device
+time and the peak memory come from phase_vocoder_tpu_torch/utils
+(metrics.bound_ms, profiling.time_calls, profile_call, peak_gb), the
+definitions the bench uses.
 
 The line before the last holds the per-kernel JSON record: each kernel's
 launches on its main path, its agreement with its plain version, its time
@@ -195,6 +208,19 @@ import time
 import numpy as np
 import torch
 
+# One definition of each measurement serves this script and the bench:
+# the bound (bytes over 3.35 TB/s or FP32 operations over 67 TFLOP/s,
+# whichever is larger), CUDA-event times of single calls, the profiler's
+# device time by kernel, and the peak device memory of a call; and the
+# inputs: the test signal and the 64-utterance batch of --batch-varied.
+from phase_vocoder_tpu_torch.bench import baseline_batch, utterance
+from phase_vocoder_tpu_torch.parallel.distributed import free_port
+from phase_vocoder_tpu_torch.utils.metrics import bound_ms as _bound
+from phase_vocoder_tpu_torch.utils.metrics import fft_flop
+from phase_vocoder_tpu_torch.utils.profiling import peak_gb as _peak_gb
+from phase_vocoder_tpu_torch.utils.profiling import profile_call as _profile_call
+from phase_vocoder_tpu_torch.utils.profiling import time_calls as _time_calls
+
 N_FFT, HOP, SR = 1024, 256, 16000
 # The FFT sizes that take stft.cu's N/2-point body (csrc/fft_real.cuh).
 POW2_SIZES = (256, 512, 1024, 2048, 4096)
@@ -202,14 +228,7 @@ POW2_SIZES = (256, 512, 1024, 2048, 4096)
 
 def _signal(seconds: float, seed: int = 0) -> np.ndarray:
     """Chirp + tone + noise, float64 in [-1, 1] (tests/conftest.py's signal)."""
-    g = np.random.default_rng(seed)
-    t = np.arange(int(seconds * SR)) / SR
-    x = (
-        0.5 * np.sin(2 * np.pi * 440.0 * t)
-        + 0.3 * np.sin(2 * np.pi * (200.0 * t + 400.0 * t * t))
-        + 0.05 * g.standard_normal(len(t))
-    )
-    return x / np.max(np.abs(x))
+    return utterance(seconds, seed, SR)
 
 
 def _tones(seconds: float) -> np.ndarray:
@@ -262,57 +281,6 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _time_calls(fn, reps: int) -> list[float]:
-    """Device time of each of `reps` calls of fn() after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return times
-
-
-def _profile_call(fn, reps: int = 1) -> dict:
-    """`reps` calls of fn() under torch.profiler, after as many traced but
-    discarded (a first traced call lost its first kernels once the process
-    had profiled before): the device kernels of one call, their summed
-    time, the span from the first kernel's start to the last one's end (one
-    stream, so the kernels do not overlap), and the time of each kernel by
-    name (the port's kernels launch through the CUDA runtime that torch
-    loaded, so the profiler sees them beside torch's); with reps > 1 each
-    is the mean over the calls, and the span covers them all, host gaps
-    between the calls included."""
-    import re
-
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.name.startswith("ProfilerStep")]  # the step's own annotation
-    _check(len(kern) > 0, "torch.profiler recorded no device kernel")
-    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-    span = (max(e.time_range.end for e in kern) - min(e.time_range.start for e in kern)) / 1e3
-    by_kernel = {}
-    for e in kern:
-        name = re.sub(r"\(.*", "", e.name.replace("(anonymous namespace)::", "")).replace("void ", "")
-        by_kernel[name] = by_kernel.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
-    return {"kernels": len(kern) / reps, "device_busy_ms": busy / reps, "device_span_ms": span,
-            "idle_share": 1.0 - busy / span, "by_kernel_ms": by_kernel}
-
-
 def _syncs_per_call(fn) -> int:
     """Host-device synchronizations one call of fn() makes, counted by
     torch.cuda.set_sync_debug_mode("warn")."""
@@ -340,15 +308,6 @@ def _spec_errors(kernel, plain) -> dict:
     spec = torch.polar(mk, pk) - torch.polar(mp, pp)
     return {"mag_rel": mag_abs / top, "mag_max_abs": mag_abs,
             "spec_rel": float(spec.abs().max()) / top}
-
-
-def _peak_gb(fn) -> float:
-    """Peak device memory (GB, all live tensors) while fn() runs."""
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fn()
-    torch.cuda.synchronize()
-    return torch.cuda.max_memory_allocated() / 1e9
 
 
 def _plain_stream(x, nf: int, rs: int, F: int, S: int):
@@ -463,22 +422,7 @@ def _emit(phase: str, **rec) -> None:
 
 
 # A real N-point FFT: 2.5 N log2 N FP32 operations.
-_FFT_FLOP = 2.5 * N_FFT * 10
-
-
-def _bound(bytes_moved: float, flop: float) -> dict:
-    """The least time the card could take: bytes over 3.35 TB/s or FP32
-    operations over 67 TFLOP/s (H100 SXM data sheet), whichever is larger."""
-    t_bytes, t_ops = bytes_moved / 3.35e12 * 1e3, flop / 67e12 * 1e3
-    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+_FFT_FLOP = fft_flop(N_FFT)
 
 
 def _rank_worker(argv: list) -> int:
@@ -514,7 +458,7 @@ def _run_ranks(world: int, timeout: float) -> list:
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="pvoc_ranks_") as tmp:
-        port = _free_port()
+        port = free_port()
         procs = [subprocess.Popen(
             [sys.executable, __file__, "--rank-worker", str(r), str(world), str(port), tmp],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
@@ -541,6 +485,11 @@ def _ab_worker(root: str) -> int:
     move and those that may. One JSON line."""
     import hashlib
 
+    # The timing helpers and input builders brought this checkout's package
+    # in; import the other checkout's in its place (the helpers need only
+    # torch and numpy).
+    for name in [m for m in sys.modules if m.split(".")[0] == "phase_vocoder_tpu_torch"]:
+        del sys.modules[name]
     sys.path.insert(0, root)
     import phase_vocoder_tpu_torch as pv
     from phase_vocoder_tpu_torch import streaming
@@ -570,10 +519,8 @@ def _ab_worker(root: str) -> int:
     seg_args = (x_long, st10.carry, st10.tail, 1, 10 * F_long, nf_long, N_FFT, HOP, 512, F_long)
     rec["pvoc_fused_segment_8192_ms"] = _time_ms(lambda: fused.fused_stream_segment(*seg_args), reps=20)
     del st10, seg_args
-    rng = np.random.default_rng(64)
-    secs = rng.uniform(5.0, 30.0, 64)
-    rows = [torch.as_tensor(_signal(float(secs[i]), seed=200 + i), dtype=torch.float32, device=dev)
-            for i in range(5, 64, 6)]  # the 2.0x utterances of chip_smoke.py's batch
+    rows = [torch.as_tensor(x, dtype=torch.float32, device=dev)
+            for x in baseline_batch(SR)[0][5::6]]  # the 2.0x utterances of chip_smoke.py's batch
     t_max = max(len(x) for x in rows)
     xb = torch.stack([torch.nn.functional.pad(x, (0, t_max - len(x))) for x in rows])
     nfs_b = [(len(x) - N_FFT) // HOP + 1 for x in rows]
@@ -1877,10 +1824,8 @@ def main() -> int:
     # ---- 4e. the parallel layer at full width
     # The BASELINE batch: 64 utterances of 5-30 s, six ratios, one batched
     # launch per synthesis hop (6 per call; 4 calls).
-    rng = np.random.default_rng(64)
-    ratios64 = [(0.5, 0.75, 1.0, 1.25, 1.5, 2.0)[i % 6] for i in range(64)]
-    xs64 = [torch.as_tensor(_signal(float(sec), seed=200 + i), dtype=torch.float32, device=dev)
-            for i, sec in enumerate(rng.uniform(5.0, 30.0, 64))]
+    xs64, ratios64 = baseline_batch(SR)
+    xs64 = [torch.as_tensor(x, dtype=torch.float32, device=dev) for x in xs64]
     audio64 = sum(len(x) for x in xs64) / SR
     run64 = lambda: pv.batch_time_stretch_varied(xs64, ratios64, cfg)  # noqa: E731
     b64 = {"utterances": 64, "audio_seconds": audio64,
@@ -2133,10 +2078,8 @@ def main() -> int:
         same = torch.equal(streaming.fused_stream_time_stretch(x60, s, cfg768, segment_frames=256),
                            fused_time_stretch(x60, 768, 192, cfg768.synthesis_hop(s)))
         _check(same, f"kernel stream differs from the monolithic kernel at N=768, {s}x")
-    rng = np.random.default_rng(64)
-    ratios64 = [(0.5, 0.75, 1.0, 1.25, 1.5, 2.0)[i % 6] for i in range(64)]
-    xs64 = [torch.as_tensor(_signal(float(sec), seed=200 + i), dtype=torch.float32, device=dev)
-            for i, sec in enumerate(rng.uniform(5.0, 30.0, 64))]
+    xs64, ratios64 = baseline_batch(SR)
+    xs64 = [torch.as_tensor(x, dtype=torch.float32, device=dev) for x in xs64]
     for x, r, y in zip(xs64, ratios64, pv.batch_time_stretch_varied(xs64, ratios64, cfg768)):
         _check(bool(torch.equal(y, fused_time_stretch(x, 768, 192, cfg768.synthesis_hop(r)))),
                f"64-utterance batch at N=768: a {r}x row differs from the single kernel")
@@ -2337,6 +2280,46 @@ def main() -> int:
                                           "general_3.0x": True, "batch_varied": True,
                                           "chunked_0.5x": True, "zrev_rs171": True,
                                           "n1000_0.5x": True, "stft_kernels_256_1024_4096": True})
+
+    # ---- 5_bench. the bench on the cells of PERF.md section 4, in this
+    # process, 3 timed calls each; each bench line is printed as it comes.
+    import contextlib
+    import io
+
+    from phase_vocoder_tpu_torch import bench
+
+    torch.cuda.empty_cache()
+    card_name = smi.rsplit(",", 1)[0].strip()
+    cells = {
+        "stretch_2x_3600s": ([], "fused"),
+        "stream_checkpoint_2x_3600s": (["--stream", "--stream-checkpoint"], "fused-stream"),
+        "faithful_0.5x_660s": (["--ratio", "0.5", "--seconds", "660"], "stream"),
+        "general_3x_3600s": (["--ratio", "3.0"], "general"),
+        "pitch_m7_300s": (["--pitch", "--semitones", "-7", "--seconds", "300"], "fused"),
+        "batch_varied_64": (["--batch-varied"], "fused-batch-varied"),
+        "scaling_2x_3600s": (["--scaling", "--seconds-per-device", "3600"], "chunked-fused1"),
+    }
+    bench_lines = {}
+    for name, (argv, path) in cells.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main(argv + ["--iters", "3"])
+        print(buf.getvalue().strip(), flush=True)
+        rec = bench_lines[name] = json.loads(buf.getvalue().strip().splitlines()[-1])
+        _check(rc == 0 and rec["allclose_pass"] is True, f"bench {name}: gate {rec}")
+        _check(0 < rec["vs_baseline"] <= 1.05, f"bench {name}: vs_baseline {rec['vs_baseline']}")
+        _check(rec["card"] == card_name, f"bench {name}: card {rec['card']!r}, not {card_name!r}")
+        _check(rec["path"] == path, f"bench {name}: path {rec['path']!r}, not {path!r}")
+    # The headline against pvoc_fused's device time at the same shape (4b).
+    fused_busy = shapes["stretch_2x_3600s"]["passes"]["device_busy_ms"]
+    head_ms = bench_lines["stretch_2x_3600s"]["ms_median"]
+    _check(fused_busy <= head_ms <= 1.5 * fused_busy,
+           f"bench headline {head_ms} ms against pvoc_fused's {fused_busy} ms of device time")
+    _emit("5_bench", card=smi, pvoc_fused_device_ms_4b=fused_busy,
+          cells={name: {k: rec.get(k) for k in ("path", "value", "ms_median", "ms_min", "vs_baseline",
+                                                 "device_busy_ms", "device_idle_share", "kernels_per_call",
+                                                 "peak_device_gb", "numpy_input_ms", "allclose_rel_err")}
+                 for name, rec in bench_lines.items()})
 
     def _row(name, source, replaces, launches, rec, max_abs, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"phase_vocoder_tpu_torch/csrc/{source}",

@@ -9,6 +9,8 @@ Usage:
   pvoc-torch batch   a.wav b.wav c.wav --ratio 2.0 --out-dir stretched/
   pvoc-torch chunked in.wav out.wav --ratio 2.0 \
       --coordinator HOST:PORT --num-processes 2 --process-id 0   # one per device
+  pvoc-torch bench   [--seconds 3600 --ratio 2.0 | --stream | --pitch | --batch |
+                      --batch-varied | --scaling]   # one JSON line (bench.py's modes)
   (add --device cpu to run the plain torch versions on the host)
 """
 
@@ -177,6 +179,12 @@ def _run_chunked(args) -> int:
     return 0
 
 
+def _run_bench(args) -> int:
+    from . import bench
+
+    return bench.run(args)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="pvoc-torch", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -238,6 +246,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multi-process: this process's rank (rank 0 writes the output)")
     _add_dsp_args(p)
     p.set_defaults(fn=_run_chunked)
+
+    from .bench import add_arguments
+
+    p = sub.add_parser("bench", help="run the throughput bench (phase_vocoder_tpu_torch.bench)")
+    add_arguments(p)
+    p.set_defaults(fn=_run_bench)
     return ap
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import datetime
 import logging
+import socket
 
 import torch
 import torch.distributed as dist
@@ -20,7 +21,15 @@ from .mesh import Mesh, make_mesh, make_mesh_2d
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["initialize", "global_mesh", "global_mesh_2d"]
+__all__ = ["initialize", "global_mesh", "global_mesh_2d", "free_port"]
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that no process listens on now: the
+    coordinator address of processes started on one host."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def initialize(
