@@ -35,6 +35,13 @@ each; any failure raises and the script exits non-zero:
          istft_frames / istft_frames_cart with a
          frame mask whose last 100 frames are 0, also at each of those
          five N, with rows r0..r1 alone bitwise equal to the whole call's;
+     2f. (run after 2e) segment_phase (csrc/phase_scan.cu, the faithful
+         stream's phase chain) against segment_phase_reference bit for bit
+         through an int32 view, and rerun bit for bit: N = 256, 1024 and
+         4096, Rs = 128/171/384 at N = 1024, F = 1, 1000, 1024, 1025 and
+         4096, first segments, mid-stream states and partial last segments
+         of a real 120 s signal, phases whose increments sit within an ulp
+         of +-pi; timed at 1024 frames, N = 1024, Rs = 128;
   3. the golden gate through the public API (60 s input):
      3a. the fused route; 3b. the branch-faithful route
          (branch_policy="faithful": stretch 0.5/1.5, pitch -7/-5 st);
@@ -58,8 +65,13 @@ each; any failure raises and the script exits non-zero:
      4c. the branch-faithful route through branch_policy="auto" on 660 s
          (41,247 frames, past the 37,500-frame reroute): time_stretch 0.5x
          and pitch_shift -7 st on the chirp+tone+noise signal, timed, with
-         kernel launches per call and per segment; istft_ola checked inside
-         the route (plain synthesis swapped in); the golden error on that
+         kernel launches per call and per segment (at most 1,000 device
+         kernels a 0.5x call) and what launched them (the scan, the mask
+         and norm, istft_ola or the matmul synthesis, the epilogue, the
+         state updates: _kernel_split); istft_ola checked inside the route
+         (plain synthesis swapped in), and segment_phase (the plain phase
+         chain swapped in: the same output bit for bit); both routes timed
+         and traced once on 3600 s; the golden error on that
          signal recorded and the golden gate run at 660 s on stationary
          tones; then stft_polar and istft_ola against their plain versions
          at those shapes; stft_fused (the cartesian analysis) called on the
@@ -160,7 +172,7 @@ needs nvcc only: compiles each csrc/*.cu as the build does, with
 -Xptxas -v, and prints every kernel's registers, stack frame and spill
 bytes as one JSON line.
 
-    python3 chip_smoke.py --ab OTHER_ROOT
+    python3 chip_smoke.py --ab OTHER_ROOT [--faithful]
 
 compares this checkout's kernels with those of another checkout of the
 repository (an earlier commit unpacked at OTHER_ROOT) on one card: four
@@ -191,8 +203,11 @@ written since the phase moved into the synthesis, is hashed as an output
 that may move. Also times pvoc_fused and zrev at Rs = 171 on 300 s,
 pitch_shift -7 st on 300 s, and select_lerp in both modes beside
 F.interpolate (per-call means and profiler device times), and records
-pvoc_terms' and the q >= 2 pvoc_fused's passes by name. Prints one JSON
-line per process and a
+pvoc_terms' and the q >= 2 pvoc_fused's passes by name. First of all
+it times the branch-faithful route (0.5x and -7 st on 660 s), traces
+one call of each (kernels, busy time, idle share, _kernel_split) and
+hashes their outputs, which must not move; --faithful stops there.
+Prints one JSON line per process and a
 summary (speed-ups, hashes, whether this checkout's phasor_istft_ola(_batch)
 are ahead of torch.istft); fails if a must-not-move hash differs or a
 may-move one differs between this checkout's two runs.
@@ -200,10 +215,12 @@ may-move one differs between this checkout's two runs.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -371,6 +388,195 @@ def _counted(counters: dict, fn, expect: dict, what: str) -> dict:
     return got
 
 
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit through an int32 view: signed zeros count."""
+    return a.shape == b.shape and bool(torch.equal(a.contiguous().view(torch.int32),
+                                                   b.contiguous().view(torch.int32)))
+
+
+def _tree_combines(n: int) -> int:
+    """Combines of ops/phase.py _associative_scan over n rows (its up and
+    down sweeps)."""
+    up = down = 0
+    s = 1
+    while n // s >= 2:
+        up += n // s // 2
+        down += (n // s - 1) // 2
+        s *= 2
+    return up + down
+
+
+def _segment_phase_flop(F: int, nb: int) -> float:
+    """FP32 operations (additions, subtractions, multiplications, ceil) of
+    one segment_phase call, counted from csrc/phase_scan.cu: 87 a term
+    (residual_term and the mask), 35 a wrap_add_c combine, 46 a row's
+    carry combine, finalize and pin; the tree over F rows padded to a
+    power of two (F <= 1024), or over 1024-row blocks, their totals and
+    the block prefixes (F > 1024)."""
+    if F <= 1024:
+        combines = _tree_combines(1 << (F - 1).bit_length())
+    else:
+        blocks = -(-F // 1024)
+        combines = blocks * _tree_combines(1024) + _tree_combines(blocks) + F
+    return float(nb * (F * (87 + 46) + 35 * combines))
+
+
+# What launched a kernel of the branch-faithful step: _kernel_split wraps
+# these functions of whichever checkout's package is loaded in profiler
+# ranges named "pvoc:<function>" for its traced call, and places each
+# kernel's launch in the ranges and torch ops that enclose it in time.
+_SPLIT_FUNCS = {
+    "streaming": ("stream_time_stretch", "_stream_scan_from", "init_state", "pad_for_segments",
+                  "flush_tail", "segment_step", "segment_phase", "istft_ola", "_mask_and_norm"),
+    "ops.phase": ("residual_terms_c", "blocked_scan", "wrap_add_c", "finalize_phase", "pin_real_bins"),
+    "ops.framing": ("ola_window_norm", "overlap_add"),
+    "ops.fft": ("irfft",),
+    "pipeline": ("analyze",),
+}
+# The first rule that matches a function between the launch and
+# segment_step names the kernel's category; ops inline in segment_step go
+# by their inputs (_inline_category).
+_STEP_CALLS = (
+    ("mask_and_norm", ("ola_window_norm", "_mask_and_norm")),
+    ("istft_ola", ("istft_ola",)),
+    ("scan", ("segment_phase", "residual_terms_c", "blocked_scan", "wrap_add_c", "finalize_phase",
+              "pin_real_bins")),
+    ("synthesis_matmul", ("irfft", "overlap_add")),
+)
+# The port's kernels by name, for launches outside every range.
+_KERNEL_NAMES = (("scan", "segment_phase"), ("istft_ola", "istft"), ("istft_ola", "ola_sum"),
+                 ("analysis", "stft"), ("resample", "resample"))
+
+
+def _by_name(kernel: str) -> str:
+    return next((c for c, key in _KERNEL_NAMES if key in kernel), f"unattributed:{kernel[:60]}")
+
+
+def _inline_category(op, F: int) -> str:
+    """An op written in segment_step itself: on 0-dim tensors (started,
+    frame_offset; not torch.arange's scalars) the state update; on a 1-D
+    tensor longer or shorter than the F frames (the OLA head and tails)
+    the epilogue's pads, adds, clamp and division; else (the frames' mask,
+    and before segment_phase the valid-term mask and the residual sum;
+    cos, sin and the frame mask of the synthesis at Rs = 171)
+    "step_inline"."""
+    shapes = [sh for sh in (getattr(op, "input_shapes", None) or []) if isinstance(sh, list)]
+    if shapes and all(len(sh) == 0 for sh in shapes) and op.name != "aten::arange":
+        return "state"
+    if any(len(sh) == 1 and sh[0] != F for sh in shapes):
+        return "epilogue"
+    return "step_inline"
+
+
+def _call_category(enclosing: list, F: int) -> str | None:
+    """The category of a launch from the events that enclose it in time,
+    outermost first: "pvoc:" ranges and torch ops. None when no range
+    encloses it."""
+    funcs, first_op = [], None
+    for e in enclosing:
+        if e.name.startswith("pvoc:"):
+            funcs.append(e.name[5:])
+            first_op = None
+        elif first_op is None and e.name.startswith("aten::"):
+            first_op = e  # the outermost op below the innermost range
+    if not funcs:
+        return None
+    if "segment_step" not in funcs:
+        return f"outside_step:{funcs[-1]}"
+    inner = funcs[funcs.index("segment_step") + 1:]
+    for cat, names in _STEP_CALLS:
+        if any(f in names for f in inner):
+            return cat
+    if inner:
+        return f"step_other:{inner[-1]}"
+    return _inline_category(first_op, F) if first_op is not None else "step_inline"
+
+
+def _categorize_launches(events, launches, F: int) -> Counter:
+    """Counts by _call_category of `launches`, (CPU time, kernel name)
+    pairs, against the intervals of the "pvoc:" ranges and torch's ops in
+    `events` (a time sweep: it needs neither the profiler's parent links
+    nor its thread ids); a launch outside every range by its name."""
+    spans = sorted(((e.time_range.start, e.time_range.end, e) for e in events
+                    if e.device_type == torch.autograd.DeviceType.CPU
+                    and e.name.startswith(("pvoc:", "aten::"))),
+                   key=lambda t: (t[0], -t[1]))
+    counts, stack, i = Counter(), [], 0
+    for t, name in sorted(launches, key=lambda x: x[0]):
+        while i < len(spans) and spans[i][0] <= t:
+            while stack and stack[-1][1] <= spans[i][0]:
+                stack.pop()
+            stack.append(spans[i])
+            i += 1
+        while stack and stack[-1][1] < t:
+            stack.pop()
+        cat = _call_category([sp[2] for sp in stack if sp[0] <= t <= sp[1]], F)
+        counts[cat or _by_name(name)] += 1
+    return counts
+
+
+def _ranged(fn, label: str):
+    def ranged(*args, **kwargs):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kwargs)
+    return ranged
+
+
+@contextlib.contextmanager
+def _split_ranges():
+    """The functions of _SPLIT_FUNCS, in the package loaded now, inside
+    "pvoc:<name>" profiler ranges while the block runs."""
+    import importlib
+
+    saved = []
+    for mod_name, names in _SPLIT_FUNCS.items():
+        mod = importlib.import_module(f"phase_vocoder_tpu_torch.{mod_name}")
+        for name in names:
+            if hasattr(mod, name):
+                saved.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, _ranged(getattr(mod, name), f"pvoc:{name}"))
+    try:
+        yield
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+
+
+def _kernel_split(fn, F: int) -> dict:
+    """Device kernels of one traced call of fn() (two calls traced and
+    discarded first, as utils/profiling.py profile_call does), counted by
+    what launched them. For the traced calls the functions of
+    _SPLIT_FUNCS, in the package loaded now, run inside "pvoc:<name>"
+    profiler ranges; each kernel's CUDA runtime call (the CPU event of the
+    same correlation id) is placed in the ranges and torch ops that
+    enclose it (_categorize_launches; F, the segment's frames, tells the
+    inline epilogue's 1-D tensors from the frames' mask). Returns the
+    counts, their total, the count of device kernels, how many were placed
+    by their runtime call, and the kernel names by count."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with _split_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True,
+                                  schedule=schedule(wait=0, warmup=2, active=1, repeat=1)) as prof:
+        for _ in range(3):
+            time.sleep(0.05)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            prof.step()
+    events = prof.events()
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    kernels = [e for e in events if e.device_type == cuda and not e.name.startswith(("ProfilerStep", "pvoc:"))]
+    runtime = {e.id: e for e in events if e.device_type == cpu and e.name.startswith("cu")}
+    launches = [(runtime[k.id].time_range.start if k.id in runtime else -1.0, k.name) for k in kernels]
+    placed = [x for x in launches if x[0] >= 0]
+    split = _categorize_launches(events, placed, F)
+    split.update(_by_name(name) for t, name in launches if t < 0)
+    return {"by_category": dict(split), "total": sum(split.values()), "device_kernels": len(kernels),
+            "placed_by_runtime_call": len(placed),
+            "by_name": dict(Counter(k.name[:90] for k in kernels).most_common(12))}
+
+
 class _Clock:
     """Accumulates the host seconds spent in wrapped functions, and the
     device seconds between CUDA events recorded around others."""
@@ -478,11 +684,14 @@ def _run_ranks(world: int, timeout: float) -> list:
         return [dict(np.load(f"{tmp}/rank{r}.npz")) for r in range(world)]
 
 
-def _ab_worker(root: str) -> int:
+def _ab_worker(root: str, faithful_only: bool = False) -> int:
     """Time the kernels of the checkout at `root` that run the analysis and
     the synthesis of csrc/pvoc_fused.cu, the synthesis beside torch.istft,
     and the stft.cu kernels as a control; hash the outputs that must not
-    move and those that may. One JSON line."""
+    move and those that may. First the branch-faithful route (0.5x and
+    -7 st on 660 s): its calls timed, one traced call's kernels, idle
+    share and kernel split, its outputs hashed (must not move); with
+    `faithful_only` nothing else. One JSON line."""
     import hashlib
 
     # The timing helpers and input builders brought this checkout's package
@@ -502,6 +711,23 @@ def _ab_worker(root: str) -> int:
     cfg = pv.PvocConfig()
     rec = {"root": root, "card": torch.cuda.get_device_name(0)}
     digest = lambda *ts: hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in ts)).hexdigest()  # noqa: E731
+    # The branch-faithful route through "auto" on 660 s (41 segments of
+    # 1024 frames): the median of 3 calls between CUDA events, one traced
+    # call, what launched its kernels, and the outputs' hashes.
+    x_ff = torch.as_tensor(_signal(660.0, seed=2), dtype=torch.float32, device=dev)
+    for name, fn in (("faithful_0.5x_660s", lambda: pv.time_stretch(x_ff, 0.5, cfg)),
+                     ("faithful_m7_660s", lambda: pv.pitch_shift(x_ff, -7.0, cfg))):
+        calls = _time_calls(fn, reps=3)
+        rec[f"{name}_ms"] = float(np.median(calls))
+        rec[f"{name}_calls"] = calls
+        prof = _profile_call(fn)
+        rec[f"{name}_profile"] = {k: prof[k] for k in ("kernels", "device_busy_ms", "device_span_ms", "idle_share")}
+        rec[f"{name}_split"] = _kernel_split(fn, streaming.DEFAULT_SEGMENT_FRAMES)
+        rec[f"hash_{name}"] = digest(fn())
+    del x_ff
+    if faithful_only:
+        print(json.dumps(rec), flush=True)
+        return 0
     hann = torch.hann_window(N_FFT, device=dev)
     x_long = torch.as_tensor(_signal(3600.0), dtype=torch.float32, device=dev)
     # The entries that run pvoc_fused.cu's analysis and synthesis passes,
@@ -753,7 +979,7 @@ def _ptxas() -> int:
     return 0
 
 
-def _ab(other: str) -> int:
+def _ab(other: str, faithful_only: bool = False) -> int:
     """Run _ab_worker for `other`, this checkout, this, `other`; summarize."""
     import os
 
@@ -761,8 +987,8 @@ def _ab(other: str) -> int:
     other = os.path.abspath(other)
     recs = []
     for root in (other, here, here, other):
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--ab-worker", root],
-                             capture_output=True, text=True, timeout=900)
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--ab-worker", root]
+                             + ["--faithful"] * faithful_only, capture_output=True, text=True, timeout=900)
         _check(out.returncode == 0, f"ab worker for {root} failed:\n{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
         recs.append(json.loads(out.stdout.strip().splitlines()[-1]))
         print(json.dumps(recs[-1]), flush=True)
@@ -781,7 +1007,7 @@ def _ab(other: str) -> int:
             summary[k] = {"this": mine, "other": theirs, "speedup": sum(theirs) / sum(mine)}
     ahead = {k: recs[1][k] < recs[1][lib] and recs[2][k] < recs[2][lib]
              for k, lib in (("phasor_istft_ola_ms", "torch_istft_ms"),
-                            ("phasor_istft_ola_batch_ms", "torch_istft_batch_ms"))}
+                            ("phasor_istft_ola_batch_ms", "torch_istft_batch_ms")) if k in recs[1]}
     peak = {k: {"this": [recs[1][k], recs[2][k]], "other": [recs[0].get(k), recs[3].get(k)]}
             for k in recs[1] if k.endswith("_peak_gb")}
     print(json.dumps({"ab_summary": summary, "bitwise_equal": same, "may_move": moved,
@@ -842,6 +1068,7 @@ def main() -> int:
         stft_polar_reference,
     )
     from phase_vocoder_tpu_torch import streaming
+    from phase_vocoder_tpu_torch.ops.phase import segment_phase, segment_phase_reference
     from phase_vocoder_tpu_torch.utils import checkpoint as ckpt
 
     dev = torch.device("cuda")
@@ -855,7 +1082,7 @@ def main() -> int:
         "phasor_istft_ola": phasor_istft_ola, "phasor_istft_ola_batch": phasor_istft_ola_batch,
         "pvoc_fused_zrev": fused_time_stretch_zrev, "resample_blocked": resample_blocked,
         "select_lerp_roll2": select_lerp_two_level, "select_lerp": select_lerp,
-        "stft_fused": stft_fused,
+        "stft_fused": stft_fused, "segment_phase": segment_phase,
     }
 
     # ---- 1. card, versions, build
@@ -1283,6 +1510,104 @@ def main() -> int:
                   "synthesis": 1e-5})
     del mag_s, pre_s, pim_s, kb, a, b
 
+    # ---- 2f. segment_phase (csrc/phase_scan.cu) against its plain version,
+    # bit for bit through an int32 view, and a rerun bit for bit: N = 256,
+    # 1024 and 4096 (hop N/4); Rs = 128, 171 and 384 at N = 1024; F = 1,
+    # 1000, 1024, 1025 and 4096; first segments (frame 0, not started),
+    # mid-stream states and partial last segments of real 120 s signals;
+    # phases whose increments sit within an ulp of +-pi.
+    x120 = torch.as_tensor(_signal(120.0, seed=5), dtype=torch.float32, device=dev)
+    sp = {}
+
+    def sp_check(name, phi, st, **kw):
+        args = (phi, st.phi_prev, st.psi_carry, st.psi_carry_lo, st.phi0)
+        k = segment_phase(*args, **kw)
+        p = segment_phase_reference(*args, **kw)
+        again = segment_phase(*args, **kw)
+        rec = {"F": phi.shape[0], "n_valid": kw["n_valid"], "frame_offset": kw["frame_offset"],
+               "bitwise": all(_bits_equal(a, b) for a, b in zip(k, p)),
+               "rerun_bitwise": all(_bits_equal(a, b) for a, b in zip(k, again)),
+               "psi_max_abs": float((k[0] - p[0]).abs().max()),
+               "psi_negative_zeros": int((k[0].view(torch.int32) == -(2 ** 31)).sum())}
+        sp[name] = rec
+        _check(rec["bitwise"] and rec["rerun_bitwise"], f"segment_phase vs plain, {name}: {rec}")
+
+    def real_case(n, rs, F, segs, F_state=None, rows=None):
+        """The segment after `segs` segments of F_state frames of x120's
+        stream (a state the kernel made), its first `rows` rows (F)."""
+        cfg_n = pv.PvocConfig(n_fft=n, hop=n // 4)
+        F_state = F_state or F
+        nf = (len(x120) - n) // (n // 4) + 1
+        S = -(-nf // F_state)
+        x_pad = streaming.pad_for_segments(x120, cfg_n, F_state, S)
+        st = streaming.init_state(cfg_n, rs, device=dev)
+        if segs:
+            _, st = streaming._stream_scan_from(x_pad, st, nf, cfg_n, rs, F_state, segs)
+        g = segs * F_state
+        _, phi_all = pv.pipeline.analyze(x_pad, cfg_n)
+        rows = rows or F
+        phi = phi_all[g : g + rows].contiguous()
+        if phi.shape[0] < rows:
+            phi = torch.cat([phi, phi_all[: rows - phi.shape[0]]])
+        kw = dict(ra=n // 4, rs=rs, n_fft=n, frame_offset=g, n_valid=min(rows, max(nf - g, 0)),
+                  started=segs > 0)
+        sp_check(f"N{n}_rs{rs}_F{rows}_after{segs}x{F_state}", phi, st, **kw)
+        return phi, st, kw
+
+    for rs in (128, 171, 384):
+        for segs in (0, 2, 7):  # the first, a mid-stream and the last (partial) segment
+            real_case(N_FFT, rs, 1024, segs)
+    for F in (1, 1000, 1025, 4096):
+        real_case(N_FFT, 171, F, 0, F_state=1024, rows=F)
+        real_case(N_FFT, 171, F, 1, F_state=1024, rows=F)
+    real_case(N_FFT, 171, 1000, 7, F_state=1000)  # 7497 frames: 497 real of 1000
+    real_case(N_FFT, 171, 1025, 7, F_state=1025)  # 322 real of 1025
+    for n in (256, 4096):
+        for rs in (n // 8, round(171 * n / 1024)):
+            for segs in (0, 1):
+                real_case(n, rs, 1024, segs)
+    # Phases whose heterodyned increments sit within an ulp of +-pi: a
+    # running sum of (omega_k Ra +- pi) in float64, wrapped, rounded to
+    # float32 and nudged by one ulp either way at random.
+    gnp = np.random.default_rng(7)
+    for n, rs, F in ((N_FFT, 128, 1024), (256, 171, 1000)):
+        nb_n, ra_n = n // 2 + 1, n // 4
+        het = ((np.arange(nb_n) * ra_n) % n) * (2 * np.pi / n)
+        steps = np.where(gnp.random((F, nb_n)) < 0.5, np.pi, -np.pi) + het
+        ph = np.angle(np.exp(1j * (gnp.uniform(-np.pi, np.pi, nb_n) + np.cumsum(steps, 0)))).astype(np.float32)
+        ph = np.where(gnp.random(ph.shape) < 0.5, np.nextafter(ph, np.float32(np.inf)),
+                      np.nextafter(ph, np.float32(-np.inf))).astype(np.float32)
+        cfg_n = pv.PvocConfig(n_fft=n, hop=ra_n)
+        st = streaming.init_state(cfg_n, rs, device=dev)
+        st.phi_prev = torch.as_tensor(ph[-1], device=dev)
+        phi = torch.as_tensor(ph, device=dev)
+        sp_check(f"near_pi_N{n}_rs{rs}_F{F}", phi, st, ra=ra_n, rs=rs, n_fft=n, frame_offset=5 * F,
+                 n_valid=F, started=True)
+        sp_check(f"near_pi_N{n}_rs{rs}_F{F}_first", phi, st, ra=ra_n, rs=rs, n_fft=n, frame_offset=0,
+                 n_valid=F - 3, started=False)
+    # Timed at the main path's shape: a mid-stream 1024-frame segment at
+    # N = 1024, Rs = 128 (0.5x): the mean of 101 single calls between CUDA
+    # events (the wrapper's host time included), the device time of 101
+    # calls from one torch.profiler trace, the plain version's calls.
+    phi_m, st_m, kw_m = real_case(N_FFT, 128, 1024, 2)
+    args_m = (phi_m, st_m.phi_prev, st_m.psi_carry, st_m.psi_carry_lo, st_m.phi0)
+    nb = N_FFT // 2 + 1
+    sp_prof = _profile_call(lambda: segment_phase(*args_m, **kw_m), reps=101)
+    _check(sorted(sp_prof["by_kernel_ms"]) == ["segment_phase_kernel"] and sp_prof["kernels"] == 1,
+           f"segment_phase launches {sp_prof}")
+    sp_main = {
+        "frames": 1024, "max_abs": 0.0,
+        "ms": sp_prof["device_busy_ms"],
+        "events_ms": _time_ms(lambda: segment_phase(*args_m, **kw_m), reps=101),
+        "plain_ms": _time_ms(lambda: segment_phase_reference(*args_m, **kw_m), reps=5),
+        "library_ms": None,
+        # phi in, psi out, six nb-vectors in (phi_prev, carry, phi0, het
+        # hi and lo), the carry out.
+        **_bound(4 * (2 * 1024 * nb + 8 * nb), _segment_phase_flop(1024, nb)),
+    }
+    _emit("2f_segment_phase_vs_plain", cases=sp, all_bitwise=True, main_shape=sp_main)
+    del x120
+
     # ---- 3. golden gate through the public API, 60 s
     gate = {}
     for s in (0.5, 1.0, 2.0):
@@ -1513,12 +1838,12 @@ def main() -> int:
         "stretch_0.5x_660s": lambda: pv.time_stretch(x_ff, 0.5, cfg),
         "pitch_m7_660s": lambda: pv.pitch_shift(x_ff, -7.0, cfg),
     }
-    # Per call: one stft_polar over the padded recording; one istft_ola per
-    # segment at Rs = 128 (Rs = 171 does not divide N: no istft_ola); no
-    # pvoc_fused, since "auto" reroutes.
+    # Per call: one stft_polar over the padded recording; one segment_phase
+    # per segment; one istft_ola per segment at Rs = 128 (Rs = 171 does not
+    # divide N: no istft_ola); no pvoc_fused, since "auto" reroutes.
     ff_expect = {
-        "stretch_0.5x_660s": {"stft_polar": 4, "istft_ola": 4 * segments},
-        "pitch_m7_660s": {"stft_polar": 4, "resample_lerp": 4},
+        "stretch_0.5x_660s": {"stft_polar": 4, "istft_ola": 4 * segments, "segment_phase": 4 * segments},
+        "pitch_m7_660s": {"stft_polar": 4, "resample_lerp": 4, "segment_phase": 4 * segments},
     }
     ff, ff_launches = {}, {}
     for name, fn in ff_runs.items():
@@ -1544,6 +1869,19 @@ def main() -> int:
     ff["stretch_0.5x_660s"]["vs_plain_synthesis_rel"] = _rel(y, y_plain_synth)
     _check(ff["stretch_0.5x_660s"]["vs_plain_synthesis_rel"] < 1e-5,
            f"faithful 0.5x, kernel vs plain synthesis: {ff['stretch_0.5x_660s']['vs_plain_synthesis_rel']:.3e}")
+    # segment_phase inside the route at full size: the same runs with the
+    # plain phase chain swapped in must give the same output, bit for bit.
+    for name, fn in ff_runs.items():
+        y_k = y if name == "stretch_0.5x_660s" else fn()
+        streaming.segment_phase = segment_phase_reference
+        try:
+            y_plain_scan = fn()
+        finally:
+            streaming.segment_phase = segment_phase
+        ff[name]["vs_plain_scan_bitwise"] = _bits_equal(y_k, y_plain_scan)
+        _check(bool(torch.equal(y_k, y_plain_scan)) and ff[name]["vs_plain_scan_bitwise"],
+               f"{name}: segment_phase vs the plain phase chain inside the route differ")
+        del y_k, y_plain_scan
     # Golden error on this signal, recorded: at 660 s its chirp has aliased
     # many times over and q >= 2 branch choices in near-silent bins follow
     # the last bit of any f32 analysis (the JAX package's own polar route
@@ -1573,6 +1911,30 @@ def main() -> int:
     ff["profile_0.5x"] = prof
     ff["kernels_per_segment"] = prof["kernels"] / segments
     ff["segments"] = segments
+    print(f"faithful 0.5x / 660 s: {prof['kernels']:.0f} kernels a call, "
+          f"{ff['kernels_per_segment']:.2f} a segment over {segments} segments", flush=True)
+    _check(prof["kernels"] <= 1000, f"the faithful 0.5x call launches {prof['kernels']} kernels")
+    ff["profile_m7"] = _profile_call(ff_runs["pitch_m7_660s"])
+    ff["kernels_per_segment_m7"] = ff["profile_m7"]["kernels"] / segments
+    # What launched them, from one more traced call each (Python stacks):
+    # the scan, the mask and window norm, istft_ola or the matmul
+    # synthesis, the epilogue, the state updates, and outside the step.
+    ff["split_0.5x"] = _kernel_split(ff_runs["stretch_0.5x_660s"], streaming.DEFAULT_SEGMENT_FRAMES)
+    ff["split_m7"] = _kernel_split(ff_runs["pitch_m7_660s"], streaming.DEFAULT_SEGMENT_FRAMES)
+    # The faithful route on 3600 s (224,997 frames, 220 segments) at 0.5x
+    # and -7 st: one timed call after a warm-up, and one traced call.
+    hour = {}
+    for name, fn in (("stretch_0.5x_3600s", lambda: pv.time_stretch(x_long, 0.5, cfg)),
+                     ("pitch_m7_3600s", lambda: pv.pitch_shift(x_long, -7.0, cfg))):
+        hour[name] = {"ms": _time_calls(fn, reps=1)[0], **_profile_call(fn)}
+        hour[name]["audio_s_per_s"] = 3600.0 / (hour[name]["ms"] / 1e3)
+        y = fn()
+        _check(bool(torch.isfinite(y).all()), f"{name}: non-finite output")
+        hour[name]["length"] = len(y)
+        del y
+    _check(hour["stretch_0.5x_3600s"]["length"] == pv.stretch_output_length(len(x_long), cfg, 0.5),
+           "faithful 0.5x / 3600 s length")
+    ff["faithful_3600s"] = hour
     ff["syncs_per_call"] = _syncs_per_call(ff_runs["stretch_0.5x_660s"])
     _check(ff["syncs_per_call"] <= 2, f"the faithful route synchronizes {ff['syncs_per_call']} times a call")
     _emit("4c_faithful_main_path", card=smi, seconds=ff_sec, frames=nf_ff,
@@ -2283,7 +2645,6 @@ def main() -> int:
 
     # ---- 5_bench. the bench on the cells of PERF.md section 4, in this
     # process, 3 timed calls each; each bench line is printed as it comes.
-    import contextlib
     import io
 
     from phase_vocoder_tpu_torch import bench
@@ -2343,6 +2704,8 @@ def main() -> int:
              fused_main, fused_main["max_abs"]),
         _row("istft_ola", "stft.cu", "ops/pallas/stft.py:207", ff_launches["stretch_0.5x_660s"]["istft_ola"],
              istft_main["segment_1024"], istft_main["segment_1024"]["max_abs"]),
+        _row("segment_phase", "phase_scan.cu", "streaming.py:115-128 (XLA, no Pallas kernel)",
+             ff_launches["stretch_0.5x_660s"]["segment_phase"], sp_main, sp_main["max_abs"]),
         _row("pvoc_fused_segment", "pvoc_fused.cu", "ops/pallas/fused.py:1886",
              fs["launches"]["pvoc_fused_segment"], seg_main, seg_main["max_abs"]),
         _row("pvoc_terms", "pvoc_fused.cu", "ops/pallas/fused.py:713",
@@ -2385,5 +2748,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] in (["--ab"], ["--ab-worker"]):
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-        sys.exit(_ab(sys.argv[2]) if sys.argv[1] == "--ab" else _ab_worker(sys.argv[2]))
+        only = sys.argv[3:4] == ["--faithful"]
+        sys.exit(_ab(sys.argv[2], only) if sys.argv[1] == "--ab" else _ab_worker(sys.argv[2], only))
     sys.exit(main())

@@ -80,6 +80,10 @@ _SIGNATURES = {
     "istft_ola": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
     # a, b, mask, fft table, frames, nf, n_fft, polar, stream
     "istft_frames": [_P, _P, _P, _P, _P, _LL, _I, _I, _P],
+    # phi, phi_prev, carry hi/lo, phi0, het hi/lo, psi, carry out, block
+    # totals, F, nb, n_fft, rs mod n_fft, frame offset, offset mod n_fft,
+    # n_valid, the host array of PhaseConsts, stream
+    "segment_phase": [*[_P] * 10, _I, _I, _I, _I, _LL, _I, _I, _P, _P],
 }
 
 

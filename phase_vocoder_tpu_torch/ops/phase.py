@@ -22,14 +22,22 @@ Two accumulation methods:
     with the residual sum carried as a compensated (hi, lo) float32 pair
     (TwoSum/Dekker, ~2^-48 effective precision) through blocked_scan, which
     mirrors jax.lax.associative_scan's odd/even tree.
+
+segment_phase is one streaming segment's whole chain (terms, mask, scan,
+carry, finalize, pin): for a CUDA tensor one launch of the segment_phase
+kernel (csrc/phase_scan.cu), bitwise segment_phase_reference, the same
+chain in plain torch.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
+
+from . import _build
 
 TWO_PI = 6.283185307179586
 
@@ -173,6 +181,18 @@ def wrap_add_c(a, b):
     return _wrap_pair(s, al + bl + e)
 
 
+def _scale_consts(rs: int, ra: int) -> tuple[float, float, float, float]:
+    """The host constants of _scale_pair, each a float32 value: the scale
+    k32 = fl(rs/ra), its 12+12 mantissa-bit halves, and the f64 residue
+    rs/ra - k32 rounded to f32."""
+    k64 = rs / ra
+    k32 = np.float32(k64)
+    kc = np.float32(np.float32(4097.0) * k32)
+    k_hi = np.float32(kc - np.float32(kc - k32))
+    k_lo = np.float32(k32 - k_hi)
+    return float(k32), float(k_hi), float(k_lo), float(np.float32(k64 - float(k32)))
+
+
 def _scale_pair(rs: int, ra: int, h, l):
     """(rs/ra) * (h + l) as a compensated pair, exact for any rs, ra.
 
@@ -181,19 +201,12 @@ def _scale_pair(rs: int, ra: int, h, l):
     product is exact; the f64 residue rs/ra - k32 (nonzero when ra is not a
     power of two) is folded into the lo word.
     """
-    k64 = rs / ra
-    k32 = np.float32(k64)
-    kc = np.float32(np.float32(4097.0) * k32)
-    k_hi = np.float32(kc - np.float32(kc - k32))
-    k_lo = np.float32(k32 - k_hi)
-    k = float(k32)
+    k, kh, kl, k_err = _scale_consts(rs, ra)
     p = k * h
     c = 4097.0 * h
     h_hi = c - (c - h)
     h_lo = h - h_hi
-    kh, kl = float(k_hi), float(k_lo)
     err = ((kh * h_hi - p) + kh * h_lo + kl * h_hi) + kl * h_lo
-    k_err = float(np.float32(k64 - float(k32)))
     return p, k * l + err + k_err * h
 
 
@@ -248,7 +261,11 @@ def _associative_scan(fn, elems: tuple) -> tuple:
     return tuple(out)
 
 
-def blocked_scan(fn, terms: tuple, block: int = 1024, identity: tuple | None = None) -> tuple:
+# Rows of one tree scan in blocked_scan's two-level structure.
+_SCAN_BLOCK = 1024
+
+
+def blocked_scan(fn, terms: tuple, block: int = _SCAN_BLOCK, identity: tuple | None = None) -> tuple:
     """Inclusive associative scan over dim 0 in the JAX package's two-level
     block structure.
 
@@ -326,3 +343,121 @@ def finalize_phase(
         nf, n_bins, rs, n_fft, frame_offset, dtype=residual.dtype, device=residual.device
     )
     return princarg(phi0[None, :] + linear + residual)
+
+
+# ------------------------------------------------- one streaming segment
+
+
+def segment_phase_reference(
+    phi: torch.Tensor,
+    phi_prev: torch.Tensor,
+    carry_hi: torch.Tensor,
+    carry_lo: torch.Tensor,
+    phi0: torch.Tensor,
+    *,
+    ra: int,
+    rs: int,
+    n_fft: int,
+    frame_offset: int,
+    n_valid: int,
+    started: bool,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Synthesis phase of one streaming segment (counterpart of
+    phase_vocoder_tpu/streaming.py:115-128, which XLA compiles into the
+    segment step's scan): plain torch, op for op.
+
+    phi: (F, nb) analysis phases of the segment's frames; phi_prev (nb,)
+    the previous segment's last valid row; (carry_hi, carry_lo) the
+    compensated residual carried in; phi0 the recording's first-frame
+    phase, used when `started` (else phi[0] is). frame_offset is the global
+    index of frame 0 and n_valid the count of real frames. Term j is the
+    step into frame g+j, zero (the pair identity) for the recording's
+    first frame and for padding frames; the 0/1 mask is a multiply, so a
+    negative term becomes -0.0. Returns psi (F, nb) and the carry out, row
+    F-1 of the compensated residual.
+    """
+    F = phi.shape[0]
+    g = frame_offset
+    phi_ext = torch.cat([phi_prev[None, :], phi])  # (F+1, nb)
+    th, tl = residual_terms_c(phi_ext, ra, rs, n_fft)
+    j = torch.arange(F, device=phi.device)
+    valid_term = ((j < n_valid) & ((g + j) > 0))[:, None].to(phi.dtype)
+    th, tl = th * valid_term, tl * valid_term
+
+    incl = blocked_scan(wrap_add_c, (th, tl))
+    res_h, res_l = wrap_add_c((carry_hi[None, :], carry_lo[None, :]), incl)
+    residual = res_h + res_l
+
+    phi0 = phi0 if started else phi[0]
+    psi = finalize_phase(phi0, residual, rs, n_fft, frame_offset=g)
+    psi = pin_real_bins(psi, phi, rs, n_fft, frame_offset=g)
+    return psi, res_h[-1], res_l[-1]
+
+
+@functools.lru_cache(maxsize=64)
+def _segment_consts(ra: int, rs: int, n_fft: int):
+    """The float32 constants of segment_phase_reference's arithmetic, in
+    the order of csrc/phase_scan.cu's PhaseConsts, as a ctypes array: each
+    Python double rounded to float32 as torch rounds a scalar operand."""
+    vals = [1.0 / TWO_PI, _TWO_PI_HI, _TWO_PI_LO, _HI12A, _HI12B, TWO_PI / n_fft,
+            *_scale_consts(rs, ra)]
+    return (ctypes.c_float * len(vals))(*(float(np.float32(v)) for v in vals))
+
+
+
+def segment_phase(
+    phi: torch.Tensor,
+    phi_prev: torch.Tensor,
+    carry_hi: torch.Tensor,
+    carry_lo: torch.Tensor,
+    phi0: torch.Tensor,
+    *,
+    ra: int,
+    rs: int,
+    n_fft: int,
+    frame_offset: int,
+    n_valid: int,
+    started: bool,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """segment_phase_reference in one launch: for a CUDA tensor the
+    segment_phase kernel of csrc/phase_scan.cu (the residual terms, the
+    compensated pair scan in blocked_scan's tree, the carry, finalize and
+    pin, bitwise the plain version's), counting one launch in
+    `segment_phase.launches`; for a CPU tensor segment_phase_reference.
+    A CUDA tensor launches the kernel for every F or raises."""
+    if phi.dim() != 2 or phi.shape[0] == 0 or phi.shape[1] != n_fft // 2 + 1 or n_fft % 2:
+        raise ValueError(f"segment_phase: phi must be (F >= 1, {n_fft // 2 + 1}), got {tuple(phi.shape)}")
+    args = dict(ra=ra, rs=rs, n_fft=n_fft, frame_offset=frame_offset, n_valid=n_valid, started=started)
+    if phi.device.type == "cpu":
+        return segment_phase_reference(phi, phi_prev, carry_hi, carry_lo, phi0, **args)
+    from .stft import _check_cuda  # not at the top: ops/stft.py imports this module (via ops/fused.py)
+
+    F, nb = phi.shape
+
+    for t in (phi, phi_prev, carry_hi, carry_lo, phi0):
+        _check_cuda(t, "segment_phase")
+    for t in (phi_prev, carry_hi, carry_lo, phi0):
+        if t.shape != (nb,):
+            raise ValueError(f"segment_phase: state vectors must be ({nb},), got {tuple(t.shape)}")
+    psi = torch.empty_like(phi)
+    carry = torch.empty((2, nb), dtype=torch.float32, device=phi.device)
+    # Block totals of the two-level scan (F > 1024 only).
+    blocks = -(-F // _SCAN_BLOCK) if F > _SCAN_BLOCK else 0
+    totals = torch.empty((2, blocks, nb), dtype=torch.float32, device=phi.device) if blocks else None
+    het_hi, het_lo = _het_split(ra, n_fft, nb, phi.device)
+    lib = _build.kernels()
+    with torch.cuda.device(phi.device):
+        rc = lib.segment_phase(
+            phi.data_ptr(), phi_prev.data_ptr(), carry_hi.data_ptr(), carry_lo.data_ptr(),
+            (phi0 if started else phi).data_ptr(), het_hi.data_ptr(), het_lo.data_ptr(),
+            psi.data_ptr(), carry.data_ptr(), totals.data_ptr() if blocks else None,
+            F, nb, n_fft, rs % n_fft, frame_offset, frame_offset % n_fft,
+            min(max(n_valid, 0), F), _segment_consts(ra, rs, n_fft),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(rc, "segment_phase")
+    segment_phase.launches += 1
+    return psi, carry[0], carry[1]
+
+
+segment_phase.launches = 0

@@ -29,20 +29,25 @@ the loop needs (valid frames, frame offsets, the row of phi_prev) are
 Python ints kept on the host beside the state, so the loop never reads a
 device value back. The analysis carries no state, so it runs once over the
 whole padded signal and each segment takes its rows: per frame the same
-arithmetic as analysing segment by segment, bit for bit.
+arithmetic as analysing segment by segment, bit for bit. A segment's
+phase chain (terms, compensated scan, carry, finalize, pin) is one call
+of ops/phase.py segment_phase, one kernel launch on the card, and a
+whole segment's frame mask and window norm come from a cache.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from . import pipeline
 from .config import PvocConfig
 from .ops import fft as fft_ops
-from .ops import framing, phase
+from .ops import framing
 from .ops.fused import SCAN_CHUNK, fused_stream_segment, init_carry, segment_workspace
+from .ops.phase import segment_phase
 from .ops.stft import istft_ola
 from .ops.window import hann_window
 
@@ -132,40 +137,27 @@ def segment_step(
     g = int(state.frame_offset) if frame_offset is None else frame_offset
     started = bool(state.started) if started is None else started
 
-    # Terms T[j]: the step into frame g+j. T[0] crosses the segment boundary
-    # (uses phi_prev); it is zero for the first frame of the recording, as
-    # are the terms of padding frames (the pair identity).
-    phi_ext = torch.cat([state.phi_prev[None, :], phi])  # (F+1, nb)
-    th, tl = phase.residual_terms_c(phi_ext, ra, rs, n)
-    j = torch.arange(F, device=dev)
-    valid_term = ((j < n_valid) & ((g + j) > 0))[:, None].to(dtype)
-    th, tl = th * valid_term, tl * valid_term
-
-    incl = phase.blocked_scan(phase.wrap_add_c, (th, tl))
-    res_h, res_l = phase.wrap_add_c(
-        (state.psi_carry[None, :], state.psi_carry_lo[None, :]), incl
+    # The synthesis phase (ops/phase.py segment_phase: the segment_phase
+    # kernel on the card). Term j is the step into frame g+j; T[0] crosses
+    # the segment boundary (from phi_prev); it is zero for the first frame
+    # of the recording, as are the terms of padding frames.
+    psi, carry_hi, carry_lo = segment_phase(
+        phi, state.phi_prev, state.psi_carry, state.psi_carry_lo, state.phi0,
+        ra=ra, rs=rs, n_fft=n, frame_offset=g, n_valid=n_valid, started=started,
     )
-    residual = res_h + res_l
-
     phi0 = state.phi0 if started else phi[0]
-    psi = phase.finalize_phase(phi0, residual, rs, n, frame_offset=g)
-    psi = phase.pin_real_bins(psi, phi, rs, n, frame_offset=g)
 
-    mask = (j < n_valid).to(dtype)
-    w = hann_window(n, dev, dtype)
+    mask, norm = _mask_and_norm(F, n_valid, n, rs, cfg.ola_method, dtype, dev)
     if pipeline.fused_synthesis_ok(cfg, rs):
         ola = istft_ola(mag, psi, n, rs, frame_mask=mask)
     else:
         y_re = mag * torch.cos(psi)
         y_im = mag * torch.sin(psi)
         if cfg.fft_backend == "xla":
-            y_frames = fft_ops.irfft(y_re, y_im, n, backend="xla") * w
+            y_frames = fft_ops.irfft(y_re, y_im, n, backend="xla") * hann_window(n, dev, dtype)
         else:  # "matmul", and the fused backend when rs does not divide n
             y_frames = fft_ops.irfft(y_re, y_im, n, backend="matmul", fused_window=True)
         ola = framing.overlap_add(y_frames * mask[:, None], rs, method=cfg.ola_method)
-    norm = framing.ola_window_norm(
-        w, F, rs, eps=0.0, method=cfg.ola_method, frame_mask=mask
-    )
 
     pad = (0, F * rs - (n - rs))
     main = ola[: F * rs] + torch.nn.functional.pad(state.ola_tail, pad)
@@ -175,8 +167,8 @@ def segment_step(
     advance = min(n_valid, F)
     new_state = StreamState(
         phi_prev=phi[advance - 1],
-        psi_carry=res_h[-1],
-        psi_carry_lo=res_l[-1],
+        psi_carry=carry_hi,
+        psi_carry_lo=carry_lo,
         phi0=phi0,
         ola_tail=ola[F * rs :],
         norm_tail=norm[F * rs :],
@@ -184,6 +176,27 @@ def segment_step(
         frame_offset=state.frame_offset + advance,
     )
     return main_out, new_state
+
+
+def _with_norm(mask: torch.Tensor, n_fft: int, rs: int, method: str):
+    w = hann_window(n_fft, mask.device, mask.dtype)
+    return mask, framing.ola_window_norm(w, mask.shape[0], rs, eps=0.0, method=method, frame_mask=mask)
+
+
+@functools.lru_cache(maxsize=16)
+def _full_mask_and_norm(F: int, n_fft: int, rs: int, method: str, dtype, device: str):
+    return _with_norm(torch.ones((F,), dtype=dtype, device=device), n_fft, rs, method)
+
+
+def _mask_and_norm(F: int, n_valid: int, n_fft: int, rs: int, method: str, dtype, device):
+    """The segment's frame mask (F,) and its overlap-added window energy
+    (unclamped). A whole segment's depend only on (F, n_fft, rs, method,
+    dtype, device) and come from a cache, so a stream computes them once;
+    a partial segment's are computed as before. Callers must not modify
+    either in place."""
+    if n_valid >= F:
+        return _full_mask_and_norm(F, n_fft, rs, method, dtype, str(torch.device(device)))
+    return _with_norm((torch.arange(F, device=device) < n_valid).to(dtype), n_fft, rs, method)
 
 
 def _stream_scan_from(
