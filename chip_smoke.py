@@ -41,7 +41,11 @@ each; any failure raises and the script exits non-zero:
          4096, Rs = 128/171/384 at N = 1024, F = 1, 1000, 1024, 1025 and
          4096, first segments, mid-stream states and partial last segments
          of a real 120 s signal, phases whose increments sit within an ulp
-         of +-pi; timed at 1024 frames, N = 1024, Rs = 128;
+         of +-pi, and the edges of the kernel's schedule (F = 2, 7, 8, 9,
+         33, 65, 257, 513: trees below, at and past a thread's 8 rows and
+         a warp's 256; 1030: blocked, not a multiple of 8); timed at 1024
+         frames, N = 1024, Rs = 128 (device time, and the wrapper's host
+         time as events - device), and at N = 256 and 4096;
   3. the golden gate through the public API (60 s input):
      3a. the fused route; 3b. the branch-faithful route
          (branch_policy="faithful": stretch 0.5/1.5, pitch -7/-5 st);
@@ -87,7 +91,8 @@ each; any failure raises and the script exits non-zero:
          route (time_stretch
          3.0x on 3600 s, pitch_shift +19 st on 300 s) and the polar stages
          at Rs = 171 on 300 s, timed, with their kernels against the plain
-         versions at those shapes;
+         versions at those shapes; one 8192-frame segment of the fused
+         stream (pvoc_fused_segment) by device time;
      4e. the parallel layer: the BASELINE batch (64 utterances of 5-30 s,
          ratios 0.5-2.0) through batch_time_stretch_varied, rows against
          the single-recording kernel; chunked_time_stretch(force=True) at
@@ -132,7 +137,8 @@ each; any failure raises and the script exits non-zero:
          "mxu" result), fused_time_stretch(zrev=True) at 2.0x on 3600 s and
          at Rs = 171 on 300 s, time_stretch 2.0x on 3600 s at N = 1536 and
          the other three sizes beside N = 1024; then the four new kernels
-         against their plain versions at those shapes, timed;
+         against their plain versions at those shapes, timed
+         (resample_blocked bitwise);
   5. determinism: two 2.0x runs, two faithful 0.5x runs, two 3.0x
      general-hop runs, two batch runs, two chunked 0.5x runs, two zrev
      runs, two N = 1000 runs and two runs of each stft.cu kernel at
@@ -170,7 +176,8 @@ is the worker of the two-rank phase (4e).
 
 needs nvcc only: compiles each csrc/*.cu as the build does, with
 -Xptxas -v, and prints every kernel's registers, stack frame and spill
-bytes as one JSON line.
+bytes as one JSON line; fails if segment_phase_kernel or
+resample_blocked_kernel spills.
 
     python3 chip_smoke.py --ab OTHER_ROOT [--faithful]
 
@@ -206,7 +213,10 @@ F.interpolate (per-call means and profiler device times), and records
 pvoc_terms' and the q >= 2 pvoc_fused's passes by name. First of all
 it times the branch-faithful route (0.5x and -7 st on 660 s), traces
 one call of each (kernels, busy time, idle share, _kernel_split) and
-hashes their outputs, which must not move; --faithful stops there.
+hashes their outputs, which must not move; then times segment_phase at
+2f's main shape and resample_blocked at the -7 st / 300 s shape (device
+time and per-call events) and hashes their outputs, which must not move;
+--faithful stops there.
 Prints one JSON line per process and a
 summary (speed-ups, hashes, whether this checkout's phasor_istft_ola(_batch)
 are ahead of torch.istft); fails if a must-not-move hash differs or a
@@ -725,6 +735,34 @@ def _ab_worker(root: str, faithful_only: bool = False) -> int:
         rec[f"{name}_split"] = _kernel_split(fn, streaming.DEFAULT_SEGMENT_FRAMES)
         rec[f"hash_{name}"] = digest(fn())
     del x_ff
+    # segment_phase at 2f's main shape (1024 frames, N = 1024, Rs = 128, a
+    # mid-stream state, seeded phases) and resample_blocked at the -7 st /
+    # 300 s shape (the q >= 2 stretch's output, itself a must-not-move
+    # hash below): the device time of 101 calls in one trace, the mean of
+    # 101 single calls between CUDA events, and the outputs' hashes (must
+    # not move).
+    from phase_vocoder_tpu_torch.ops import phase as phase_ops
+
+    gp = np.random.default_rng(11)
+    nb = N_FFT // 2 + 1
+    ph_u = lambda *s: torch.as_tensor(gp.uniform(-np.pi, np.pi, s).astype(np.float32), device=dev)  # noqa: E731
+    sp_args = (ph_u(1024, nb), ph_u(nb), ph_u(nb),
+               torch.as_tensor((gp.standard_normal(nb) * 1e-7).astype(np.float32), device=dev), ph_u(nb))
+    sp_kw = dict(ra=HOP, rs=128, n_fft=N_FFT, frame_offset=2048, n_valid=1024, started=True)
+    sp_fn = lambda: phase_ops.segment_phase(*sp_args, **sp_kw)  # noqa: E731
+    rec["segment_phase_2f_device_ms"] = _profile_call(sp_fn, reps=101)["device_busy_ms"]
+    rec["segment_phase_2f_events_ms"] = _time_ms(sp_fn, reps=101)
+    rec["hash_segment_phase_2f"] = digest(*sp_fn())
+    x_p = torch.as_tensor(_signal(300.0, seed=1), dtype=torch.float32, device=dev)
+    factor = 2.0 ** (-7 / 12)
+    y_p = fused.fused_time_stretch(x_p, N_FFT, HOP, cfg.synthesis_hop(factor))
+    n_out = int(round(len(y_p) / factor))
+    bt = resample.block_tables(1.0 / factor, n_out, dev)
+    rb_fn = lambda: resample.resample_blocked(y_p, *bt, n_out)  # noqa: E731
+    rec["resample_blocked_m7_device_ms"] = _profile_call(rb_fn, reps=101)["device_busy_ms"]
+    rec["resample_blocked_m7_events_ms"] = _time_ms(rb_fn, reps=101)
+    rec["hash_resample_blocked_m7"] = digest(rb_fn())
+    del sp_args, x_p, y_p, bt
     if faithful_only:
         print(json.dumps(rec), flush=True)
         return 0
@@ -976,6 +1014,9 @@ def _ptxas() -> int:
         names = subprocess.run([filt], input="\n".join(res), capture_output=True, text=True).stdout.splitlines()
         res = {name.replace("(anonymous namespace)::", ""): v for name, v in zip(names, res.values())}
     print(json.dumps({"ptxas": res}), flush=True)
+    for name, v in res.items():
+        if "segment_phase_kernel" in name or "resample_blocked_kernel" in name:
+            _check(v.get("spill_stores", 0) == 0 and v.get("spill_loads", 0) == 0, f"{name} spills: {v}")
     return 0
 
 
@@ -1562,6 +1603,13 @@ def main() -> int:
         real_case(N_FFT, 171, F, 1, F_state=1024, rows=F)
     real_case(N_FFT, 171, 1000, 7, F_state=1000)  # 7497 frames: 497 real of 1000
     real_case(N_FFT, 171, 1025, 7, F_state=1025)  # 322 real of 1025
+    # The edges of the kernel's schedule (tests/test_torch_segment_schedule.py
+    # replays it on the CPU): trees of 8 to 512 rows for F below, at and
+    # past a thread's 8 rows and a warp's 32 x 8, and 1030 frames, blocked
+    # and not a multiple of 8.
+    for F in (2, 7, 8, 9, 33, 65, 257, 513, 1030):
+        real_case(N_FFT, 171, F, 0, F_state=1024, rows=F)
+        real_case(N_FFT, 171, F, 1, F_state=1024, rows=F)
     for n in (256, 4096):
         for rs in (n // 8, round(171 * n / 1024)):
             for segs in (0, 1):
@@ -1593,7 +1641,7 @@ def main() -> int:
     args_m = (phi_m, st_m.phi_prev, st_m.psi_carry, st_m.psi_carry_lo, st_m.phi0)
     nb = N_FFT // 2 + 1
     sp_prof = _profile_call(lambda: segment_phase(*args_m, **kw_m), reps=101)
-    _check(sorted(sp_prof["by_kernel_ms"]) == ["segment_phase_kernel"] and sp_prof["kernels"] == 1,
+    _check([k.split("<")[0] for k in sp_prof["by_kernel_ms"]] == ["segment_phase_kernel"] and sp_prof["kernels"] == 1,
            f"segment_phase launches {sp_prof}")
     sp_main = {
         "frames": 1024, "max_abs": 0.0,
@@ -1605,6 +1653,16 @@ def main() -> int:
         # hi and lo), the carry out.
         **_bound(4 * (2 * 1024 * nb + 8 * nb), _segment_phase_flop(1024, nb)),
     }
+    # The wrapper's host time a call: what the events see beyond the card.
+    sp_main["events_minus_device_ms"] = sp_main["events_ms"] - sp_main["ms"]
+    # The layout at the other ends of the bin count (two bins a block at
+    # N = 256, four at 4096), mid-stream, 1024 frames, Rs = N/8.
+    sp_main["device_ms_by_n_fft"] = {}
+    for n in (256, 4096):
+        phi_n, st_n, kw_n = real_case(n, n // 8, 1024, 2)
+        args_n = (phi_n, st_n.phi_prev, st_n.psi_carry, st_n.psi_carry_lo, st_n.phi0)
+        sp_main["device_ms_by_n_fft"][n] = _profile_call(lambda: segment_phase(*args_n, **kw_n),
+                                                         reps=101)["device_busy_ms"]
     _emit("2f_segment_phase_vs_plain", cases=sp, all_bitwise=True, main_shape=sp_main)
     del x120
 
@@ -2169,10 +2227,15 @@ def main() -> int:
     pa, _, pt = fused_stream_segment_reference(*seg_args)
     seg_main = {"frames": F_long, "rel": _rel(ka, pa, 0), "max_abs": _max_abs(ka, pa, 0),
                 "tail_rel": _rel(kt.reshape(-1), pt.reshape(-1), 0),
-                "ms": _time_ms(lambda: fused_stream_segment(*seg_args), reps=10),
+                "events_ms": _time_ms(lambda: fused_stream_segment(*seg_args), reps=10),
                 "plain_ms": _time_ms(lambda: fused_stream_segment_reference(*seg_args), reps=3),
                 **_bound(4 * ((F_long - 1) * HOP + N_FFT + len(ka) + 2 * kt.numel() + 2 * st10.carry.numel()),
                          2 * F_long * _FFT_FLOP)}
+    # Its time on the card: the device time of one segment's kernels (the
+    # mean over 20 calls in one trace), by kernel; the events time above
+    # also holds the wrapper's host time.
+    seg_prof = _profile_call(lambda: fused_stream_segment(*seg_args), reps=20)
+    seg_main.update(ms=seg_prof["device_busy_ms"], kernels=seg_prof["kernels"], by_kernel_ms=seg_prof["by_kernel_ms"])
     _check(max(seg_main["rel"], seg_main["tail_rel"]) < 1e-5,
            f"pvoc_fused_segment vs plain at 3600 s: {seg_main}")
     y_k = stream_run()
@@ -2592,6 +2655,9 @@ def main() -> int:
                "ms": _time_ms(kern, reps=20), "plain_ms": _time_ms(plain, reps=5), "library_ms": lib_ms,
                **_bound(moved, 3 * out_len), "n_in": len(y_st), "n_out": out_len}
         _check(rec["max_abs"] <= 1e-6, f"{name} vs plain at the -7 st shape: {rec}")
+        # The blocked positions' kernel forms the plain version's taps and
+        # lerp, rounding for rounding.
+        _check(name != "resample_blocked" or rec["bitwise_vs_plain"], f"{name} not bitwise the plain version: {rec}")
         sel_k[name] = rec
         del a, b
     sel_k["tables_ms"] = {"block_tables": _time_ms(lambda: block_tables(1.0 / factor, out_len, dev), reps=5),

@@ -23,26 +23,47 @@
 // 2 * 4 * F * nb bytes (4.2 MB at F = 1024, N = 1024: 1.26 us at
 // 3.35 TB/s), and does ~200 FP32 operations per (frame, bin) (87 for the
 // term, 35 per wrap_add_c combine, ~2 combines in the tree and one with
-// the carry, 11 to finalize): ~106 M operations, 1.58 us at 67 TFLOP/s.
-// So operations, on paper; in practice the latency of the tree's 2 log2 F
-// levels, each a chain of ~35 dependent operations ended by a block
-// barrier, and few warps a block to hide it.
+// the carry, 11 to finalize): ~106 M operations, 1.58 us at 67 TFLOP/s,
+// which counts an FMA as two; none of these can be an FMA, so at one
+// operation a lane a clock the instruction-issue bound is ~3.2 us.
+// Operations, then, and the latency of the tree's levels, each a chain of
+// ~35 dependent operations.
 //
-// Design. A block of 256 threads owns kBins consecutive bins over all F
-// frames, so no state crosses blocks and the grid is ceil(nb / kBins)
-// blocks. Threads run over (row, bin) items with the bin fastest, so a
-// warp's loads and stores of phi and psi fall on consecutive addresses
-// of a few rows. The block
-//   1. forms the masked terms of up to 1024 rows into shared memory
-//      (2 * 1024 * kBins floats), +0.0 past F (the identity padding);
-//   2. scans them in place, level by level (a barrier between levels);
-//   3. combines each row with the carry, finalizes and pins it, and
-//      writes psi (and, at row F-1, the carry out).
-// F <= 1024: one tree over F padded to a power of two. F > 1024:
-// blocked_scan's two levels: a first sweep forms each 1024-row block's
-// terms and its total (the up-sweep's root is the tree's last row), the
-// block totals are scanned with the same tree in a global scratch of the
-// wrapper's, and a second sweep re-forms each block's terms, scans them
+// Design. The tree is fixed by row indices, not by which thread combines,
+// so the levels go where they are cheapest. Each thread owns R = kRows
+// aligned consecutive rows of one bin, in registers; L = rows / R threads
+// serve a bin, a block serves kb bins (L * kb threads). Over a tree of
+// `rows` rows (F padded to a power of two, at least R; or a 1024-row
+// block of blocked_scan) the up-sweep level s (pairs (2i+1)s-1 ->
+// (2i+2)s-1) and the down-sweep level s ((2i)s-1 -> (2i+1)s-1, i >= 1)
+// run
+//   * for s < R inside the thread (thread_up, thread_down): both rows of a
+//     pair lie in the thread's aligned R rows, except the down-sweep's
+//     left row R*t-1, the previous thread's last row, which is final by
+//     then (one shuffle);
+//   * for R <= s < 32R across a warp's lanes, each lane holding its last
+//     row (group_up, group_down: __shfl_up_sync by s/R, the left operand
+//     first);
+//   * for s >= 32R (1024 rows at R = 8: two levels up, one down) across
+//     the bin's warps: their last rows go through shared memory and one
+//     warp runs the same shuffle tree over them, a block barrier either
+//     side.
+// A tree padded to more rows than F combines the same operands on rows
+// < F (the pairs of the first rows do not depend on the padding), so
+// every tree has at least R rows. phi comes in and psi goes out through
+// a shared tile of the block's rows x kb bins, filled and drained with
+// the bin fastest (a warp reads 32 consecutive floats of a row when kb
+// >= 32, kb * 4 bytes of 32 / kb rows otherwise); in the tile each
+// thread's R rows are consecutive with one float of padding, so that a
+// warp reading its lanes' rows hits 32 banks. The previous frame of a
+// thread's first row is the previous thread's last row in the tile. The
+// linear phase (i * kr) mod N steps by kr mod N from row to row with one
+// conditional subtraction (the same integer; no 64-bit modulo).
+// F <= 1024: one tree. F > 1024: blocked_scan's two levels: a first sweep
+// forms each 1024-row block's terms and up-sweep, whose root (the block's
+// last row) is its total, into the wrapper's global scratch; one thread a
+// bin scans the block totals with _associative_scan's tree over their
+// unpadded count; a second sweep re-forms each block's terms, scans them
 // and combines the block's exclusive prefix (+0.0 for the first) before
 // the carry.
 
@@ -52,9 +73,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBins = 4;          // bins a block owns
 constexpr int kScanBlock = 1024;  // ops/phase.py blocked_scan's block
+constexpr int kRows = 8;          // R: rows a thread owns
+constexpr int kMaxThreads = 512;
 
 // ops/phase.py _segment_consts, in this order.
 struct PhaseConsts {
@@ -115,47 +136,64 @@ __device__ __forceinline__ Pair residual_term(float cur, float prev, float het_h
   return wrap_pair(p, fadd(fadd(fmul(c.k, w.l), err), fmul(c.k_err, w.h)), c);
 }
 
-// The inclusive scan of ops/phase.py _associative_scan (jax.lax's odd/even
-// recursion) in place over n rows of `cols` columns, row i of column b at
-// i * stride + b. Level s = 1, 2, 4, ... while n / s >= 2 holds the
-// previous level's elements at rows (m + 1) s - 1; the up-sweep combines
-// element pairs (2i, 2i+1) into row (2i + 2) s - 1, the reduced elements
-// the recursion scans; the down-sweep, from the top level down, forms the
-// even outputs 2i >= 2 at row (2i + 1) s - 1 from the prefix at row
-// 2i s - 1 (the recursion's odd output i - 1), for 2i < n / s. The odd
-// outputs are already in place. Each level ends in a block barrier.
-__device__ void tree_up(float* h, float* l, int stride, int n, int cols,
-                        const PhaseConsts& c) {
-  for (int s = 1; n / s >= 2; s *= 2) {
-    const int items = (n / s / 2) * cols;
-    for (int it = threadIdx.x; it < items; it += blockDim.x) {
-      const int i = it / cols, b = it % cols;
-      const int a = ((2 * i + 1) * s - 1) * stride + b;
-      const int r = ((2 * i + 2) * s - 1) * stride + b;
-      const Pair v = wrap_add_c({h[a], l[a]}, {h[r], l[r]}, c);
-      h[r] = v.h;
-      l[r] = v.l;
-    }
-    __syncthreads();
+// The tree of ops/phase.py _associative_scan (jax.lax's odd/even
+// recursion) over n rows, n a power of two: the up-sweep level s = 1, 2,
+// 4, ... (while n / s >= 2) combines rows (2i+1)s-1 and (2i+2)s-1 into
+// the latter, the recursion's reduced elements; the down-sweep, from the
+// top level down, combines row 2is-1 (the recursion's odd output i-1)
+// with row (2i+1)s-1 into the latter, for i >= 1, the even outputs. The
+// functions below run its levels s < R inside a thread, over its rows
+// v[0..R-1] (rows R*t .. R*t+R-1 of the tree), and the levels s >= R
+// across `group` consecutive threads t (a power of two, at most 32: the
+// lanes of a warp, or the first lanes of one), each holding its last
+// row x.
+template <int R>
+__device__ __forceinline__ void thread_up(Pair (&v)[R], const PhaseConsts& c) {
+#pragma unroll
+  for (int s = 1; s < R; s *= 2) {
+#pragma unroll
+    for (int r = 2 * s - 1; r < R; r += 2 * s) v[r] = wrap_add_c(v[r - s], v[r], c);
   }
 }
 
-__device__ void tree_down(float* h, float* l, int stride, int n, int cols,
-                          const PhaseConsts& c) {
-  int top = 1;
-  while (n / (2 * top) >= 2) top *= 2;
-  for (int s = top; s >= 1 && n / s >= 2; s /= 2) {
-    const int items = ((n / s - 1) / 2) * cols;
-    for (int it = threadIdx.x; it < items; it += blockDim.x) {
-      const int i = it / cols + 1, b = it % cols;
-      const int a = (2 * i * s - 1) * stride + b;
-      const int r = ((2 * i + 1) * s - 1) * stride + b;
-      const Pair v = wrap_add_c({h[a], l[a]}, {h[r], l[r]}, c);
-      h[r] = v.h;
-      l[r] = v.l;
-    }
-    __syncthreads();
+// `prev` is the previous thread's last row, final by now (has_prev: the
+// thread is not the tree's first).
+template <int R>
+__device__ __forceinline__ void thread_down(Pair (&v)[R], Pair prev, bool has_prev,
+                                            const PhaseConsts& c) {
+#pragma unroll
+  for (int s = R / 2; s >= 1; s /= 2) {
+    if (has_prev) v[s - 1] = wrap_add_c(prev, v[s - 1], c);
+#pragma unroll
+    for (int r = 3 * s - 1; r < R; r += 2 * s) v[r] = wrap_add_c(v[r - s], v[r], c);
   }
+}
+
+__device__ __forceinline__ Pair shfl_up(Pair v, int d) {
+  return {__shfl_up_sync(0xffffffffu, v.h, d), __shfl_up_sync(0xffffffffu, v.l, d)};
+}
+
+// Up-sweep levels s = R d, d = 1 .. group/2: thread t = (2i+2)d-1 takes
+// thread t-d's last row as the left operand.
+__device__ __forceinline__ Pair group_up(Pair x, int t, int group, const PhaseConsts& c) {
+  for (int d = 1; d < group; d *= 2) {
+    const Pair y = shfl_up(x, d);
+    if (((t + 1) & (2 * d - 1)) == 0) x = wrap_add_c(y, x, c);
+  }
+  return x;
+}
+
+// Down-sweep levels s = R d, d = group/2 .. 1: thread t = (2i+1)d-1 takes
+// thread t-d's last row; for t = d-1 that is the previous group's last
+// thread, `prev` (has_prev: there is one in the tree).
+__device__ __forceinline__ Pair group_down(Pair x, Pair prev, bool has_prev, int t, int group,
+                                           const PhaseConsts& c) {
+  for (int d = group / 2; d >= 1; d /= 2) {
+    Pair y = shfl_up(x, d);
+    if (t < d) y = prev;
+    if (((t + 1) & (2 * d - 1)) == d && (t + 1 > d || has_prev)) x = wrap_add_c(y, x, c);
+  }
+  return x;
 }
 
 struct Segment {
@@ -173,96 +211,272 @@ struct Segment {
   long long g;            // global index of frame 0
 };
 
-// The masked terms of rows r0 .. r0 + rows - 1 of bins k0 .. k0 + kBins - 1
-// into the shared tree (row r, bin b at r * kBins + b); +0.0 past F and
-// past the last bin.
-__device__ void load_terms(const Segment& sg, int k0, int r0, int rows, float* sh,
-                           float* sl, const PhaseConsts& c) {
-  for (int it = threadIdx.x; it < rows * kBins; it += blockDim.x) {
-    const int j = r0 + it / kBins, k = k0 + it % kBins;
+// The block's shape: a tree of `rows` rows, L = rows / R threads a bin,
+// kb bins a block, a bin's stride S in the tile (L * (R + 1) floats and
+// padding).
+struct Layout {
+  int rows, L, kb, S;
+};
+
+// The shared tile of rows r0 .. r0 + rows - 1 and bins k0 .. k0 + kb - 1:
+// row `row` of bin b at b * S + (row / R) * (R + 1) + row % R. Filled and
+// drained with the bin fastest, +0.0 past F and past the last bin.
+template <int R>
+__device__ __forceinline__ int tile_at(const Layout& lay, int b, int row) {
+  return b * lay.S + (row / R) * (R + 1) + row % R;
+}
+
+// The tile holds rows * kb = R * blockDim.x floats: each thread moves R of
+// them, all its loads issued before the first store.
+template <int R>
+__device__ __forceinline__ void load_tile(const Segment& sg, const Layout& lay, int r0, int k0,
+                                          float* tile) {
+  float v[R];
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    const int it = threadIdx.x + u * blockDim.x;
+    const int row = it / lay.kb, b = it - row * lay.kb;
+    const int j = r0 + row, k = k0 + b;
+    v[u] = j < sg.F && k < sg.nb ? sg.phi[(size_t)j * sg.nb + k] : 0.0f;
+  }
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    const int it = threadIdx.x + u * blockDim.x;
+    const int row = it / lay.kb;
+    tile[tile_at<R>(lay, it - row * lay.kb, row)] = v[u];
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void store_tile(const Segment& sg, const Layout& lay, int r0, int k0,
+                                           const float* tile) {
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    const int it = threadIdx.x + u * blockDim.x;
+    const int row = it / lay.kb, b = it - row * lay.kb;
+    const int j = r0 + row, k = k0 + b;
+    if (j < sg.F && k < sg.nb) sg.psi[(size_t)j * sg.nb + k] = tile[tile_at<R>(lay, b, row)];
+  }
+}
+
+// The masked terms of the thread's rows j0 .. j0 + R - 1 (+0.0 past F)
+// from its rows of the tile; `prev` is the phase of frame j0 - 1.
+template <int R>
+__device__ __forceinline__ void load_terms(const Segment& sg, int j0, float het_hi, float het_lo,
+                                           const float* mine, float prev, Pair (&v)[R],
+                                           const PhaseConsts& c) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int j = j0 + r;
+    const float cur = mine[r];
     Pair t = {0.0f, 0.0f};
-    if (j < sg.F && k < sg.nb) {
-      const float cur = sg.phi[(size_t)j * sg.nb + k];
-      const float prev = j == 0 ? sg.phi_prev[k] : sg.phi[(size_t)(j - 1) * sg.nb + k];
-      t = residual_term(cur, prev, sg.het_hi[k], sg.het_lo[k], c);
-      const float v = (j < sg.n_valid && sg.g + j > 0) ? 1.0f : 0.0f;
-      t = {fmul(t.h, v), fmul(t.l, v)};
+    if (j < sg.F) {
+      t = residual_term(cur, prev, het_hi, het_lo, c);
+      const float on = (j < sg.n_valid && sg.g + j > 0) ? 1.0f : 0.0f;
+      t = {fmul(t.h, on), fmul(t.l, on)};
     }
-    sh[it] = t.h;
-    sl[it] = t.l;
+    v[r] = t;
+    prev = cur;
   }
 }
 
-// Rows r0 .. of the scanned tree: the block's exclusive prefix (blocked
-// scans), the carry, the residual, finalize_phase and pin_real_bins.
-__device__ void emit_rows(const Segment& sg, int k0, int r0, int rows, int blk,
-                          int blocks, const float* sh, const float* sl,
-                          const PhaseConsts& c) {
-  const int nb = sg.nb, n = sg.n_fft;
-  for (int it = threadIdx.x; it < rows * kBins; it += blockDim.x) {
-    const int j = r0 + it / kBins, k = k0 + it % kBins;
-    if (j >= sg.F || k >= nb) continue;
-    Pair incl = {sh[it], sl[it]};
-    if (blocks > 1) {
-      const Pair pre = blk == 0 ? Pair{0.0f, 0.0f}
-                                : Pair{sg.totals[(size_t)(blk - 1) * nb + k],
-                                       sg.totals[((size_t)blocks + blk - 1) * nb + k]};
-      incl = wrap_add_c(pre, incl, c);
+// (a * b) mod n for a, b < n, in 32-bit integers: the product where it
+// fits (n * n < 2^31), else by doubling (r < n < 2^31 keeps 2r and r + a
+// below 2^32).
+__device__ __forceinline__ unsigned mulmod(unsigned a, unsigned b, unsigned n) {
+  if (n <= 46340u) return a * b % n;
+  unsigned r = 0;
+  for (int bit = 31; bit >= 0; --bit) {
+    r = 2 * r >= n ? 2 * r - n : 2 * r;
+    if ((b >> bit) & 1u) r = r + a >= n ? r + a - n : r + a;
+  }
+  return r;
+}
+
+// One tree over the block's tile rows, for the thread's rows v (a tree
+// of lay.rows rows, this thread its T-th of the bin's L): the up-sweep,
+// and unless `up_only` the down-sweep. Returns the thread's last row
+// after the up-sweep levels it takes part in; with `up_only` the tree's
+// root (its total) is in the return value of thread L - 1 when the bin
+// has one warp or less, else in top[b * W + W - 1].
+template <int R>
+__device__ __forceinline__ Pair tree_block(Pair (&v)[R], const Layout& lay, Pair* top, int b,
+                                           int T, bool up_only, const PhaseConsts& c) {
+  const int t = T & 31, w = T >> 5;
+  const int group = min(lay.L, 32), W = lay.L >> 5;
+  thread_up<R>(v, c);
+  Pair last = group_up(v[R - 1], t, group, c);
+  Pair prev = {0.0f, 0.0f};
+  if (W > 1) {
+    // The levels across the bin's warps: the warps' last rows in shared
+    // memory, one warp a bin runs their tree.
+    if (t == 31) top[b * W + w] = last;
+    __syncthreads();
+    if (w == 0) {
+      Pair x = t < W ? top[b * W + t] : Pair{0.0f, 0.0f};
+      x = group_up(x, t, W, c);
+      if (!up_only) x = group_down(x, prev, false, t, W, c);
+      if (t < W) top[b * W + t] = x;
     }
-    const Pair res = wrap_add_c({sg.carry_hi[k], sg.carry_lo[k]}, incl, c);
-    if (j == sg.F - 1) {
-      sg.carry_out[k] = res.h;
-      sg.carry_out[nb + k] = res.l;
+    __syncthreads();
+    if (up_only) return last;
+    if (t == 31) last = top[b * W + w];
+    if (w > 0) prev = top[b * W + w - 1];
+  }
+  if (up_only) return last;
+  last = group_down(last, prev, w > 0, t, group, c);
+  Pair before = shfl_up(last, 1);  // the previous thread's last row, final
+  if (t == 0) before = prev;
+  v[R - 1] = last;
+  thread_down<R>(v, before, T > 0, c);
+  return last;
+}
+
+// ops/phase.py _associative_scan over n rows of one column (row i at
+// i * stride), by one thread, in the up- and down-sweep order above;
+// n need not be a power of two.
+__device__ void serial_scan(float* h, float* l, int stride, int n, const PhaseConsts& c) {
+  for (int s = 1; n / s >= 2; s *= 2) {
+    for (int i = 0; i < n / s / 2; ++i) {
+      const size_t a = (size_t)((2 * i + 1) * s - 1) * stride;
+      const size_t r = (size_t)((2 * i + 2) * s - 1) * stride;
+      const Pair v = wrap_add_c({h[a], l[a]}, {h[r], l[r]}, c);
+      h[r] = v.h;
+      l[r] = v.l;
     }
-    const long long i = ((long long)j + sg.gmod) % n;  // frame index mod N
-    const float ph = sg.phi[(size_t)j * nb + k];
-    float out;
-    if (k == 0) {
-      out = ph;
-    } else if (k == nb - 1) {
-      const long long kr = ((long long)sg.rs_mod * (n / 2)) % n;
-      out = fadd(ph, fmul(c.lin_scale, (float)((i * kr) % n)));
-    } else {
-      const long long kr = ((long long)k * sg.rs_mod) % n;
-      const float lin = fmul(c.lin_scale, (float)((i * kr) % n));
-      out = princarg(fadd(fadd(sg.phi0[k], lin), fadd(res.h, res.l)), c);
+  }
+  int top = 1;
+  while (n / (2 * top) >= 2) top *= 2;
+  for (int s = top; s >= 1; s /= 2) {
+    for (int i = 1; 2 * i < n / s; ++i) {
+      const size_t a = (size_t)(2 * i * s - 1) * stride;
+      const size_t r = (size_t)((2 * i + 1) * s - 1) * stride;
+      const Pair v = wrap_add_c({h[a], l[a]}, {h[r], l[r]}, c);
+      h[r] = v.h;
+      l[r] = v.l;
     }
-    sg.psi[(size_t)j * nb + k] = out;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    segment_phase_kernel(Segment sg, int rows, PhaseConsts c) {
+template <int R>
+__global__ void __launch_bounds__(kMaxThreads)
+    segment_phase_kernel(Segment sg, Layout lay, PhaseConsts c) {
   extern __shared__ float smem[];
-  float* sh = smem;
-  float* sl = smem + rows * kBins;
-  const int k0 = blockIdx.x * kBins;
-  const int cols = min(kBins, sg.nb - k0);
-  const int blocks = (sg.F + rows - 1) / rows;
+  float* tile = smem;
+  Pair* top = reinterpret_cast<Pair*>(smem + ((lay.kb * lay.S + 1) & ~1));
+  const int L = lay.L, b = threadIdx.x / L, T = threadIdx.x - b * L;
+  const int k0 = blockIdx.x * lay.kb, k_raw = k0 + b;
+  const bool live = k_raw < sg.nb;
+  const int k = live ? k_raw : sg.nb - 1;  // dead bins read bin nb-1, store nothing
+  const int W = L >> 5;
+  const int blocks = (sg.F + lay.rows - 1) / lay.rows;
+  float* mine = tile + tile_at<R>(lay, b, R * T);
+  const float het_hi = sg.het_hi[k], het_lo = sg.het_lo[k];
+  Pair v[R];
+  // The thread's first frame's previous phase: the tile's previous row,
+  // or phi_prev / the previous block's last row for the bin's first.
+  auto prev_phase = [&](int r0) {
+    if (T > 0) return mine[-2];
+    return r0 == 0 ? sg.phi_prev[k] : sg.phi[(size_t)(r0 - 1) * sg.nb + k];
+  };
   if (blocks > 1) {
     float* tot_h = sg.totals;
     float* tot_l = sg.totals + (size_t)blocks * sg.nb;
     for (int blk = 0; blk < blocks; ++blk) {
-      load_terms(sg, k0, blk * rows, rows, sh, sl, c);
+      const int r0 = blk * lay.rows;
+      load_tile<R>(sg, lay, r0, k0, tile);
       __syncthreads();
-      tree_up(sh, sl, kBins, rows, kBins, c);
-      if ((int)threadIdx.x < cols) {
-        tot_h[(size_t)blk * sg.nb + k0 + threadIdx.x] = sh[(rows - 1) * kBins + threadIdx.x];
-        tot_l[(size_t)blk * sg.nb + k0 + threadIdx.x] = sl[(rows - 1) * kBins + threadIdx.x];
+      load_terms<R>(sg, r0 + R * T, het_hi, het_lo, mine, prev_phase(r0), v, c);
+      const Pair last = tree_block<R>(v, lay, top, b, T, true, c);
+      const Pair root = W > 1 ? top[b * W + W - 1] : last;
+      if (live && T == L - 1) {
+        tot_h[(size_t)blk * sg.nb + k] = root.h;
+        tot_l[(size_t)blk * sg.nb + k] = root.l;
       }
       __syncthreads();
     }
-    tree_up(tot_h + k0, tot_l + k0, sg.nb, blocks, cols, c);
-    tree_down(tot_h + k0, tot_l + k0, sg.nb, blocks, cols, c);
+    if (live && T == 0) serial_scan(tot_h + k, tot_l + k, sg.nb, blocks, c);
+    __syncthreads();
   }
+  const unsigned n = (unsigned)sg.n_fft;
+  const unsigned kr = mulmod((unsigned)k, (unsigned)sg.rs_mod, n);
+  const Pair carry = {sg.carry_hi[k], sg.carry_lo[k]};
+  const float phi0 = sg.phi0[k];
   for (int blk = 0; blk < blocks; ++blk) {
-    load_terms(sg, k0, blk * rows, rows, sh, sl, c);
+    const int r0 = blk * lay.rows, j0 = r0 + R * T;
+    load_tile<R>(sg, lay, r0, k0, tile);
     __syncthreads();
-    tree_up(sh, sl, kBins, rows, kBins, c);
-    tree_down(sh, sl, kBins, rows, kBins, c);
-    emit_rows(sg, k0, blk * rows, rows, blk, blocks, sh, sl, c);
+    load_terms<R>(sg, j0, het_hi, het_lo, mine, prev_phase(r0), v, c);
+    tree_block<R>(v, lay, top, b, T, false, c);
+    // Every thread has read its previous row from the tile before psi
+    // overwrites it (tree_block has barriers only across warps).
+    if (W <= 1) __syncthreads();
+    Pair pre = {0.0f, 0.0f};  // the block's exclusive prefix (blocked scans)
+    if (blocks > 1 && blk > 0) {
+      pre = {sg.totals[(size_t)(blk - 1) * sg.nb + k],
+             sg.totals[((size_t)blocks + blk - 1) * sg.nb + k]};
+    }
+    // The frame index mod N of row j0, and (i * kr) mod N stepped by kr.
+    unsigned lin = mulmod(((unsigned)j0 + (unsigned)sg.gmod) % n, kr, n);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int j = j0 + r;
+      if (live && j < sg.F) {
+        const Pair incl = blocks > 1 ? wrap_add_c(pre, v[r], c) : v[r];
+        const Pair res = wrap_add_c(carry, incl, c);
+        if (j == sg.F - 1) {
+          sg.carry_out[k] = res.h;
+          sg.carry_out[sg.nb + k] = res.l;
+        }
+        const float ph = mine[r];
+        const float lin_ph = fmul(c.lin_scale, (float)lin);
+        float o;
+        if (k == 0) {
+          o = ph;
+        } else if (k == sg.nb - 1) {
+          o = fadd(ph, lin_ph);
+        } else {
+          o = princarg(fadd(fadd(phi0, lin_ph), fadd(res.h, res.l)), c);
+        }
+        mine[r] = o;
+      }
+      lin += kr;
+      if (lin >= n) lin -= n;
+    }
+    __syncthreads();
+    store_tile<R>(sg, lay, r0, k0, tile);
     __syncthreads();
   }
+}
+
+// The layout of a call: rows of one tree (F padded to a power of two, at
+// least R, or a 1024-row block), and bins a block: kMaxThreads / L when a
+// bin takes under a warp (partial segments), else the most of 4, 2, 1
+// that leaves about half the SMs a block or more. A
+// wider tile row moves phi and psi in fewer, fuller sectors (rows of nb
+// floats are not 16-byte aligned): on an H100, 1024 frames take 12.1 us at
+// N = 1024 with 4 bins a block, 13.4 with 2, 18.7 with 1, and at N = 256
+// (129 bins) 8.2 us with 2 against 11.4 with 4 (33 blocks).
+template <int R>
+Layout make_layout(int F, int nb, int sms) {
+  int rows = R;
+  while (rows < F && rows < kScanBlock) rows *= 2;
+  const int L = rows / R;
+  int kb = kMaxThreads / L;
+  if (L >= 32) {
+    kb = 4;
+    while (kb > 1 && (nb + kb - 1) / kb < sms / 2 - 2) kb /= 2;
+  }
+  // A bin's tile stride: 8 floats of padding past whole warps, so that the
+  // fill's 8-row runs of kb bins fall on distinct banks.
+  const int S = L * (R + 1) + (L >= 32 ? 8 : 0);
+  return {rows, L, kb, S};
+}
+
+size_t smem_bytes(const Layout& lay) {
+  const int W = lay.L >> 5;
+  return (size_t)((lay.kb * lay.S + 1) & ~1) * sizeof(float) +
+         (size_t)lay.kb * (W > 1 ? W : 0) * sizeof(Pair);
 }
 
 }  // namespace
@@ -283,13 +497,17 @@ extern "C" int segment_phase(const float* phi, const float* phi_prev,
   if (F < 1 || nb < 2 || (F > kScanBlock && totals == nullptr)) return cudaErrorInvalidValue;
   PhaseConsts c;
   std::memcpy(&c, consts, sizeof c);
-  // Rows of one tree: F padded to a power of two, or a 1024-row block.
-  int rows = 1;
-  while (rows < F && rows < kScanBlock) rows *= 2;
   const Segment sg = {phi, phi_prev, carry_hi, carry_lo, phi0, het_hi, het_lo, psi,
                       carry_out, totals, F, nb, n_fft, rs_mod, gmod, n_valid, g};
-  const size_t smem = 2 * (size_t)rows * kBins * sizeof(float);
-  const unsigned grid = (unsigned)((nb + kBins - 1) / kBins);
-  segment_phase_kernel<<<grid, kThreads, smem, stream>>>(sg, rows, c);
+  static int sms = 0;  // the card's SMs, read once
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t rc = cudaGetDevice(&dev);
+    if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc != cudaSuccess) return rc;
+  }
+  const Layout lay = make_layout<kRows>(F, nb, sms);
+  const unsigned grid = (unsigned)((nb + lay.kb - 1) / lay.kb);
+  segment_phase_kernel<kRows><<<grid, lay.L * lay.kb, smem_bytes(lay), stream>>>(sg, lay, c);
   return cudaGetLastError();
 }

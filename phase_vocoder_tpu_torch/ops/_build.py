@@ -11,6 +11,7 @@ build raises with the compiler's output.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -18,6 +19,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -184,3 +187,19 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         msg = kernels().pvoc_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def current_stream(index: int) -> int:
+    """The handle of device `index`'s current CUDA stream, as
+    torch.cuda.current_stream(index).cuda_stream gives it, without building
+    a Stream object (0.2 against 8 us of host time a call on the H100's
+    machine)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def device_guard(index: int):
+    """torch.cuda.device(index), or no guard when device `index` is already
+    current (entering and leaving the guard costs ~4.5 us a call)."""
+    if index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)

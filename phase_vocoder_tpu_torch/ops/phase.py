@@ -424,7 +424,10 @@ def segment_phase(
     compensated pair scan in blocked_scan's tree, the carry, finalize and
     pin, bitwise the plain version's), counting one launch in
     `segment_phase.launches`; for a CPU tensor segment_phase_reference.
-    A CUDA tensor launches the kernel for every F or raises."""
+    A CUDA tensor launches the kernel for every F or raises. The wrapper
+    is on the faithful route's per-segment path, so it spends little host
+    time: no Stream object (_build.current_stream), no device guard when
+    the device is current, one unbind for the carry's two words."""
     if phi.dim() != 2 or phi.shape[0] == 0 or phi.shape[1] != n_fft // 2 + 1 or n_fft % 2:
         raise ValueError(f"segment_phase: phi must be (F >= 1, {n_fft // 2 + 1}), got {tuple(phi.shape)}")
     args = dict(ra=ra, rs=rs, n_fft=n_fft, frame_offset=frame_offset, n_valid=n_valid, started=started)
@@ -440,24 +443,24 @@ def segment_phase(
         if t.shape != (nb,):
             raise ValueError(f"segment_phase: state vectors must be ({nb},), got {tuple(t.shape)}")
     psi = torch.empty_like(phi)
-    carry = torch.empty((2, nb), dtype=torch.float32, device=phi.device)
+    carry = phi.new_empty((2, nb))
     # Block totals of the two-level scan (F > 1024 only).
     blocks = -(-F // _SCAN_BLOCK) if F > _SCAN_BLOCK else 0
     totals = torch.empty((2, blocks, nb), dtype=torch.float32, device=phi.device) if blocks else None
+    dev = phi.get_device()
     het_hi, het_lo = _het_split(ra, n_fft, nb, phi.device)
     lib = _build.kernels()
-    with torch.cuda.device(phi.device):
+    with _build.device_guard(dev):
         rc = lib.segment_phase(
             phi.data_ptr(), phi_prev.data_ptr(), carry_hi.data_ptr(), carry_lo.data_ptr(),
             (phi0 if started else phi).data_ptr(), het_hi.data_ptr(), het_lo.data_ptr(),
             psi.data_ptr(), carry.data_ptr(), totals.data_ptr() if blocks else None,
             F, nb, n_fft, rs % n_fft, frame_offset, frame_offset % n_fft,
-            min(max(n_valid, 0), F), _segment_consts(ra, rs, n_fft),
-            torch.cuda.current_stream().cuda_stream,
+            min(max(n_valid, 0), F), _segment_consts(ra, rs, n_fft), _build.current_stream(dev),
         )
     _build.check(rc, "segment_phase")
     segment_phase.launches += 1
-    return psi, carry[0], carry[1]
+    return (psi, *carry.unbind(0))
 
 
 segment_phase.launches = 0

@@ -55,7 +55,7 @@ def istft_ola_supported(n_fft: int, rs: int) -> bool:
 
 
 def _check_cuda(t: torch.Tensor, what: str) -> None:
-    if t.device.type != "cuda":
+    if not t.is_cuda:  # builds no torch.device: ~0.5 us a call less on a wrapper's path
         raise ValueError(f"{what}: unsupported device {t.device}")
     if t.dtype != torch.float32 or not t.is_contiguous():
         raise ValueError(f"{what}: needs contiguous float32 tensors, got {t.dtype}")
