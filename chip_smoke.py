@@ -139,6 +139,24 @@ each; any failure raises and the script exits non-zero:
          the other three sizes beside N = 1024; then the four new kernels
          against their plain versions at those shapes, timed
          (resample_blocked bitwise);
+  7. (run after 6c) the q in {2, 4} term algebra's angle domain,
+     ops.fused.set_q_algebraic(False), restored after: at Rs = 128, 384,
+     64 and 192 (k = 1/2, 3/2, 1/4, 3/4) on 60 s, pvoc_fused,
+     pvoc_fused_zrev, pvoc_fused_segment and a ragged pvoc_fused_batch of
+     3 rows against their plain versions, zrev, streams (segment_frames
+     256 and 8192), batch rows and reruns bitwise, and each output not
+     the algebraic one's bits; at Rs = 512 and 256 (q = 1) the algebraic
+     bits under both settings; pvoc_terms at Rs = 640 (k = 5/2), scan on
+     and off, alone and over a batch of 3 rows (bitwise the single
+     kernel); the golden gate (time_stretch 0.5x/1.5x, pitch_shift -5 st,
+     branch_policy="fast") on 60 s of tones, the chirp recorded, and one
+     0.5x call on the chirp under each setting against golden on the card
+     and as the plain version on the CPU; the A/B of ACCURACY_r05.json
+     (golden error and correlation at 0.5x/1.5x on 600 s of the chirp,
+     device time of one traced 0.5x call on 3600 s, by kernel); the main
+     paths at real size under both settings with equal launch counts;
+     the six kernels against their plain versions at those shapes, timed
+     (the kernels line's "@angle_q2" rows);
   5. determinism: two 2.0x runs, two faithful 0.5x runs, two 3.0x
      general-hop runs, two batch runs, two chunked 0.5x runs, two zrev
      runs, two N = 1000 runs and two runs of each stft.cu kernel at
@@ -157,7 +175,8 @@ time and the peak memory come from phase_vocoder_tpu_torch/utils
 (metrics.bound_ms, profiling.time_calls, profile_call, peak_gb), the
 definitions the bench uses.
 
-The line before the last holds the per-kernel JSON record: each kernel's
+The line before the last holds the per-kernel JSON record (phase 7's
+kernels a second time, as "NAME@angle_q2"): each kernel's
 launches on its main path, its agreement with its plain version, its time
 (for resample_lerp and the three select variants, and for F.interpolate as
 their library call, the device time of phase 4b: the mean of 101 calls in
@@ -1056,6 +1075,402 @@ def _ab(other: str, faithful_only: bool = False) -> int:
     _check(all(same.values()), f"outputs moved: {same}")
     _check(all(v["this_reruns_equal"] for v in moved.values()), f"outputs differ between two runs: {moved}")
     return 0
+
+
+@contextlib.contextmanager
+def _q_algebra(enabled: bool):
+    """ops.fused.set_q_algebraic(enabled) inside the block, the switch as
+    it was after it."""
+    from phase_vocoder_tpu_torch.ops import fused
+
+    before = fused._Q_ALGEBRAIC
+    fused.set_q_algebraic(enabled)
+    try:
+        yield
+    finally:
+        fused.set_q_algebraic(before)
+
+
+def _profiled(fn, reps: int = 1, kernels: int | None = None) -> dict:
+    """_profile_call(fn, reps), traced again (up to 3 traces) when the
+    profiler dropped the step's kernels: it raised for want of any, or
+    recorded other than `kernels` a call."""
+    for attempt in range(3):
+        try:
+            prof = _profile_call(fn, reps=reps)
+        except RuntimeError as e:
+            if "recorded no device kernel" not in str(e) or attempt == 2:
+                raise
+            continue
+        if kernels is None or prof["kernels"] == kernels or attempt == 2:
+            return prof
+
+
+def _corr(a, b, edge=N_FFT) -> float:
+    return float(np.corrcoef(_interior(a, edge).numpy(), _interior(b, edge).numpy())[0, 1])
+
+
+def _q_algebraic_phase(smi: str, counters: dict, cfg, dev) -> list:
+    """Phase 7: the q in {2, 4} term algebra's angle domain
+    (set_q_algebraic(False)) through every phasor kernel, at N = 1024,
+    Ra = 256. Returns the kernels-line rows of the kernels it ran."""
+    from golden import pv_ref
+    import phase_vocoder_tpu_torch as pv
+    from phase_vocoder_tpu_torch import streaming
+    from phase_vocoder_tpu_torch.ops.fused import (
+        fused_stream_segment,
+        fused_stream_segment_reference,
+        fused_time_stretch,
+        fused_time_stretch_batch,
+        fused_time_stretch_batch_reference,
+        fused_time_stretch_reference,
+        stft_phasor_terms,
+        stft_phasor_terms_batch,
+        stft_phasor_terms_batch_reference,
+        stft_phasor_terms_reference,
+    )
+    from phase_vocoder_tpu_torch.parallel import chunked
+    from phase_vocoder_tpu_torch.parallel.mesh import make_mesh_2d
+
+    x60_np = _signal(60.0)
+    x60 = torch.as_tensor(x60_np, dtype=torch.float32, device=dev)
+    nf60 = (len(x60) - N_FFT) // HOP + 1
+    # A ragged batch of 3 rows: 60 s, 37 s and 3 frames (fewer than the
+    # overlap m - 1 at Rs = 64, 128 and 192).
+    lens_b = [len(x60), int(37.0 * SR), 1600]
+    xs_b = torch.zeros((3, len(x60)), device=dev)
+    for i, n in enumerate(lens_b):
+        xs_b[i, :n] = torch.as_tensor(_signal(n / SR + 1.0, seed=40 + i)[:n], dtype=torch.float32, device=dev)
+    nfs_b = [(n - N_FFT) // HOP + 1 for n in lens_b]
+
+    def contracts(rs: int) -> dict:
+        """The kernels at hop rs under the current switch: outputs, and the
+        bitwise contracts (rerun, zrev, streams, batch rows)."""
+        mono = fused_time_stretch(x60, N_FFT, HOP, rs)
+        zrev = fused_time_stretch(x60, N_FFT, HOP, rs, zrev=True)
+        batch = fused_time_stretch_batch(xs_b, N_FFT, HOP, rs, nfs_b)
+        rec = {"rerun_bitwise": _bits_equal(fused_time_stretch(x60, N_FFT, HOP, rs), mono),
+               "zrev_bitwise": _bits_equal(zrev, mono),
+               "zrev_rerun_bitwise": _bits_equal(fused_time_stretch(x60, N_FFT, HOP, rs, zrev=True), zrev),
+               "batch_rerun_bitwise": _bits_equal(fused_time_stretch_batch(xs_b, N_FFT, HOP, rs, nfs_b), batch)}
+        for sf in (256, 8192):
+            rec[f"stream{sf}_bitwise"] = _bits_equal(
+                streaming.fused_stream_time_stretch(x60, rs / HOP, cfg, segment_frames=sf), mono)
+        for b, nf_b in enumerate(nfs_b):
+            n_out = (nf_b - 1) * rs + N_FFT
+            rec[f"batch_row{b}_bitwise"] = bool(
+                _bits_equal(batch[b, :n_out], fused_time_stretch(xs_b[b, : lens_b[b]].contiguous(), N_FFT, HOP, rs))
+                and (batch[b, n_out:] == 0).all())
+        return rec, mono, batch
+
+    # ---- kernels against their plain versions, 60 s, the switch False;
+    # each output also against the same kernel's under True: not the same
+    # bits at q >= 2, the same bits at q = 1 (Rs = 512, 256).
+    out = {}
+    try:
+        for rs in (128, 384, 64, 192, 512, 256):
+            with _q_algebra(True):
+                _, mono_t, batch_t = contracts(rs)
+                stream_t = streaming.fused_stream_time_stretch(x60, rs / HOP, cfg, segment_frames=256)
+            with _q_algebra(False):
+                rec, mono, batch = contracts(rs)
+                q1 = rs % HOP == 0
+                rec["same_bits_as_algebraic"] = _bits_equal(mono, mono_t)
+                rec["batch_same_bits_as_algebraic"] = _bits_equal(batch, batch_t)
+                rec["stream_same_bits_as_algebraic"] = _bits_equal(
+                    streaming.fused_stream_time_stretch(x60, rs / HOP, cfg, segment_frames=256), stream_t)
+                bitwise = [v for k, v in rec.items() if k.endswith("_bitwise")]
+                _check(all(bitwise), f"angle domain at Rs={rs}: bitwise contracts {rec}")
+                want_same = [rec["same_bits_as_algebraic"], rec["batch_same_bits_as_algebraic"],
+                             rec["stream_same_bits_as_algebraic"]]
+                _check(all(want_same) if q1 else not any(want_same),
+                       f"the switch at Rs={rs} ({'q = 1: must not' if q1 else 'q >= 2: must'} change bits): {rec}")
+                if not q1:
+                    bound = 5e-5  # 2a, 2c and 2e's bound at q >= 2
+                    plain = fused_time_stretch_reference(x60, N_FFT, HOP, rs)
+                    rec["rel"] = _rel(mono, plain)
+                    rec["zrev_rel"] = _rel(fused_time_stretch(x60, N_FFT, HOP, rs, zrev=True),
+                                           fused_time_stretch_reference(x60, N_FFT, HOP, rs, zrev=True))
+                    pb = fused_time_stretch_batch_reference(xs_b, N_FFT, HOP, rs, nfs_b)
+                    rec["batch_rel"] = max(
+                        _rel(batch[b, :n], pb[b, :n], N_FFT if n > 3 * N_FFT else 0)
+                        for b, n in enumerate((nf_b - 1) * rs + N_FFT for nf_b in nfs_b))
+                    F, _ = streaming.fused_plan_segments(nf60, N_FFT, rs, 1024)
+                    _, mid = streaming._fused_scan_from(
+                        x60, streaming.fused_init_state(N_FFT, rs, dev), nf60, N_FFT, HOP, rs, F, 2)
+                    args = (x60, mid.carry, mid.tail, 1, 2 * F, nf60, N_FFT, HOP, rs, F)
+                    ka, _, kt = fused_stream_segment(*args)
+                    pa, _, pt = fused_stream_segment_reference(*args)
+                    rec["segment_rel"] = max(_rel(ka, pa, 0), _rel(kt.reshape(-1), pt.reshape(-1), 0))
+                    worst = max(rec[k] for k in ("rel", "zrev_rel", "batch_rel", "segment_rel"))
+                    _check(worst < bound, f"angle domain at Rs={rs} vs the plain versions: {rec}")
+                    del plain, pb, ka, pa, kt, pt
+            out[rs] = rec
+        del mono_t, batch_t, stream_t, mono, batch
+        # pvoc_terms at Rs = 640 (k = 5/2), scan on and off (2d's bounds).
+        terms = {}
+        for scan in (True, False):
+            with _q_algebra(True):
+                alg = stft_phasor_terms(x60, N_FFT, HOP, 640, scan=scan)
+            with _q_algebra(False):
+                k_ = stft_phasor_terms(x60, N_FFT, HOP, 640, scan=scan)
+                rec = _weighted_phasor_err(k_, stft_phasor_terms_reference(x60, N_FFT, HOP, 640, scan=scan))
+                rec["rerun_bitwise"] = all(_bits_equal(a, b) for a, b in zip(
+                    k_[:3], stft_phasor_terms(x60, N_FFT, HOP, 640, scan=scan)[:3]))
+            rec["differs_from_algebraic"] = not _bits_equal(k_[1], alg[1])
+            _check(rec["mag_rel"] < 1e-5 and rec["p_weighted"] < 1e-4 and rec["rerun_bitwise"]
+                   and rec["differs_from_algebraic"], f"pvoc_terms, angle domain, Rs=640, scan={scan}: {rec}")
+            terms["scan" if scan else "terms"] = rec
+        # The same over a batch of 3 rows (row 7's kernel): each row against
+        # the plain version and bitwise the single-recording kernel.
+        xb3 = torch.stack([x60[: 20 * SR], x60[7 * SR : 27 * SR],
+                           torch.as_tensor(_signal(20.0, seed=5), dtype=torch.float32, device=dev)])
+        with _q_algebra(False):
+            for scan in (True, False):
+                kb_ = stft_phasor_terms_batch(xb3, N_FFT, HOP, 640, scan=scan)
+                pb_ = stft_phasor_terms_batch_reference(xb3, N_FFT, HOP, 640, scan=scan)
+                for b in range(3):
+                    rec = _weighted_phasor_err([a[b] for a in kb_[:3]], [a[b] for a in pb_[:3]])
+                    one = stft_phasor_terms(xb3[b], N_FFT, HOP, 640, scan=scan)
+                    rec["bitwise_vs_single_kernel"] = all(_bits_equal(a[b], o) for a, o in zip(kb_[:3], one[:3]))
+                    _check(rec["mag_rel"] < 1e-5 and rec["p_weighted"] < 1e-4 and rec["bitwise_vs_single_kernel"],
+                           f"pvoc_terms_batch, angle domain, Rs=640, scan={scan}, row {b}: {rec}")
+                    terms[f"batch/{'scan' if scan else 'terms'}/row{b}"] = rec
+        del k_, alg, xb3, kb_, pb_
+        _emit("7_q_algebraic_kernels_vs_plain", seconds=60, pvoc_fused=out, pvoc_terms_rs640=terms,
+              bounds={"vs_plain": 5e-5, "mag_rel": 1e-5, "p_weighted": 1e-4, "contracts": "bitwise",
+                      "q_ge_2": "not the algebraic bits", "q_1": "the algebraic bits"})
+
+        # ---- the golden gate through the public API, 60 s, the switch
+        # False, branch_policy="fast": held on stationary tones, the chirp's
+        # distance recorded (ROADMAP.md section 3, branch decisions). Then
+        # one 0.5x call on the chirp under each setting, on the card and as
+        # the plain version on the CPU, against golden.
+        t60_np = _tones(60.0)
+        gate = {}
+        with _q_algebra(False):
+            for name, x_np in (("tones", t60_np), ("chirp_recorded", x60_np)):
+                for s in (0.5, 1.5):
+                    gate[f"{name}/stretch_{s}"] = _rel(pv.time_stretch(x_np, s, cfg, branch_policy="fast"),
+                                                       pv_ref.phase_vocoder(x_np, s, N_FFT, HOP))
+                y = pv.pitch_shift(x_np, -5.0, cfg, branch_policy="fast")
+                ref = pv_ref.pitch_shift(x_np, -5.0, N_FFT, HOP)
+                _check(abs(len(y) - len(ref)) <= 1, f"pitch -5 length {len(y)} vs {len(ref)}")
+                n = min(len(y), len(ref))
+                gate[f"{name}/pitch_-5"] = _rel(y[:n], torch.as_tensor(ref[:n]))
+        for s in (0.5, 1.5):
+            _check(gate[f"tones/stretch_{s}"] < 1e-4, f"angle domain time_stretch {s} vs golden: {gate}")
+        _check(gate["tones/pitch_-5"] < 1e-3, f"angle domain pitch_shift -5 vs golden: {gate}")
+        gold60 = pv_ref.phase_vocoder(x60_np, 0.5, N_FFT, HOP)
+        x60_cpu = x60.cpu()
+        card_vs_cpu = {}
+        for flag, name in ((True, "algebraic"), (False, "angle")):
+            with _q_algebra(flag):
+                card_vs_cpu[name] = {
+                    "card": _rel(fused_time_stretch(x60, N_FFT, HOP, 128), gold60),
+                    "cpu_plain": _rel(fused_time_stretch_reference(x60_cpu, N_FFT, HOP, 128), gold60)}
+        _emit("7_q_algebraic_golden_gate", seconds=60, rel_err=gate, bounds={"stretch": 1e-4, "pitch": 1e-3},
+              chirp_0_5x_vs_golden_card_and_cpu_plain=card_vs_cpu)
+
+        # ---- the A/B the switch exists for (ACCURACY_r05.json's keys):
+        # golden error and correlation on 600 s of the chirp, then the
+        # device time of one traced 0.5x call on 3600 s, by kernel.
+        x600_np = _signal(600.0)
+        x600 = torch.as_tensor(x600_np, dtype=torch.float32, device=dev)
+        sweep = {}
+        for s in (0.5, 1.5):
+            gold = pv_ref.phase_vocoder(x600_np, s, N_FFT, HOP)
+            for flag, name in ((True, "algebraic"), (False, "trig")):
+                with _q_algebra(flag):
+                    y = pv.time_stretch(x600, s, cfg, branch_policy="fast")
+                sweep[f"{s}x_fused_{name}"] = [_rel(y, gold), _corr(y, gold)]
+            del gold, y
+        del x600
+        x_long = torch.as_tensor(_signal(3600.0), dtype=torch.float32, device=dev)
+        timing = {}
+        for flag, name in ((True, "algebraic"), (False, "trig")):
+            with _q_algebra(flag):
+                run = lambda: pv.time_stretch(x_long, 0.5, cfg, branch_policy="fast")  # noqa: E731
+                prof = _profiled(run, kernels=7)
+                ms = _time_calls(run, reps=3)
+            timing[name] = {"device_busy_ms": prof["device_busy_ms"], "by_kernel_ms": prof["by_kernel_ms"],
+                            "kernels": prof["kernels"], "ms": ms, "audio_s_per_s": 3600.0 / (min(ms) / 1e3)}
+        timing["trig_over_algebraic_device"] = timing["trig"]["device_busy_ms"] / timing["algebraic"]["device_busy_ms"]
+        _emit("7_q_algebraic_ab", card=smi, sweep_600s=sweep, trig_vs_algebraic_timing_3600s_0_5x=timing)
+
+        # ---- the main paths at real size, each under both settings: every
+        # launch counter reads the same under False as under True (no
+        # fallback hides a kernel). 4 calls a path (one warm-up, 3 timed).
+        from phase_vocoder_tpu_torch.bench import baseline_batch as _baseline
+
+        x_pitch = torch.as_tensor(_signal(300.0, seed=1), dtype=torch.float32, device=dev)
+        xs64, ratios64 = _baseline(SR)
+        xs64 = [torch.as_tensor(x, dtype=torch.float32, device=dev) for x in xs64]
+        # 4e's eight 10-minute pieces of the hour-long signal.
+        xs8 = torch.stack([x_long[i * 428 * SR : (i * 428 + 600) * SR] for i in range(8)])
+        nf_long = (len(x_long) - N_FFT) // HOP + 1
+        S_long = streaming.fused_plan_segments(nf_long, N_FFT, 128, streaming.DEFAULT_FUSED_SEGMENT_FRAMES)[1]
+        paths = {
+            "stretch_0.5x_3600s": (lambda: pv.time_stretch(x_long, 0.5, cfg, branch_policy="fast"),
+                                   {"pvoc_fused": 4}),
+            "stretch_1.5x_3600s": (lambda: pv.time_stretch(x_long, 1.5, cfg, branch_policy="fast"),
+                                   {"pvoc_fused": 4}),
+            "pitch_m5_300s": (lambda: pv.pitch_shift(x_pitch, -5.0, cfg, branch_policy="fast"),
+                              {"pvoc_fused": 4, "resample_lerp": 4}),
+            "fused_stream_0.5x_3600s": (lambda: streaming.fused_stream_time_stretch(x_long, 0.5, cfg),
+                                        {"pvoc_fused_segment": 4 * S_long}),
+            "batch_varied_64": (lambda: pv.batch_time_stretch_varied(xs64, ratios64, cfg),
+                                {"pvoc_fused_batch": 24}),
+            "stretch_2.5x_3600s": (lambda: pv.time_stretch(x_long, 2.5, cfg, branch_policy="fast"),
+                                   {"pvoc_terms": 4, "istft_frames_cart": 4}),
+            "zrev_0.5x_3600s": (lambda: fused_time_stretch(x_long, N_FFT, HOP, 128, zrev=True),
+                                {"pvoc_fused_zrev": 4}),
+            "batched_chunked_0.5x_8x600s": (
+                lambda: chunked.batched_chunked_time_stretch(xs8, 0.5, cfg, mesh=make_mesh_2d(1, 1)),
+                {"pvoc_terms_batch": 4, "phasor_istft_ola_batch": 4}),
+        }
+        main, launches = {}, {}
+        for name, (fn, expect) in paths.items():
+            main[name] = {}
+            for flag, alg in ((True, "algebraic"), (False, "trig")):
+                with _q_algebra(flag):
+                    launches[f"{name}/{alg}"] = _counted(
+                        counters, lambda: main[name].update({alg: _time_calls(fn, reps=3)}), expect,
+                        f"{name} under set_q_algebraic({flag})")
+        _emit("7_q_algebraic_main_paths", card=smi, ms=main, launches=launches)
+
+        # ---- the kernels at those shapes under False, against their plain
+        # versions on 3600 s of stationary tones (on the chirp two f32
+        # analyses part at the branch choices of quiet bins, 4c). P is a
+        # product over 224,997 frames whose step terms differ between two
+        # f32 analyses, and the difference grows with the frames: 4d holds
+        # pvoc_terms there at 3e-4, and at 0.5x the algebraic kernel itself
+        # reads 5.0e-4 from its plain version (an H100 reading). So each
+        # is held to 3e-4 or twice the algebraic pair's distance on the
+        # same input, whichever is larger: the switch may add no error of
+        # its own between kernel and plain version (0.5x read 6.6e-4, 1.33
+        # times the algebraic pair). One 8192-frame segment from the
+        # kernel stream's state after 10 segments, and the batch's 0.5x
+        # group's lengths, at the 60 s bound (5e-5).
+        t_long = torch.as_tensor(_tones(3600.0), dtype=torch.float32, device=dev)
+        rows = {}
+        with _q_algebra(False):
+            for name, zrev in (("pvoc_fused", False), ("pvoc_fused_zrev", True)):
+                k = fused_time_stretch(t_long, N_FFT, HOP, 128, zrev=zrev)
+                p = fused_time_stretch_reference(t_long, N_FFT, HOP, 128, zrev=zrev)
+                with _q_algebra(True):
+                    alg_rel = _rel(fused_time_stretch(t_long, N_FFT, HOP, 128, zrev=zrev),
+                                   fused_time_stretch_reference(t_long, N_FFT, HOP, 128, zrev=zrev))
+                prof = _profiled(lambda: fused_time_stretch(x_long, N_FFT, HOP, 128, zrev=zrev), kernels=7)
+                rows[name] = {"rel": _rel(k, p), "max_abs": _max_abs(k, p), "algebraic_rel": alg_rel,
+                              "bound": max(3e-4, 2 * alg_rel),
+                              "ms": prof["device_busy_ms"], "by_kernel_ms": prof["by_kernel_ms"],
+                              "plain_ms": _time_ms(lambda: fused_time_stretch_reference(
+                                  x_long, N_FFT, HOP, 128, zrev=zrev), reps=1),
+                              **_bound(4 * (len(x_long) + len(k)), 2 * nf_long * _FFT_FLOP)}
+                _check(rows[name]["rel"] < rows[name]["bound"],
+                       f"{name}, angle domain, 0.5x / 3600 s tones: {rows[name]}")
+                del k, p
+            F_long = streaming.DEFAULT_FUSED_SEGMENT_FRAMES
+            _, st10 = streaming._fused_scan_from(
+                t_long, streaming.fused_init_state(N_FFT, 128, dev), nf_long, N_FFT, HOP, 128, F_long, 10)
+            seg_args = (t_long, st10.carry, st10.tail, 1, 10 * F_long, nf_long, N_FFT, HOP, 128, F_long)
+            ka, _, kt = fused_stream_segment(*seg_args)
+            pa, _, pt = fused_stream_segment_reference(*seg_args)
+            prof = _profiled(lambda: fused_stream_segment(*seg_args), reps=20)
+            rows["pvoc_fused_segment"] = {
+                "frames": F_long, "rel": max(_rel(ka, pa, 0), _rel(kt.reshape(-1), pt.reshape(-1), 0)),
+                "max_abs": _max_abs(ka, pa, 0), "ms": prof["device_busy_ms"], "by_kernel_ms": prof["by_kernel_ms"],
+                "plain_ms": _time_ms(lambda: fused_stream_segment_reference(*seg_args), reps=3),
+                **_bound(4 * ((F_long - 1) * HOP + N_FFT + len(ka) + 2 * kt.numel() + 2 * st10.carry.numel()),
+                         2 * F_long * _FFT_FLOP)}
+            del ka, pa, kt, pt, st10
+            # The batch's 0.5x group: its utterances (the chirp) are timed
+            # and their distance from the plain version recorded under both
+            # settings (a branch choice of a quiet bin parts two f32
+            # analyses there: 7.6e-3 at k = 1/2 in the angle domain, an
+            # H100 reading); the check runs on tones of the same lengths.
+            grp = [x for x, r in zip(xs64, ratios64) if r == 0.5]
+            t_max = max(len(x) for x in grp)
+            nfs_g = [(len(x) - N_FFT) // HOP + 1 for x in grp]
+            spans = [(nf_g - 1) * 128 + N_FFT for nf_g in nfs_g]
+            xb = torch.stack([torch.nn.functional.pad(x, (0, t_max - len(x))) for x in grp])
+            tb = torch.stack([torch.nn.functional.pad(torch.as_tensor(
+                _tones(len(x) / SR)[: len(x)], dtype=torch.float32, device=dev), (0, t_max - len(x))) for x in grp])
+
+            def batch_dist(x_b):
+                a = fused_time_stretch_batch(x_b, N_FFT, HOP, 128, nfs_g)
+                b = fused_time_stretch_batch_reference(x_b, N_FFT, HOP, 128, nfs_g)
+                return (max(_rel(a[i, :n], b[i, :n]) for i, n in enumerate(spans)),
+                        max(_max_abs(a[i, :n], b[i, :n]) for i, n in enumerate(spans)))
+
+            rel, max_abs = batch_dist(tb)
+            with _q_algebra(True):
+                chirp_alg = batch_dist(xb)[0]
+            prof = _profiled(lambda: fused_time_stretch_batch(xb, N_FFT, HOP, 128, nfs_g), reps=10)
+            rows["pvoc_fused_batch"] = {
+                "rows": len(grp), "frames": sum(nfs_g), "rel": rel, "max_abs": max_abs,
+                "chirp_rel_recorded": batch_dist(xb)[0], "chirp_algebraic_rel_recorded": chirp_alg,
+                "ms": prof["device_busy_ms"], "by_kernel_ms": prof["by_kernel_ms"],
+                "plain_ms": _time_ms(lambda: fused_time_stretch_batch_reference(xb, N_FFT, HOP, 128, nfs_g), reps=1),
+                **_bound(4 * (sum((n - 1) * HOP + N_FFT for n in nfs_g)
+                              + len(grp) * (max(nfs_g) + N_FFT // 128 - 1) * 128),
+                         2 * sum(nfs_g) * _FFT_FLOP)}
+            del xb, tb
+            for name in ("pvoc_fused_segment", "pvoc_fused_batch"):
+                _check(rows[name]["rel"] < 5e-5, f"{name}, angle domain, at the main shape: {rows[name]}")
+            kt = stft_phasor_terms(t_long, N_FFT, HOP, 640)
+            pt = stft_phasor_terms_reference(t_long, N_FFT, HOP, 640)
+            rec = _weighted_phasor_err(kt, pt)
+            with _q_algebra(True):
+                rec["algebraic_p_weighted"] = _weighted_phasor_err(
+                    stft_phasor_terms(t_long, N_FFT, HOP, 640),
+                    stft_phasor_terms_reference(t_long, N_FFT, HOP, 640))["p_weighted"]
+            rec["bound"] = max(3e-4, 2 * rec["algebraic_p_weighted"])
+            prof = _profiled(lambda: stft_phasor_terms(x_long, N_FFT, HOP, 640), kernels=4)
+            rec.update(ms=prof["device_busy_ms"], by_kernel_ms=prof["by_kernel_ms"], frames=nf_long,
+                       plain_ms=_time_ms(lambda: stft_phasor_terms_reference(x_long, N_FFT, HOP, 640), reps=1),
+                       **_bound(4 * (len(x_long) + 3 * kt[0].numel()), nf_long * _FFT_FLOP))
+            _check(rec["mag_rel"] < 1e-5 and rec["p_weighted"] < rec["bound"],
+                   f"pvoc_terms, angle domain, 2.5x / 3600 s tones: {rec}")
+            rows["pvoc_terms"] = rec
+            del kt, pt
+            # pvoc_terms_batch at 4e's shape and bounds: unscanned terms (no
+            # walk), a term within rounding of the branch cut counted apart.
+            kt = stft_phasor_terms_batch(xs8, N_FFT, HOP, 128, scan=False, return_u=True)
+            pt = stft_phasor_terms_batch_reference(xs8, N_FFT, HOP, 128, scan=False, return_u=True)
+            nf8 = kt[-1]
+            prof = _profiled(lambda: stft_phasor_terms_batch(xs8, N_FFT, HOP, 128, scan=False, return_u=True))
+            rec = {"frames": 8 * nf8, **_terms_errors(kt, pt), "ms": prof["device_busy_ms"],
+                   "by_kernel_ms": prof["by_kernel_ms"],
+                   "plain_ms": _time_ms(lambda: stft_phasor_terms_batch_reference(
+                       xs8, N_FFT, HOP, 128, scan=False, return_u=True), reps=1),
+                   **_bound(4 * (xs8.numel() + 5 * 8 * nf8 * (N_FFT // 2 + 1)), 8 * nf8 * _FFT_FLOP)}
+            _check(rec["mag_rel"] < 1e-5 and max(rec["u_weighted"], rec["t_weighted"]) < 1e-4
+                   and rec["flip_share"] < 1e-5, f"pvoc_terms_batch, angle domain, 8 x 600 s: {rec}")
+            rows["pvoc_terms_batch"] = rec
+            del kt, pt, xs8
+        _emit("7_q_algebraic_kernels_main_shapes", card=smi, kernels=rows,
+              bounds={"3600s_tones": "3e-4 or twice the algebraic pair's", "segment_and_batch": 5e-5,
+                      "terms_batch": "4e's: mag_rel 1e-5, weighted 1e-4, flip_share 1e-5"})
+    finally:
+        from phase_vocoder_tpu_torch.ops import fused as fused_mod
+
+        fused_mod.set_q_algebraic(True)
+
+    replaces = {"pvoc_fused": "ops/pallas/fused.py:1526", "pvoc_fused_zrev": "ops/pallas/fused.py:1569",
+                "pvoc_fused_segment": "ops/pallas/fused.py:1886", "pvoc_fused_batch": "ops/pallas/fused.py:1610",
+                "pvoc_terms": "ops/pallas/fused.py:713", "pvoc_terms_batch": "ops/pallas/fused.py:733"}
+    path_of = {"pvoc_fused": "stretch_0.5x_3600s", "pvoc_fused_zrev": "zrev_0.5x_3600s",
+               "pvoc_fused_segment": "fused_stream_0.5x_3600s", "pvoc_fused_batch": "batch_varied_64",
+               "pvoc_terms": "stretch_2.5x_3600s", "pvoc_terms_batch": "batched_chunked_0.5x_8x600s"}
+    return [{"name": f"{name}@angle_q2", "route": "cuda", "source": "phase_vocoder_tpu_torch/csrc/pvoc_fused.cu",
+             "replaces": f"phase_vocoder_tpu/{replaces[name]}",
+             "launches": launches[f"{path_of[name]}/trig"][name],
+             "max_abs_err": rec["max_abs"] if "max_abs" in rec else rec["y_max_abs"], "ms": rec["ms"],
+             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+             "library_ms": None}
+            for name, rec in rows.items()]
 
 
 def main() -> int:
@@ -2670,6 +3085,10 @@ def main() -> int:
           zrev=zr, zrev_launches=zr_launches, stretch_2x_3600s_by_n_fft=sizes_main,
           sizes_launches=sizes_launches, select_kernels_m7_300s=sel_k)
 
+    # ---- 7. the q in {2, 4} term algebra's angle domain
+    # (set_q_algebraic(False)) through every phasor kernel
+    kernels_q = _q_algebraic_phase(smi, counters, cfg, dev)
+
     # ---- 5. determinism
     a = pv.time_stretch(x60, 2.0, cfg)
     b = pv.time_stretch(x60, 2.0, cfg)
@@ -2796,6 +3215,7 @@ def main() -> int:
           for name, replaces, impl in (("resample_blocked", "ops/resample.py:715", "fused"),
                                        ("select_lerp_roll2", "ops/resample.py:786", "roll2"),
                                        ("select_lerp", "ops/resample.py:662", "matmul"))),
+        *kernels_q,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

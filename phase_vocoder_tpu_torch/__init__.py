@@ -14,6 +14,7 @@ Quick start:
     y = pv.time_stretch(x, 2.0)              # numpy in -> "cuda" by default
     y = pv.pitch_shift(x, semitones=7)
     y = pv.time_stretch(x, 2.0, device="cpu")
+    mag, phi = pv.analyze(x, pv.PvocConfig(), device="cpu")
     ys = pv.batch_time_stretch_varied(xs, [0.5, 2.0, ...])  # one batch per Rs
     y = pv.chunked_time_stretch(x, 2.0, pv.make_mesh())     # over all ranks
 """
@@ -28,7 +29,7 @@ from .parallel import (
     make_mesh,
     make_mesh_2d,
 )
-from .pipeline import pitch_shift, stretch_output_length, time_stretch
+from .pipeline import analyze, pitch_shift, stretch_output_length, synthesize, time_stretch
 from .streaming import fused_stream_time_stretch, stream_time_stretch
 
 __version__ = "0.1.0"
@@ -36,6 +37,8 @@ __version__ = "0.1.0"
 __all__ = [
     "PvocConfig",
     "PhaseVocoder",
+    "analyze",
+    "synthesize",
     "time_stretch",
     "pitch_shift",
     "stretch_output_length",

@@ -105,6 +105,7 @@ __all__ = [
     "phasor_scan",
     "phasor_prefix_exclusive",
     "boundary_step_term",
+    "set_q_algebraic",
 ]
 
 _TINY = 1e-30
@@ -333,17 +334,38 @@ def _principal_sqrt(zre, zim):
     return torch.where(pos, re_pos, re_neg), torch.where(pos, im_pos, im_neg)
 
 
+# The q in {2, 4} term path: True (the default) forms z^k by principal
+# square roots and the integer power (no transcendentals), False by the
+# angle domain (atan2, times k, cos/sin) that the other q take. The A/B
+# knob of the JAX package's set_q_algebraic, for its branch-tracking
+# accuracy experiment: the two differ only in rounding near the princarg
+# branch point. q = 1 always stays algebraic. No cache holds anything that
+# depends on it (the tables and workspaces depend on the geometry only),
+# so the setter clears nothing.
+_Q_ALGEBRAIC = True
+
+
+def set_q_algebraic(enabled: bool) -> None:
+    """Choose the q in {2, 4} term path for every later call, plain
+    version and kernels alike: True principal roots + integer power,
+    False the angle domain."""
+    global _Q_ALGEBRAIC
+    _Q_ALGEBRAIC = bool(enabled)
+
+
 def _pow_alg(p: int, q: int) -> bool:
-    """True: principal roots + integer power; False: angle domain."""
-    return q in (1, 2, 4) and p <= 8
+    """True: principal roots + integer power; False: angle domain. The
+    JAX package's condition in its _pow_k, letter for letter."""
+    return q in (1, 2, 4) and p <= 8 and (q == 1 or _Q_ALGEBRAIC)
 
 
 def _pow_k(zre, zim, rs: int, ra: int):
     """z^k for rational k = rs/ra and unit z: e^{i k princarg(arg z)}.
 
     q in {1, 2, 4} with p <= 8: nested principal square roots, then the
-    integer power (pure algebra). Otherwise the angle domain: atan2, times
-    k, cos/sin. A zim of -0 counts as +0, so the branch point maps to +pi
+    integer power (pure algebra); q in {2, 4} only under
+    set_q_algebraic(True), the default. Otherwise the angle domain: atan2,
+    times k, cos/sin. A zim of -0 counts as +0, so the branch point maps to +pi
     as the golden model's princarg does.
     """
     p, q = _rational_k(rs, ra)
@@ -354,24 +376,31 @@ def _pow_k(zre, zim, rs: int, ra: int):
         if p == 1:
             return wre, wim
         return _int_pow(wre, wim, p)
-    k = float(np.float32(p / q))
-    if zre.device.type != "cpu" or zre.dim() < 2:
-        return _angle_pow(zre, zim, k)
-    # On the CPU torch evaluates atan2 and cos in SIMD lanes but the last
-    # elements of each thread's range in scalar code, which rounds
-    # differently. Evaluating every SCAN_CHUNK block of frames (dim 0) as a
-    # call of its own makes each result depend only on the frame's place
-    # in its chunk, so a stream segment computes what the whole recording
-    # does.
-    parts = [
-        _angle_pow(zre[i : i + SCAN_CHUNK], zim[i : i + SCAN_CHUNK], k)
-        for i in range(0, zre.shape[0], SCAN_CHUNK)
-    ]
-    return torch.cat([a for a, _ in parts]), torch.cat([b for _, b in parts])
+    return _angle_pow(zre, zim, float(np.float32(p / q)))
+
+
+def _f64_rn(fn, *args: torch.Tensor) -> torch.Tensor:
+    """fn (a numpy function) of float32 CPU tensors, evaluated in float64
+    and rounded once to float32: the correctly rounded float32 result but
+    for a value within float64's error of a rounding boundary."""
+    return torch.from_numpy(fn(*(a.numpy().astype(np.float64) for a in args)).astype(np.float32))
 
 
 def _angle_pow(zre, zim, k: float):
-    ang = torch.atan2(torch.where(zim == 0, 0.0, zim), zre) * k
+    """e^{i k atan2(zim, zre)} (zim = -0 counts as +0). On the CPU the
+    transcendentals come from _f64_rn, so that a result depends on its
+    input alone, as _sqrt_rn does for the square root: torch's CPU atan2,
+    cos and sin are vector routines of the host's instruction set that
+    round 2-5% of float32 results otherwise (torch 2.13, AVX512) and the
+    last elements of a thread's range in scalar code; one plain call at
+    k = 1/2 on 60 s gave two outputs in two runs on one kind of host (a
+    branch of a quiet bin: 1.8e-4 and 2.7e-6 from golden). On a card,
+    torch's (CUDA's atan2f, cosf, sinf)."""
+    zim = torch.where(zim == 0, 0.0, zim)
+    if zre.device.type == "cpu":
+        ang = _f64_rn(np.arctan2, zim, zre) * k
+        return _f64_rn(np.cos, ang), _f64_rn(np.sin, ang)
+    ang = torch.atan2(zim, zre) * k
     return torch.cos(ang), torch.sin(ang)
 
 

@@ -140,11 +140,21 @@ def _as_signal(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
 
 
+def _as_tensor(a, device):
+    """A tensor as it is; anything else (numpy, lists) as float32 on
+    `device`. None stays None."""
+    if a is None or isinstance(a, torch.Tensor):
+        return a
+    return _as_signal(a, device)
+
+
 # ------------------------------------------------------------ polar stages
 
 
-def analyze(x: torch.Tensor, cfg: PvocConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """Windowed STFT -> (mag, phi), each (nf, n_bins)."""
+def analyze(x, cfg: PvocConfig, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """Windowed STFT -> (mag, phi), each (nf, n_bins). A tensor stays on
+    its device; anything else goes to `device` as float32."""
+    x = _as_tensor(x, device)
     if fused_analysis_ok(cfg):
         return stft_polar(x, cfg.n_fft, cfg.hop)
     frames = framing.frame_signal(x, cfg.n_fft, cfg.hop)
@@ -200,17 +210,20 @@ def synthesize_polar(
 
 
 def synthesize(
-    re: torch.Tensor,
-    im: torch.Tensor,
+    re,
+    im,
     cfg: PvocConfig,
     rs: int,
-    frame_mask: torch.Tensor | None = None,
+    frame_mask=None,
+    device="cuda",
 ) -> torch.Tensor:
     """Inverse FFT, synthesis window, overlap-add, COLA normalization.
 
     frame_mask: optional (nf,) 0/1 weights marking valid frames; masked
-    frames are zeroed in both the signal and the normalization.
+    frames are zeroed in both the signal and the normalization. Tensors
+    stay on their device; anything else goes to `device` as float32.
     """
+    re, im, frame_mask = (_as_tensor(a, device) for a in (re, im, frame_mask))
     w = hann_window(cfg.n_fft, re.device)
     if cfg.fft_backend == "xla":
         y_frames = fft_ops.irfft(re, im, cfg.n_fft, backend="xla") * w

@@ -12,6 +12,13 @@ _sqrt_rn), the processor's correctly rounded one, which the kernels'
 sqrtf also gives. Bounds: bitwise (numpy's float32 sqrt and division are
 IEEE).
 
+The angle domain of the power z^k (general q, and q in {2, 4} under
+set_q_algebraic(False)) takes atan2, cos and sin from numpy in float64,
+rounded once to float32 (ops/fused.py _f64_rn): torch's CPU routines round
+2-5% of float32 results otherwise, by the host's instruction set and by
+an element's place in a thread's range. Bounds: bitwise against Python's
+math module, element by element, and a slice against the whole.
+
 test_single_route_at_half_is_a_fresh_processes holds the single route at
 stretch 0.5 (q = 2, where a flipped branch in a quiet bin is a permanent
 pi) to what a fresh one-thread process computes, after the in-process work
@@ -81,6 +88,29 @@ def test_plain_normalize_and_principal_sqrt_are_correctly_rounded(planes):
     assert np.array_equal(wr.numpy(), want_r) and np.array_equal(wi.numpy(), want_i)
 
 
+@pytest.mark.parametrize("k", [0.5, 0.75, 2.5, float(np.float32(171 / 256))])
+def test_plain_angle_domain_is_correctly_rounded(k, planes):
+    """_angle_pow against math.atan2, math.cos and math.sin in float64,
+    each rounded to float32, the product by k a float32 one; unit phasors
+    of the planes, and the branch point (-1, +-0), which maps to +pi."""
+    import math
+
+    zr, zi = (v.numpy() for v in fused._normalize(*(torch.as_tensor(a) for a in planes)))
+    zr, zi = zr[:, :129].copy(), zi[:, :129].copy()
+    zr[0, :2], zi[0, :2] = -1.0, (0.0, -0.0)
+    wr, wi = (v.numpy() for v in fused._angle_pow(torch.as_tensor(zr), torch.as_tensor(zi), k))
+    k32 = np.float32(k)
+    for (i, j) in np.ndindex(zr.shape):
+        y = 0.0 if zi[i, j] == 0 else float(zi[i, j])
+        ang = float(np.float32(math.atan2(y, float(zr[i, j]))) * k32)
+        assert wr[i, j] == np.float32(math.cos(ang)) and wi[i, j] == np.float32(math.sin(ang)), (i, j)
+    assert wr[0, 0] == wr[0, 1] and wi[0, 0] == wi[0, 1]
+    # A result depends on its value alone, not on its place in the call.
+    for sl in (np.s_[3:17, 5:100], np.s_[1:2, 7:8], np.s_[40:, :]):
+        part = fused._angle_pow(torch.as_tensor(zr[sl]), torch.as_tensor(zi[sl]), k)
+        assert np.array_equal(part[0].numpy(), wr[sl]) and np.array_equal(part[1].numpy(), wi[sl])
+
+
 _FRESH = """
 import sys, numpy as np, torch
 sys.path.insert(0, {root!r})
@@ -110,3 +140,38 @@ def test_single_route_at_half_is_a_fresh_processes(tmp_path):
     for n, y in got.items():
         diff = np.abs(y.astype(np.float64) - fresh).max()
         assert np.array_equal(y, fresh), json.dumps({"threads": n, "max_abs_diff": diff})
+
+
+_FRESH_ANGLE = """
+import sys, numpy as np, torch
+sys.path.insert(0, {root!r})
+torch.set_num_threads(1)
+import phase_vocoder_tpu_torch as tpv
+from phase_vocoder_tpu_torch.ops import fused
+from tests.torch_dist import make_test_signal
+fused.set_q_algebraic(False)
+np.save({out!r}, tpv.time_stretch(make_test_signal(4.0), 0.5, device="cpu").numpy())
+"""
+
+
+def test_angle_domain_at_half_is_a_fresh_process(tmp_path):
+    """The single route at 0.5 under set_q_algebraic(False), in this
+    process at several thread counts, against a fresh one-thread process."""
+    out = str(tmp_path / "fresh.npy")
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "JAX_PLATFORMS": "cpu"}
+    subprocess.run([sys.executable, "-c", _FRESH_ANGLE.format(root=ROOT, out=out)], check=True,
+                   env=env, cwd=ROOT, timeout=300)
+    fresh = np.load(out)
+    x4 = make_test_signal(4.0)
+    threads = torch.get_num_threads()
+    fused.set_q_algebraic(False)
+    try:
+        got = {}
+        for n in (threads, 3, 1):
+            torch.set_num_threads(n)
+            got[n] = tpv.time_stretch(x4, 0.5, device="cpu").numpy()
+    finally:
+        torch.set_num_threads(threads)
+        fused.set_q_algebraic(True)
+    for n, y in got.items():
+        assert np.array_equal(y, fresh), json.dumps({"threads": n})
