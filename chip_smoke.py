@@ -53,8 +53,9 @@ each; any failure raises and the script exits non-zero:
          (time_stretch 2.5x/3.0x, pitch_shift +19 st) and the polar stages
          (analyze, stretch_polar, synthesize_polar) at Rs = 171;
   4. the main paths at real size, each timed with CUDA events, with every
-     kernel's launch count set to 0 just before the path and read just
-     after, and held to exactly the launches that path makes:
+     kernel's launches (utils/profiling's launches.<wrapper>) counted from
+     just before the path to just after, and held to exactly the launches
+     that path makes:
      4a. the fused route: time_stretch 2.0x on 3600 s and pitch_shift
          -7 st on 300 s of 16 kHz audio;
      4b. the kernels of 4a against their plain versions at those shapes,
@@ -263,6 +264,7 @@ from phase_vocoder_tpu_torch.bench import baseline_batch, utterance
 from phase_vocoder_tpu_torch.parallel.distributed import free_port
 from phase_vocoder_tpu_torch.utils.metrics import bound_ms as _bound
 from phase_vocoder_tpu_torch.utils.metrics import fft_flop
+from phase_vocoder_tpu_torch.utils import profiling
 from phase_vocoder_tpu_torch.utils.profiling import peak_gb as _peak_gb
 from phase_vocoder_tpu_torch.utils.profiling import profile_call as _profile_call
 from phase_vocoder_tpu_torch.utils.profiling import time_calls as _time_calls
@@ -403,15 +405,21 @@ def _terms_errors(k, p) -> dict:
             "y_max_abs": float(torch.where(flip, 0.0, dt * p[0]).max())}
 
 
+def _launches(counters: dict) -> dict:
+    """Each kernel's launches so far, by its name in `counters`: the
+    registry's launches.<wrapper> (ops/_build.launch)."""
+    seen = profiling.counters()
+    return {name: seen.get(f"launches.{wrapper.__name__}", 0) for name, wrapper in counters.items()}
+
+
 def _counted(counters: dict, fn, expect: dict, what: str) -> dict:
-    """Set every kernel's launch count to 0, run fn(), read the counts just
-    after, and check them: exactly `expect` for the kernels it names, 0 for
-    the others. Returns the counts."""
+    """Run fn() and count every kernel's launches from just before it to
+    just after, and check them: exactly `expect` for the kernels it names,
+    0 for the others. Returns the counts."""
     torch.cuda.synchronize()
-    for wrapper in counters.values():
-        wrapper.launches = 0
+    before = _launches(counters)
     fn()
-    got = {name: wrapper.launches for name, wrapper in counters.items()}
+    got = {name: n - before[name] for name, n in _launches(counters).items()}
     want = {name: expect.get(name, 0) for name in counters}
     _check(got == want, f"{what}: kernel launches {got}, expected {want}")
     return got
@@ -673,14 +681,14 @@ def _rank_worker(argv: list) -> int:
         x = torch.as_tensor(_signal(60.0), dtype=torch.float32, device="cuda")
         mesh = distributed.global_mesh("seq")
         res = {}
+        wrappers = {w.__name__: w for w in (fused.fused_stream_segment, fused.stft_phasor_terms,
+                                              fused.phasor_istft_ola)}
         for s in (2.0, 0.5):
-            wrappers = (fused.fused_stream_segment, fused.stft_phasor_terms, fused.phasor_istft_ola)
-            for w in wrappers:
-                w.launches = 0
+            before = _launches(wrappers)
             y = chunked.chunked_time_stretch(x, s, mesh=mesh)
             torch.cuda.synchronize()
             res[f"y{s}"] = y.cpu().numpy()
-            res[f"launches{s}"] = np.array([w.launches for w in wrappers])
+            res[f"launches{s}"] = np.array([n - before[k] for k, n in _launches(wrappers).items()])
         np.savez(f"{out}/rank{rank}.npz", device=torch.cuda.get_device_name(0), **res)
     finally:
         torch.distributed.destroy_process_group()

@@ -17,20 +17,26 @@ Quick start:
     mag, phi = pv.analyze(x, pv.PvocConfig(), device="cpu")
     ys = pv.batch_time_stretch_varied(xs, [0.5, 2.0, ...])  # one batch per Rs
     y = pv.chunked_time_stretch(x, 2.0, pv.make_mesh())     # over all ranks
+
+Importing the package is the set-up span pv.setup.import
+(utils/profiling.py), from the import of utils/profiling.py on.
 """
 
-from .config import PvocConfig
-from .models import PhaseVocoder
-from .parallel import (
-    batch_time_stretch,
-    batch_time_stretch_ragged,
-    batch_time_stretch_varied,
-    chunked_time_stretch,
-    make_mesh,
-    make_mesh_2d,
-)
-from .pipeline import analyze, pitch_shift, stretch_output_length, synthesize, time_stretch
-from .streaming import fused_stream_time_stretch, stream_time_stretch
+from .utils import profiling as _profiling
+
+with _profiling.setup("import"):
+    from .config import PvocConfig
+    from .models import PhaseVocoder
+    from .parallel import (
+        batch_time_stretch,
+        batch_time_stretch_ragged,
+        batch_time_stretch_varied,
+        chunked_time_stretch,
+        make_mesh,
+        make_mesh_2d,
+    )
+    from .pipeline import analyze, pitch_shift, stretch_output_length, synthesize, time_stretch
+    from .streaming import fused_stream_time_stretch, stream_time_stretch
 
 __version__ = "0.1.0"
 

@@ -6,7 +6,12 @@ together, and one more nvcc call links them into
 phase_vocoder_tpu_torch/build/libpvoc_kernels.so at first use. The library
 is rebuilt when any file under csrc/ (sources and shared headers) or the
 command changes (a sha256 stamp beside it). A missing nvcc or a failed
-build raises with the compiler's output.
+build raises with the compiler's output. Loading is the set-up span
+pv.setup.library, a compile pv.setup.nvcc inside it.
+
+Every call of a kernel entry goes through launch(), which times it as
+the span pv.launch:<wrapper>, raises on its return code and counts it as
+launches.<wrapper> (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import subprocess
 from pathlib import Path
 
 import torch
+
+from ..utils import profiling
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -155,12 +162,13 @@ def build() -> Path:
     objects = [BUILD_DIR / f"{src.stem}.{pid}.tmp.o" for src in sources]
     tmp = LIB_PATH.with_suffix(f".so.{pid}.tmp")
     try:
-        _run_all([
-            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-            for src, obj in zip(sources, objects)
-        ])
-        _run_all([[nvcc, *NVCC_FLAGS, *_link_flags(nvcc), "-shared", "-o", str(tmp),
-                   *map(str, objects)]])
+        with profiling.setup("nvcc"):
+            _run_all([
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objects)
+            ])
+            _run_all([[nvcc, *NVCC_FLAGS, *_link_flags(nvcc), "-shared", "-o", str(tmp),
+                       *map(str, objects)]])
         os.replace(tmp, LIB_PATH)
     finally:
         for obj in objects:
@@ -172,13 +180,14 @@ def build() -> Path:
 @functools.cache
 def kernels() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.pvoc_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.pvoc_cuda_error_string.restype = ctypes.c_char_p
+    with profiling.setup("library"):
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.pvoc_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.pvoc_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -187,6 +196,21 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         msg = kernels().pvoc_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+@functools.cache
+def _launch_names(wrapper: str) -> tuple[str, str]:
+    return "pv.launch:" + wrapper, "launches." + wrapper
+
+
+def launch(wrapper: str, entry, *args) -> None:
+    """entry(*args), a kernel entry of the library, as the span
+    pv.launch:<wrapper>: raise on its return code (check) and count one
+    launch as launches.<wrapper>, keyed by the launching wrapper's name."""
+    span, counter = _launch_names(wrapper)
+    with profiling.span(span):
+        check(entry(*args), entry.__name__)
+    profiling.count(counter)
 
 
 def current_stream(index: int) -> int:

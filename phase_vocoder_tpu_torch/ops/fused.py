@@ -12,7 +12,8 @@ is phasor algebra on the unit analysis phasors u_i = X_i/|X_i|:
 
 Six wrappers of csrc/pvoc_fused.cu, each with its plain torch version
 (`*_reference`) beside it; a CUDA tensor launches the kernel (counting one
-launch in `.launches`) or raises, a CPU tensor runs the plain version:
+launch as launches.<wrapper> in utils/profiling's registry, through
+_build.launch) or raises, a CPU tensor runs the plain version:
 
   fused_time_stretch       the whole TSM of one recording (framing,
                            windowed DFT, phasors, inverse DFT, overlap-add,
@@ -75,6 +76,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import _build, phase
 from .framing import frame_signal, num_frames
 from .window import _hann_f64, hann_window
@@ -186,11 +188,12 @@ def _rational_k(rs: int, ra: int) -> tuple[int, int]:
 def _fft_tables(n_fft: int) -> np.ndarray:
     """(2 n_fft,) f32: the periodic Hann window (n_fft), then cos and sin
     of 2 pi k / n_fft for k < n_fft/2 (the FFT twiddles), built in f64."""
-    k = np.arange(n_fft // 2, dtype=np.float64)
-    ang = 2.0 * np.pi * k / n_fft
-    return np.concatenate([_hann_f64(n_fft), np.cos(ang), np.sin(ang)]).astype(
-        np.float32
-    )
+    with profiling.setup("tables"):
+        k = np.arange(n_fft // 2, dtype=np.float64)
+        ang = 2.0 * np.pi * k / n_fft
+        return np.concatenate([_hann_f64(n_fft), np.cos(ang), np.sin(ang)]).astype(
+            np.float32
+        )
 
 
 @functools.lru_cache(maxsize=16)
@@ -201,12 +204,13 @@ def _phasor_consts(n_fft: int, ra: int, rs: int) -> np.ndarray:
     from exact integer angle reduction mod N; the formula of
     _phasor_consts_packed (bin 0 is unused).
     """
-    k = np.arange(n_fft // 2, dtype=np.int64)
-    ang_h = -2.0 * np.pi * ((k * ra) % n_fft) / n_fft
-    ang_c = 2.0 * np.pi * ((k * rs) % n_fft) / n_fft
-    return np.stack(
-        [np.cos(ang_h), np.sin(ang_h), np.cos(ang_c), np.sin(ang_c)]
-    ).astype(np.float32)
+    with profiling.setup("tables"):
+        k = np.arange(n_fft // 2, dtype=np.int64)
+        ang_h = -2.0 * np.pi * ((k * ra) % n_fft) / n_fft
+        ang_c = 2.0 * np.pi * ((k * rs) % n_fft) / n_fft
+        return np.stack(
+            [np.cos(ang_h), np.sin(ang_h), np.cos(ang_c), np.sin(ang_c)]
+        ).astype(np.float32)
 
 
 @functools.lru_cache(maxsize=64)
@@ -221,22 +225,23 @@ def _ola_norm_rows(n_fft: int, rs: int, nf: int, eps: float = 1e-8) -> np.ndarra
     and interior row, bit for bit; shorter inputs, where a row is head and
     tail at once, get their exact energy. Callers pass nf capped at m-1.
     """
-    m = -(-n_fft // rs)
-    t = np.arange(n_fft, dtype=np.float64)
-    w2 = (0.5 - 0.5 * np.cos(2.0 * np.pi * t / n_fft)) ** 2
-    w2p = np.zeros(m * rs, np.float64)
-    w2p[:n_fft] = w2
-    seg = w2p.reshape(m, rs)
+    with profiling.setup("tables"):
+        m = -(-n_fft // rs)
+        t = np.arange(n_fft, dtype=np.float64)
+        w2 = (0.5 - 0.5 * np.cos(2.0 * np.pi * t / n_fft)) ** 2
+        w2p = np.zeros(m * rs, np.float64)
+        w2p[:n_fft] = w2
+        seg = w2p.reshape(m, rs)
 
-    def inv_energy(r: int) -> np.ndarray:
-        s_lo = r - min(r, nf - 1)  # segment of the last frame covering r
-        s_hi = min(r, m - 1)  # segment of the first
-        return 1.0 / np.maximum(seg[s_lo : s_hi + 1].sum(axis=0), eps)
+        def inv_energy(r: int) -> np.ndarray:
+            s_lo = r - min(r, nf - 1)  # segment of the last frame covering r
+            s_hi = min(r, m - 1)  # segment of the first
+            return 1.0 / np.maximum(seg[s_lo : s_hi + 1].sum(axis=0), eps)
 
-    rows = [inv_energy(r) for r in range(m - 1)]
-    rows += [inv_energy(nf + j) for j in range(m - 1)]
-    rows.append(1.0 / np.maximum(seg.sum(axis=0), eps))
-    return np.stack(rows).astype(np.float32)
+        rows = [inv_energy(r) for r in range(m - 1)]
+        rows += [inv_energy(nf + j) for j in range(m - 1)]
+        rows.append(1.0 / np.maximum(seg.sum(axis=0), eps))
+        return np.stack(rows).astype(np.float32)
 
 
 def _norm_rows(n_fft: int, rs: int, nf: int) -> np.ndarray:
@@ -247,37 +252,42 @@ def _norm_rows(n_fft: int, rs: int, nf: int) -> np.ndarray:
 @functools.lru_cache(maxsize=16)
 def _device_fft_table(n_fft: int, device: str) -> torch.Tensor:
     """[Hann window | cos | sin] of _fft_tables, float32 on `device`."""
-    return torch.as_tensor(_fft_tables(n_fft), device=device)
+    with profiling.setup("tables"):
+        return torch.as_tensor(_fft_tables(n_fft), device=device)
 
 
 @functools.lru_cache(maxsize=16)
 def _device_tables(n_fft: int, ra: int, rs: int, device: str) -> dict:
     """The kernel's float32 tables on `device`, built once per geometry."""
-    return {
-        "fft": _device_fft_table(n_fft, device),
-        "consts": torch.as_tensor(_phasor_consts(n_fft, ra, rs), device=device),
-    }
+    with profiling.setup("tables"):
+        return {
+            "fft": _device_fft_table(n_fft, device),
+            "consts": torch.as_tensor(_phasor_consts(n_fft, ra, rs), device=device),
+        }
 
 
 @functools.lru_cache(maxsize=64)
 def _device_norm_rows(n_fft: int, rs: int, nf_key: int, device: str) -> torch.Tensor:
-    return torch.as_tensor(_ola_norm_rows(n_fft, rs, nf_key), device=device)
+    with profiling.setup("tables"):
+        return torch.as_tensor(_ola_norm_rows(n_fft, rs, nf_key), device=device)
 
 
 @functools.lru_cache(maxsize=16)
 def _device_norm_stack(n_fft: int, rs: int, device: str) -> torch.Tensor:
     """(m-1, 2m-1, rs): the normalization rows of every frame count
     1..m-1 (a count of m-1 or more shares the last), for a ragged batch."""
-    m = -(-n_fft // rs)
-    return torch.as_tensor(
-        np.stack([_ola_norm_rows(n_fft, rs, key) for key in range(1, m)]), device=device
-    )
+    with profiling.setup("tables"):
+        m = -(-n_fft // rs)
+        return torch.as_tensor(
+            np.stack([_ola_norm_rows(n_fft, rs, key) for key in range(1, m)]), device=device
+        )
 
 
 @functools.lru_cache(maxsize=16)
 def _device_unit_rows(n_fft: int, rs: int, device: str) -> torch.Tensor:
     """(2m-1, rs) ones: the gather's table for an un-normalized sum."""
-    return torch.ones((2 * (-(-n_fft // rs)) - 1, rs), dtype=torch.float32, device=device)
+    with profiling.setup("tables"):
+        return torch.ones((2 * (-(-n_fft // rs)) - 1, rs), dtype=torch.float32, device=device)
 
 
 # ------------------------------------------- phasor algebra (plain torch)
@@ -632,13 +642,13 @@ def fused_time_stretch(
     """Full fused TSM of a 1-D float32 tensor, on x's device.
 
     A CUDA tensor goes through the hand-written kernel (csrc/pvoc_fused.cu)
-    and counts one launch in `fused_time_stretch.launches`; a CPU tensor
+    and counts one launch as launches.fused_time_stretch; a CPU tensor
     goes through fused_time_stretch_reference. Returns (nf-1)*rs + n_fft
     samples.
 
     zrev=True (the JAX function's argument of that name, a measurement
     variant) runs the analysis as the fold pass, the pvoc_fused_zrev entry,
-    counted in `fused_time_stretch_zrev.launches`. As in the JAX package
+    counted as launches.fused_time_stretch_zrev. As in the JAX package
     the geometry decides: it applies when fold_analysis_applies(n_fft, hop)
     (an even overlap n_fft/hop, and n_fft a multiple of 4) and is otherwise
     the same call as zrev=False. On the card, where real_body(n_fft), the
@@ -659,7 +669,7 @@ def fused_time_stretch(
 def fused_time_stretch_zrev(x: torch.Tensor, n_fft: int, hop: int, rs: int) -> torch.Tensor:
     """fused_time_stretch(zrev=True) where the fold analysis applies (raises
     ValueError elsewhere). A CUDA tensor launches the pvoc_fused_zrev kernel
-    and counts one launch in `fused_time_stretch_zrev.launches`; a CPU
+    and counts one launch as launches.fused_time_stretch_zrev; a CPU
     tensor runs fused_time_stretch_reference(zrev=True)."""
     nf = _check_args(x, n_fft, hop, rs)
     if not fold_analysis_applies(n_fft, hop):
@@ -676,30 +686,25 @@ def _fused_launch(x: torch.Tensor, nf: int, n_fft: int, hop: int, rs: int, wrapp
     """The pvoc_fused kernel for `wrapper` (fused_time_stretch), or the
     pvoc_fused_zrev kernel (fused_time_stretch_zrev), counting its launch."""
     fold = wrapper is fused_time_stretch_zrev
-    what = "pvoc_fused_zrev" if fold else "pvoc_fused"
-    _check_cuda(x, wrapper.__name__)
-    dev = str(x.device)
-    tables = _device_tables(n_fft, hop, rs, dev)
-    norm = _device_norm_rows(n_fft, rs, min(nf, -(-n_fft // rs) - 1), dev)
-    p, q = _rational_k(rs, hop)
-    out = torch.empty((nf - 1) * rs + n_fft, dtype=torch.float32, device=x.device)
-    work = _workspace(nf, n_fft, q, x.device)
-    lib = _build.kernels()
-    half = [_device_fft_table(n_fft // 2, dev).data_ptr()] if fold else []
+    with profiling.span("pv.prepare"):
+        _check_cuda(x, wrapper.__name__)
+        dev = str(x.device)
+        tables = _device_tables(n_fft, hop, rs, dev)
+        norm = _device_norm_rows(n_fft, rs, min(nf, -(-n_fft // rs) - 1), dev)
+        p, q = _rational_k(rs, hop)
+        out = torch.empty((nf - 1) * rs + n_fft, dtype=torch.float32, device=x.device)
+        work = _workspace(nf, n_fft, q, x.device)
+        lib = _build.kernels()
+        half = [_device_fft_table(n_fft // 2, dev).data_ptr()] if fold else []
     with torch.cuda.device(x.device):
-        rc = getattr(lib, what)(
+        _build.launch(
+            wrapper.__name__, lib.pvoc_fused_zrev if fold else lib.pvoc_fused,
             x.data_ptr(), out.data_ptr(), *_ptrs(work),
             tables["fft"].data_ptr(), *half, tables["consts"].data_ptr(),
             norm.data_ptr(), nf, n_fft, hop, rs, p, q, int(_pow_alg(p, q)), SCAN_CHUNK,
             float(np.float32(p / q)), torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(rc, what)
-    wrapper.launches += 1
     return out
-
-
-fused_time_stretch.launches = 0
-fused_time_stretch_zrev.launches = 0
 
 
 def _check_cuda(x: torch.Tensor, what: str) -> None:
@@ -820,7 +825,7 @@ def fused_stream_segment(
     segment_workspace, reused across the segments of a call.
 
     A CUDA tensor launches the pvoc_fused_segment kernel and counts one
-    launch in `fused_stream_segment.launches`; a CPU tensor runs
+    launch as launches.fused_stream_segment; a CPU tensor runs
     fused_stream_segment_reference.
     """
     if x.device.type == "cpu":
@@ -828,34 +833,36 @@ def fused_stream_segment(
             x, carry, tail, started, frame_offset, nf, n_fft, hop, rs, seg_frames, out,
             x_frame0,
         )
-    _check_segment(x, carry, tail, frame_offset, n_fft, hop, rs, seg_frames)
-    for t, what in ((x, "x"), (carry, "carry"), (tail, "tail")):
-        _check_cuda(t, f"fused_stream_segment ({what})")
-    n_valid = min(max(nf - frame_offset, 0), seg_frames)
-    if n_valid and not (
-        x_frame0 <= frame_offset
-        and (frame_offset - x_frame0 + n_valid - 1) * hop + n_fft <= x.shape[0]
-    ):
-        raise ValueError(
-            f"x ({x.shape[0]} samples from frame {x_frame0}) does not hold frames "
-            f"{frame_offset}..{frame_offset + n_valid - 1}"
-        )
-    m = -(-n_fft // rs)
-    dev = str(x.device)
-    tables = _device_tables(n_fft, hop, rs, dev)
-    norm = _device_norm_rows(n_fft, rs, min(nf, m - 1), dev)
-    p, q = _rational_k(rs, hop)
-    if out is None:
-        out = torch.empty(seg_frames * rs, dtype=torch.float32, device=x.device)
-    elif out.shape != (seg_frames * rs,) or not out.is_contiguous():
-        raise ValueError(f"out must be a contiguous ({seg_frames * rs},) tensor")
-    work = segment_workspace(seg_frames, n_fft, hop, rs, x.device) if work is None else work
-    tail_out = torch.empty_like(tail)
-    carry_out = torch.empty_like(carry)
-    x_seg = x.data_ptr() + ((frame_offset - x_frame0) * hop * 4 if n_valid else 0)
-    lib = _build.kernels()
+    with profiling.span("pv.prepare"):
+        _check_segment(x, carry, tail, frame_offset, n_fft, hop, rs, seg_frames)
+        for t, what in ((x, "x"), (carry, "carry"), (tail, "tail")):
+            _check_cuda(t, f"fused_stream_segment ({what})")
+        n_valid = min(max(nf - frame_offset, 0), seg_frames)
+        if n_valid and not (
+            x_frame0 <= frame_offset
+            and (frame_offset - x_frame0 + n_valid - 1) * hop + n_fft <= x.shape[0]
+        ):
+            raise ValueError(
+                f"x ({x.shape[0]} samples from frame {x_frame0}) does not hold frames "
+                f"{frame_offset}..{frame_offset + n_valid - 1}"
+            )
+        m = -(-n_fft // rs)
+        dev = str(x.device)
+        tables = _device_tables(n_fft, hop, rs, dev)
+        norm = _device_norm_rows(n_fft, rs, min(nf, m - 1), dev)
+        p, q = _rational_k(rs, hop)
+        if out is None:
+            out = torch.empty(seg_frames * rs, dtype=torch.float32, device=x.device)
+        elif out.shape != (seg_frames * rs,) or not out.is_contiguous():
+            raise ValueError(f"out must be a contiguous ({seg_frames * rs},) tensor")
+        work = segment_workspace(seg_frames, n_fft, hop, rs, x.device) if work is None else work
+        tail_out = torch.empty_like(tail)
+        carry_out = torch.empty_like(carry)
+        x_seg = x.data_ptr() + ((frame_offset - x_frame0) * hop * 4 if n_valid else 0)
+        lib = _build.kernels()
     with torch.cuda.device(x.device):
-        rc = lib.pvoc_fused_segment(
+        _build.launch(
+            "fused_stream_segment", lib.pvoc_fused_segment,
             x_seg, out.data_ptr(), tail_out.data_ptr(), carry_out.data_ptr(),
             *_ptrs(work), tables["fft"].data_ptr(), tables["consts"].data_ptr(),
             norm.data_ptr(), carry.data_ptr(), tail.data_ptr(),
@@ -863,12 +870,7 @@ def fused_stream_segment(
             n_fft, hop, rs, p, q, int(_pow_alg(p, q)), SCAN_CHUNK,
             float(np.float32(p / q)), torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(rc, "pvoc_fused_segment")
-    fused_stream_segment.launches += 1
     return out, carry_out, tail_out
-
-
-fused_stream_segment.launches = 0
 
 
 def segment_workspace(seg_frames: int, n_fft: int, hop: int, rs: int, device) -> dict:
@@ -925,23 +927,26 @@ def stft_phasor_terms_reference(
 
 def _terms_launch(xs: torch.Tensor, nf: int, n_fft: int, hop: int, rs: int, scan: bool,
                   return_u: bool, what: str) -> tuple:
-    """The pvoc_terms kernel over the rows of xs (B, T): planes (B, nf, nb)."""
-    _check_cuda(xs, what)
-    B, nb = xs.shape[0], n_fft // 2 + 1
-    f32 = dict(dtype=torch.float32, device=xs.device)
-    spec = torch.empty((B * nf, 2 * nb), **f32)
-    mag = torch.empty((B, nf, nb), **f32)
-    t = torch.empty((2, B, nf, nb), **f32)
-    u = torch.empty((2, B, nf, nb), **f32) if return_u else None
-    tot = carry = None
-    if scan:
-        tot = torch.empty((B * -(-nf // SCAN_CHUNK), nb, 2), **f32)
-        carry = torch.empty_like(tot)
-    tables = _device_tables(n_fft, hop, rs, str(xs.device))
-    p, q = _rational_k(rs, hop)
-    lib = _build.kernels()
+    """The pvoc_terms kernel over the rows of xs (B, T): planes (B, nf, nb);
+    `what` is the launching wrapper's name."""
+    with profiling.span("pv.prepare"):
+        _check_cuda(xs, what)
+        B, nb = xs.shape[0], n_fft // 2 + 1
+        f32 = dict(dtype=torch.float32, device=xs.device)
+        spec = torch.empty((B * nf, 2 * nb), **f32)
+        mag = torch.empty((B, nf, nb), **f32)
+        t = torch.empty((2, B, nf, nb), **f32)
+        u = torch.empty((2, B, nf, nb), **f32) if return_u else None
+        tot = carry = None
+        if scan:
+            tot = torch.empty((B * -(-nf // SCAN_CHUNK), nb, 2), **f32)
+            carry = torch.empty_like(tot)
+        tables = _device_tables(n_fft, hop, rs, str(xs.device))
+        p, q = _rational_k(rs, hop)
+        lib = _build.kernels()
     with torch.cuda.device(xs.device):
-        rc = lib.pvoc_terms(
+        _build.launch(
+            what, lib.pvoc_terms,
             xs.data_ptr(), spec.data_ptr(), mag.data_ptr(), t.data_ptr(),
             None if u is None else u.data_ptr(),
             None if tot is None else tot.data_ptr(),
@@ -951,7 +956,6 @@ def _terms_launch(xs: torch.Tensor, nf: int, n_fft: int, hop: int, rs: int, scan
             float(np.float32(p / q)), int(scan), B, xs.shape[-1],
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(rc, what)
     if return_u:
         return mag, t[0], t[1], u[0], u[1]
     return mag, t[0], t[1]
@@ -971,19 +975,15 @@ def stft_phasor_terms(
     or (mag, pre, pim, ure, uim, nf) with return_u=True, each (nf,
     n_fft//2+1) at the true bin count (the JAX function's are lane-padded).
 
-    A CUDA tensor launches the pvoc_terms kernel and counts one launch in
-    `stft_phasor_terms.launches`; a CPU tensor runs
+    A CUDA tensor launches the pvoc_terms kernel and counts one launch as
+    launches.stft_phasor_terms; a CPU tensor runs
     stft_phasor_terms_reference.
     """
     nf = _check_terms(x, n_fft, hop, rs)
     if x.device.type == "cpu":
         return stft_phasor_terms_reference(x, n_fft, hop, rs, scan, return_u)
     planes = _terms_launch(x[None], nf, n_fft, hop, rs, scan, return_u, "stft_phasor_terms")
-    stft_phasor_terms.launches += 1
     return (*(p[0] for p in planes), nf)
-
-
-stft_phasor_terms.launches = 0
 
 
 def stft_phasor_terms_batch_reference(
@@ -1007,18 +1007,14 @@ def stft_phasor_terms_batch(
     the kernel's passes take the batch row as gridDim.y.
 
     A CUDA tensor launches the pvoc_terms kernel over the batch and counts
-    one launch in `stft_phasor_terms_batch.launches`; a CPU tensor runs
+    one launch as launches.stft_phasor_terms_batch; a CPU tensor runs
     stft_phasor_terms_batch_reference.
     """
     nf = _check_terms(xs, n_fft, hop, rs, dim=2)
     if xs.device.type == "cpu":
         return stft_phasor_terms_batch_reference(xs, n_fft, hop, rs, scan, return_u)
     planes = _terms_launch(xs, nf, n_fft, hop, rs, scan, return_u, "stft_phasor_terms_batch")
-    stft_phasor_terms_batch.launches += 1
     return (*planes, nf)
-
-
-stft_phasor_terms_batch.launches = 0
 
 
 # ------------------------------------------------------ batched fused TSM
@@ -1075,36 +1071,33 @@ def fused_time_stretch_batch(
 
     A CUDA tensor launches the pvoc_fused_batch kernel (the passes of
     fused_time_stretch with the batch row as gridDim.y and a device array
-    of frame counts) and counts one launch in
-    `fused_time_stretch_batch.launches`; a CPU tensor runs
+    of frame counts) and counts one launch as
+    launches.fused_time_stretch_batch; a CPU tensor runs
     fused_time_stretch_batch_reference.
     """
     nf, nfs = _check_batch(xs, n_fft, hop, rs, n_valid_frames)
     if xs.device.type == "cpu":
         return fused_time_stretch_batch_reference(xs, n_fft, hop, rs, nfs)
-    _check_cuda(xs, "fused_time_stretch_batch")
-    B, m = xs.shape[0], -(-n_fft // rs)
-    dev = str(xs.device)
-    tables = _device_tables(n_fft, hop, rs, dev)
-    norm = _device_norm_stack(n_fft, rs, dev)
-    counts = torch.tensor(nfs, dtype=torch.int32, device=xs.device)
-    p, q = _rational_k(rs, hop)
-    out = torch.empty((B, (nf + m - 1) * rs), dtype=torch.float32, device=xs.device)
-    work = _workspace(nf, n_fft, q, xs.device, batch=B)
-    lib = _build.kernels()
+    with profiling.span("pv.prepare"):
+        _check_cuda(xs, "fused_time_stretch_batch")
+        B, m = xs.shape[0], -(-n_fft // rs)
+        dev = str(xs.device)
+        tables = _device_tables(n_fft, hop, rs, dev)
+        norm = _device_norm_stack(n_fft, rs, dev)
+        counts = torch.tensor(nfs, dtype=torch.int32, device=xs.device)
+        p, q = _rational_k(rs, hop)
+        out = torch.empty((B, (nf + m - 1) * rs), dtype=torch.float32, device=xs.device)
+        work = _workspace(nf, n_fft, q, xs.device, batch=B)
+        lib = _build.kernels()
     with torch.cuda.device(xs.device):
-        rc = lib.pvoc_fused_batch(
+        _build.launch(
+            "fused_time_stretch_batch", lib.pvoc_fused_batch,
             xs.data_ptr(), counts.data_ptr(), out.data_ptr(), *_ptrs(work),
             tables["fft"].data_ptr(), tables["consts"].data_ptr(), norm.data_ptr(),
             B, xs.shape[1], nf, n_fft, hop, rs, p, q, int(_pow_alg(p, q)), SCAN_CHUNK,
             float(np.float32(p / q)), torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(rc, "pvoc_fused_batch")
-    fused_time_stretch_batch.launches += 1
     return out
-
-
-fused_time_stretch_batch.launches = 0
 
 
 # ------------------------------------------- synthesis from given phasors
@@ -1159,31 +1152,33 @@ def _synth_launch(mag, pre, pim, n_fft: int, rs: int, nf: int, mask, what: str) 
     or None. Returns (B, (nf-1)*rs + n_fft). Where real_body(n_fft), the
     kernel forms Y from the planes as it loads them (two launches:
     synth_real and the gather); elsewhere a first launch packs Y into a
-    (B*nf, 2*nb) scratch, allocated only then, for fft_synthesis."""
-    for t in (mag, pre, pim):
-        if t.device.type != "cuda":
-            raise ValueError(f"{what}: unsupported device {t.device}")
-    mag, pre, pim = (t[:, :nf].contiguous() for t in (mag, pre, pim))
-    B, nb = mag.shape[0], n_fft // 2 + 1
-    dev = str(mag.device)
-    f32 = dict(dtype=torch.float32, device=mag.device)
-    y = None if real_body(n_fft) else torch.empty((B * nf, 2 * nb), **f32)
-    frames = torch.empty((B * nf, n_fft), **f32)
-    out = torch.empty((B, (nf - 1) * rs + n_fft), **f32)
-    if mask is None:
-        norm = _device_norm_rows(n_fft, rs, min(nf, n_fft // rs - 1), dev)
-    else:
-        norm = _device_unit_rows(n_fft, rs, dev)
-    lib = _build.kernels()
+    (B*nf, 2*nb) scratch, allocated only then, for fft_synthesis. `what`
+    is the launching wrapper's name."""
+    with profiling.span("pv.prepare"):
+        for t in (mag, pre, pim):
+            if t.device.type != "cuda":
+                raise ValueError(f"{what}: unsupported device {t.device}")
+        mag, pre, pim = (t[:, :nf].contiguous() for t in (mag, pre, pim))
+        B, nb = mag.shape[0], n_fft // 2 + 1
+        dev = str(mag.device)
+        f32 = dict(dtype=torch.float32, device=mag.device)
+        y = None if real_body(n_fft) else torch.empty((B * nf, 2 * nb), **f32)
+        frames = torch.empty((B * nf, n_fft), **f32)
+        out = torch.empty((B, (nf - 1) * rs + n_fft), **f32)
+        if mask is None:
+            norm = _device_norm_rows(n_fft, rs, min(nf, n_fft // rs - 1), dev)
+        else:
+            norm = _device_unit_rows(n_fft, rs, dev)
+        lib = _build.kernels()
     with torch.cuda.device(mag.device):
-        rc = lib.pvoc_phasor_synth(
+        _build.launch(
+            what, lib.pvoc_phasor_synth,
             mag.data_ptr(), pre.data_ptr(), pim.data_ptr(),
             None if mask is None else mask.data_ptr(), None if y is None else y.data_ptr(),
             frames.data_ptr(),
             out.data_ptr(), _device_fft_table(n_fft, dev).data_ptr(), norm.data_ptr(),
             B, nf, n_fft, rs, torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(rc, what)
     return out
 
 
@@ -1210,7 +1205,7 @@ def phasor_istft_ola(
     Needs rs | n_fft and n_fft/rs >= 2, as the JAX function.
 
     A CUDA tensor launches the pvoc_phasor_synth kernel and counts one
-    launch in `phasor_istft_ola.launches`; a CPU tensor runs
+    launch as launches.phasor_istft_ola; a CPU tensor runs
     phasor_istft_ola_reference.
     """
     _check_synth(mag, pre, pim, n_fft, rs, nf, 2)
@@ -1218,11 +1213,7 @@ def phasor_istft_ola(
         return phasor_istft_ola_reference(mag, pre, pim, n_fft, rs, nf, frame_mask)
     mask = None if frame_mask is None else _full_mask(frame_mask, (1,), nf, mag)
     out = _synth_launch(mag[None], pre[None], pim[None], n_fft, rs, nf, mask, "phasor_istft_ola")
-    phasor_istft_ola.launches += 1
     return out[0]
-
-
-phasor_istft_ola.launches = 0
 
 
 def phasor_istft_ola_batch_reference(
@@ -1248,19 +1239,14 @@ def phasor_istft_ola_batch(
     Returns (B, (nf-1)*rs + n_fft).
 
     A CUDA tensor launches the pvoc_phasor_synth kernel over the batch and
-    counts one launch in `phasor_istft_ola_batch.launches`; a CPU tensor
+    counts one launch as launches.phasor_istft_ola_batch; a CPU tensor
     runs phasor_istft_ola_batch_reference.
     """
     _check_synth(mag, pre, pim, n_fft, rs, nf, 3)
     if mag.device.type == "cpu":
         return phasor_istft_ola_batch_reference(mag, pre, pim, n_fft, rs, nf, frame_mask)
     mask = None if frame_mask is None else _full_mask(frame_mask, (mag.shape[0],), nf, mag)
-    out = _synth_launch(mag, pre, pim, n_fft, rs, nf, mask, "phasor_istft_ola_batch")
-    phasor_istft_ola_batch.launches += 1
-    return out
-
-
-phasor_istft_ola_batch.launches = 0
+    return _synth_launch(mag, pre, pim, n_fft, rs, nf, mask, "phasor_istft_ola_batch")
 
 
 # ------------------------------------ phasor helpers of the chunked bodies

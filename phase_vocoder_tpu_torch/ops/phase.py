@@ -37,6 +37,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import _build
 
 TWO_PI = 6.283185307179586
@@ -422,8 +423,8 @@ def segment_phase(
     """segment_phase_reference in one launch: for a CUDA tensor the
     segment_phase kernel of csrc/phase_scan.cu (the residual terms, the
     compensated pair scan in blocked_scan's tree, the carry, finalize and
-    pin, bitwise the plain version's), counting one launch in
-    `segment_phase.launches`; for a CPU tensor segment_phase_reference.
+    pin, bitwise the plain version's), counting one launch as
+    launches.segment_phase; for a CPU tensor segment_phase_reference.
     A CUDA tensor launches the kernel for every F or raises. The wrapper
     is on the faithful route's per-segment path, so it spends little host
     time: no Stream object (_build.current_stream), no device guard when
@@ -435,32 +436,28 @@ def segment_phase(
         return segment_phase_reference(phi, phi_prev, carry_hi, carry_lo, phi0, **args)
     from .stft import _check_cuda  # not at the top: ops/stft.py imports this module (via ops/fused.py)
 
-    F, nb = phi.shape
-
-    for t in (phi, phi_prev, carry_hi, carry_lo, phi0):
-        _check_cuda(t, "segment_phase")
-    for t in (phi_prev, carry_hi, carry_lo, phi0):
-        if t.shape != (nb,):
-            raise ValueError(f"segment_phase: state vectors must be ({nb},), got {tuple(t.shape)}")
-    psi = torch.empty_like(phi)
-    carry = phi.new_empty((2, nb))
-    # Block totals of the two-level scan (F > 1024 only).
-    blocks = -(-F // _SCAN_BLOCK) if F > _SCAN_BLOCK else 0
-    totals = torch.empty((2, blocks, nb), dtype=torch.float32, device=phi.device) if blocks else None
-    dev = phi.get_device()
-    het_hi, het_lo = _het_split(ra, n_fft, nb, phi.device)
-    lib = _build.kernels()
+    with profiling.span("pv.prepare"):
+        F, nb = phi.shape
+        for t in (phi, phi_prev, carry_hi, carry_lo, phi0):
+            _check_cuda(t, "segment_phase")
+        for t in (phi_prev, carry_hi, carry_lo, phi0):
+            if t.shape != (nb,):
+                raise ValueError(f"segment_phase: state vectors must be ({nb},), got {tuple(t.shape)}")
+        psi = torch.empty_like(phi)
+        carry = phi.new_empty((2, nb))
+        # Block totals of the two-level scan (F > 1024 only).
+        blocks = -(-F // _SCAN_BLOCK) if F > _SCAN_BLOCK else 0
+        totals = torch.empty((2, blocks, nb), dtype=torch.float32, device=phi.device) if blocks else None
+        dev = phi.get_device()
+        het_hi, het_lo = _het_split(ra, n_fft, nb, phi.device)
+        lib = _build.kernels()
     with _build.device_guard(dev):
-        rc = lib.segment_phase(
+        _build.launch(
+            "segment_phase", lib.segment_phase,
             phi.data_ptr(), phi_prev.data_ptr(), carry_hi.data_ptr(), carry_lo.data_ptr(),
             (phi0 if started else phi).data_ptr(), het_hi.data_ptr(), het_lo.data_ptr(),
             psi.data_ptr(), carry.data_ptr(), totals.data_ptr() if blocks else None,
             F, nb, n_fft, rs % n_fft, frame_offset, frame_offset % n_fft,
             min(max(n_valid, 0), F), _segment_consts(ra, rs, n_fft), _build.current_stream(dev),
         )
-    _build.check(rc, "segment_phase")
-    segment_phase.launches += 1
     return (psi, *carry.unbind(0))
-
-
-segment_phase.launches = 0

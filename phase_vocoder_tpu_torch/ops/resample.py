@@ -3,7 +3,7 @@
 out[j] = x[j / factor] with linear interpolation, clamped at both edges —
 golden/pv_ref.py resample_linear. Three wrappers of csrc/resample.cu, each
 with its plain torch version (`*_reference`) beside it; a CUDA tensor
-launches the kernel (counting one launch in `.launches`) or raises, a CPU
+launches the kernel (counting one launch as launches.<wrapper>) or raises, a CPU
 tensor runs the plain version:
 
   resample_linear   float64 positions j / factor inside the kernel: exact
@@ -35,6 +35,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import _build
 
 __all__ = [
@@ -100,7 +101,7 @@ def resample_linear(x: torch.Tensor, factor: float, out_len: int) -> torch.Tenso
     """Resample 1-D float32 x by `factor` (>1 = more samples) to `out_len`.
 
     A CUDA tensor goes through the resample_lerp kernel of csrc/resample.cu
-    and counts one launch in `resample_linear.launches`; a CPU tensor goes
+    and counts one launch as launches.resample_linear; a CPU tensor goes
     through resample_linear_reference. Under a `_SEL_IMPL` other than the
     default "mxu", the irrational steps go through
     _resample_strided_select instead (and count in that select's wrapper).
@@ -132,22 +133,19 @@ def _resample_f64(x: torch.Tensor, factor: float, out_len: int) -> torch.Tensor:
     n = x.shape[-1]
     if x.device.type == "cpu":
         return resample_linear_reference(x, factor, out_len)
-    _check_cuda(x, "resample_linear")
-    if not factor > 0:
-        raise ValueError(f"factor must be positive, got {factor}")
-    out = torch.empty(out_len, dtype=torch.float32, device=x.device)
-    lib = _build.kernels()
+    with profiling.span("pv.prepare"):
+        _check_cuda(x, "resample_linear")
+        if not factor > 0:
+            raise ValueError(f"factor must be positive, got {factor}")
+        out = torch.empty(out_len, dtype=torch.float32, device=x.device)
+        lib = _build.kernels()
     with torch.cuda.device(x.device):
-        rc = lib.resample_lerp(
+        _build.launch(
+            "resample_linear", lib.resample_lerp,
             x.data_ptr(), out.data_ptr(), n, out_len, float(factor),
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(rc, "resample_lerp")
-    resample_linear.launches += 1
     return out
-
-
-resample_linear.launches = 0
 
 
 # ------------------------------------- blocked positions in the kernel ("fused")
@@ -221,28 +219,25 @@ def resample_blocked(
     the result equals its gather oracle up to the rounding of the lerp.
 
     A CUDA tensor launches the resample_blocked kernel and counts one
-    launch in `resample_blocked.launches`; a CPU tensor runs
+    launch as launches.resample_blocked; a CPU tensor runs
     resample_blocked_reference.
     """
     _check_blocked(x, start_int, start_frac, jo_int, jo_frac, out_len)
     if x.device.type == "cpu":
         return resample_blocked_reference(x, start_int, start_frac, jo_int, jo_frac, out_len)
-    for t in (x, start_int, start_frac, jo_int, jo_frac):
-        _check_cuda(t, "resample_blocked")
-    out = torch.empty(out_len, dtype=torch.float32, device=x.device)
-    lib = _build.kernels()
+    with profiling.span("pv.prepare"):
+        for t in (x, start_int, start_frac, jo_int, jo_frac):
+            _check_cuda(t, "resample_blocked")
+        out = torch.empty(out_len, dtype=torch.float32, device=x.device)
+        lib = _build.kernels()
     with torch.cuda.device(x.device):
-        rc = lib.resample_blocked(
+        _build.launch(
+            "resample_blocked", lib.resample_blocked,
             x.data_ptr(), start_int.data_ptr(), start_frac.data_ptr(),
             jo_int.data_ptr(), jo_frac.data_ptr(), out.data_ptr(),
             x.shape[-1], out_len, torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(rc, "resample_blocked")
-    resample_blocked.launches += 1
     return out
-
-
-resample_blocked.launches = 0
 
 
 # ------------------------- select from index and weight tensors ("roll2", "roll", "matmul")
@@ -295,20 +290,22 @@ _SEL_MAX_B = 4096
 
 
 def _select_launch(x, origin, k, fr, c: int, bases, what: str) -> torch.Tensor:
-    nb, B = _check_select(x, origin, k, fr, c, bases)
-    for t in (x, origin, k, fr) + (() if bases is None else (bases,)):
-        _check_cuda(t, what)
-    if B > _SEL_MAX_B:
-        raise ValueError(f"{what}: the kernel takes rows of at most {_SEL_MAX_B} outputs, got {B}")
-    out = torch.empty((nb, B), dtype=torch.float32, device=x.device)
-    lib = _build.kernels()
+    """The select_lerp kernel; `what` is the launching wrapper's name."""
+    with profiling.span("pv.prepare"):
+        nb, B = _check_select(x, origin, k, fr, c, bases)
+        for t in (x, origin, k, fr) + (() if bases is None else (bases,)):
+            _check_cuda(t, what)
+        if B > _SEL_MAX_B:
+            raise ValueError(f"{what}: the kernel takes rows of at most {_SEL_MAX_B} outputs, got {B}")
+        out = torch.empty((nb, B), dtype=torch.float32, device=x.device)
+        lib = _build.kernels()
     with torch.cuda.device(x.device):
-        rc = lib.select_lerp(
+        _build.launch(
+            what, lib.select_lerp,
             x.data_ptr(), origin.data_ptr(), None if bases is None else bases.data_ptr(),
             k.data_ptr(), fr.data_ptr(), out.data_ptr(), x.shape[-1], nb, B, c,
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(rc, what)
     return out
 
 
@@ -321,17 +318,12 @@ def select_lerp(
     may be negative or past the end), k (nb, B) int32, fr (nb, B) float32,
     c >= 0 the span's stride per lane. Returns (nb, B).
 
-    A CUDA tensor launches the select_lerp kernel and counts one launch in
-    `select_lerp.launches`; a CPU tensor runs select_lerp_reference.
+    A CUDA tensor launches the select_lerp kernel and counts one launch as
+    launches.select_lerp; a CPU tensor runs select_lerp_reference.
     """
     if x.device.type == "cpu":
         return select_lerp_reference(x, origin, k, fr, c)
-    out = _select_launch(x, origin, k, fr, c, None, "select_lerp")
-    select_lerp.launches += 1
-    return out
-
-
-select_lerp.launches = 0
+    return _select_launch(x, origin, k, fr, c, None, "select_lerp")
 
 
 def select_lerp_two_level(
@@ -343,19 +335,14 @@ def select_lerp_two_level(
     int32 the per-chunk alignment and k2 the chunk-local residual.
 
     A CUDA tensor launches the select_lerp kernel with the bases and counts
-    one launch in `select_lerp_two_level.launches`; a CPU tensor runs
+    one launch as launches.select_lerp_two_level; a CPU tensor runs
     select_lerp_reference.
     """
     if bases is None:
         raise ValueError("select_lerp_two_level needs the chunk bases")
     if x.device.type == "cpu":
         return select_lerp_reference(x, origin, k2, fr, c, bases)
-    out = _select_launch(x, origin, k2, fr, c, bases, "select_lerp_two_level")
-    select_lerp_two_level.launches += 1
-    return out
-
-
-select_lerp_two_level.launches = 0
+    return _select_launch(x, origin, k2, fr, c, bases, "select_lerp_two_level")
 
 
 # -------------------------------------------------- the JAX package's routing

@@ -4,8 +4,8 @@ and the windowed inverse-DFT frames of a polar or cartesian spectrum
 stft_fused, istft_ola, istft_frames and istft_frames_cart).
 
 Each runs a CUDA kernel of csrc/stft.cu for a CUDA tensor, counting one
-launch in `.launches`, and its plain torch version (`*_reference`) for a
-CPU tensor. A CUDA tensor launches the kernel or raises; nothing falls
+launch as launches.<wrapper> (_build.launch), and its plain torch version
+(`*_reference`) for a CPU tensor. A CUDA tensor launches the kernel or raises; nothing falls
 back.
 
 The kernels take any even n_fft up to 4096: a power of two from 256 to
@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from . import _build
 from .framing import frame_signal, num_frames, overlap_add
 from .fused import _FFT_LIMIT, _device_fft_table, fft_size_supported
@@ -102,18 +103,18 @@ def _analysis(x: torch.Tensor, n_fft: int, hop: int, wrapper):
     if x.device.type == "cpu":
         ref = stft_polar_reference if wrapper is stft_polar else stft_fused_reference
         return ref(x, n_fft, hop)
-    _check_cuda(x, what)
-    a = torch.empty((nf, nb), dtype=torch.float32, device=x.device)
-    b = torch.empty_like(a)
-    table = _device_fft_table(n_fft, str(x.device))
-    lib = _build.kernels()
+    with profiling.span("pv.prepare"):
+        _check_cuda(x, what)
+        a = torch.empty((nf, nb), dtype=torch.float32, device=x.device)
+        b = torch.empty_like(a)
+        table = _device_fft_table(n_fft, str(x.device))
+        lib = _build.kernels()
     with torch.cuda.device(x.device):
-        rc = getattr(lib, what)(
+        _build.launch(
+            what, getattr(lib, what),
             x.data_ptr(), table.data_ptr(), a.data_ptr(), b.data_ptr(),
             nf, n_fft, hop, torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(rc, what)
-    wrapper.launches += 1
     return a, b
 
 
@@ -121,13 +122,10 @@ def stft_polar(x: torch.Tensor, n_fft: int, hop: int):
     """Windowed STFT of 1-D float32 x -> (mag, phi), each (nf, n_fft//2+1).
 
     A CUDA tensor goes through the analysis kernel (csrc/stft.cu, polar
-    form; x may start at any element) and counts one launch in
-    `stft_polar.launches`; a CPU tensor goes through stft_polar_reference.
+    form; x may start at any element) and counts one launch as
+    launches.stft_polar; a CPU tensor goes through stft_polar_reference.
     """
     return _analysis(x, n_fft, hop, stft_polar)
-
-
-stft_polar.launches = 0
 
 
 def stft_fused(x: torch.Tensor, n_fft: int, hop: int):
@@ -135,13 +133,10 @@ def stft_fused(x: torch.Tensor, n_fft: int, hop: int):
     framing + Hann window + DFT, the cartesian twin of stft_polar.
 
     A CUDA tensor goes through the analysis kernel (csrc/stft.cu,
-    cartesian form) and counts one launch in `stft_fused.launches`; a CPU
+    cartesian form) and counts one launch as launches.stft_fused; a CPU
     tensor goes through stft_fused_reference.
     """
     return _analysis(x, n_fft, hop, stft_fused)
-
-
-stft_fused.launches = 0
 
 
 # --------------------------------------------------------------- synthesis
@@ -205,7 +200,7 @@ def istft_ola(
     weights (masked frames contribute nothing). Returns the un-normalized
     overlap-add of length (nf-1)*rs + n_fft (divide by ola_window_norm).
     A CUDA tensor goes through the istft_ola kernel (csrc/stft.cu) and
-    counts one launch in `istft_ola.launches`; a CPU tensor goes through
+    counts one launch as launches.istft_ola; a CPU tensor goes through
     istft_ola_reference.
     """
     if not istft_ola_supported(n_fft, rs):
@@ -221,25 +216,22 @@ def istft_ola(
         return mag.new_zeros((0,))
     if mag.device.type == "cpu":
         return istft_ola_reference(mag, psi, n_fft, rs, frame_mask)
-    _check_cuda(mag, "istft_ola")
-    _check_cuda(psi, "istft_ola")
-    mask = _mask(frame_mask, nf, mag)
-    frames = torch.empty((nf, n_fft), dtype=torch.float32, device=mag.device)
-    out = torch.empty((nf - 1) * rs + n_fft, dtype=torch.float32, device=mag.device)
-    table = _device_fft_table(n_fft, str(mag.device))
-    lib = _build.kernels()
+    with profiling.span("pv.prepare"):
+        _check_cuda(mag, "istft_ola")
+        _check_cuda(psi, "istft_ola")
+        mask = _mask(frame_mask, nf, mag)
+        frames = torch.empty((nf, n_fft), dtype=torch.float32, device=mag.device)
+        out = torch.empty((nf - 1) * rs + n_fft, dtype=torch.float32, device=mag.device)
+        table = _device_fft_table(n_fft, str(mag.device))
+        lib = _build.kernels()
     with torch.cuda.device(mag.device):
-        rc = lib.istft_ola(
+        _build.launch(
+            "istft_ola", lib.istft_ola,
             mag.data_ptr(), psi.data_ptr(), mask.data_ptr(), table.data_ptr(),
             frames.data_ptr(), out.data_ptr(), nf, n_fft, rs,
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(rc, "istft_ola")
-    istft_ola.launches += 1
     return out
-
-
-istft_ola.launches = 0
 
 
 def _istft_frames(a, b, n_fft: int, frame_mask, wrapper) -> torch.Tensor:
@@ -258,20 +250,20 @@ def _istft_frames(a, b, n_fft: int, frame_mask, wrapper) -> torch.Tensor:
     if a.device.type == "cpu":
         ref = istft_frames_reference if polar else istft_frames_cart_reference
         return ref(a, b, n_fft, frame_mask)
-    _check_cuda(a, what)
-    _check_cuda(b, what)
-    mask = _mask(frame_mask, nf, a)
-    frames = torch.empty((nf, n_fft), dtype=torch.float32, device=a.device)
-    table = _device_fft_table(n_fft, str(a.device))
-    lib = _build.kernels()
+    with profiling.span("pv.prepare"):
+        _check_cuda(a, what)
+        _check_cuda(b, what)
+        mask = _mask(frame_mask, nf, a)
+        frames = torch.empty((nf, n_fft), dtype=torch.float32, device=a.device)
+        table = _device_fft_table(n_fft, str(a.device))
+        lib = _build.kernels()
     with torch.cuda.device(a.device):
-        rc = lib.istft_frames(
+        _build.launch(
+            what, lib.istft_frames,
             a.data_ptr(), b.data_ptr(), mask.data_ptr(), table.data_ptr(),
             frames.data_ptr(), nf, n_fft, int(polar),
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(rc, what)
-    wrapper.launches += 1
     return frames
 
 
@@ -282,13 +274,10 @@ def istft_frames(
     """Polar spectra (nf, n_fft//2+1) -> windowed output frames (nf, n_fft),
     for any synthesis hop: Y = mask*mag*e^{i psi}, inverse DFT, Hann window,
     no overlap-add (the caller folds). A CUDA tensor goes through the
-    istft_frames kernel (csrc/stft.cu, polar form) and counts one launch in
-    `istft_frames.launches`; a CPU tensor goes through
+    istft_frames kernel (csrc/stft.cu, polar form) and counts one launch as
+    launches.istft_frames; a CPU tensor goes through
     istft_frames_reference."""
     return _istft_frames(mag, psi, n_fft, frame_mask, istft_frames)
-
-
-istft_frames.launches = 0
 
 
 def istft_frames_cart(
@@ -299,9 +288,6 @@ def istft_frames_cart(
     n_fft): the cartesian twin of istft_frames, for the general-hop phasor
     route where Y = mag * P arrives as (re, im). A CUDA tensor goes through
     the istft_frames kernel (csrc/stft.cu, cartesian form) and counts one
-    launch in `istft_frames_cart.launches`; a CPU tensor goes through
+    launch as launches.istft_frames_cart; a CPU tensor goes through
     istft_frames_cart_reference."""
     return _istft_frames(y_re, y_im, n_fft, frame_mask, istft_frames_cart)
-
-
-istft_frames_cart.launches = 0

@@ -24,6 +24,7 @@ from .. import pipeline
 from ..config import PvocConfig
 from ..ops import framing
 from ..ops.fused import fused_time_stretch_batch
+from ..utils import profiling
 from .mesh import Mesh
 
 __all__ = [
@@ -103,7 +104,8 @@ def batch_time_stretch(
 ) -> torch.Tensor:
     """Stretch a (B, T) batch of equal-length utterances by one ratio; with
     a mesh, each rank of its "data" axis takes B/D of them."""
-    return batch_time_stretch_rs(xs, cfg.synthesis_hop(stretch), cfg, mesh=mesh, device=device)
+    with profiling.span("pv.batch_time_stretch"):
+        return batch_time_stretch_rs(xs, cfg.synthesis_hop(stretch), cfg, mesh=mesh, device=device)
 
 
 def batch_time_stretch_ragged(
@@ -112,7 +114,8 @@ def batch_time_stretch_ragged(
 ) -> list:
     """Stretch a list of variable-length utterances by one ratio: one padded
     batch, each output cut to its own stretched length."""
-    return batch_time_stretch_varied(xs, [stretch] * len(xs), cfg, mesh=mesh, device=device)
+    with profiling.span("pv.batch_time_stretch_ragged"):
+        return batch_time_stretch_varied(xs, [stretch] * len(xs), cfg, mesh=mesh, device=device)
 
 
 def batch_time_stretch_varied(
@@ -124,20 +127,24 @@ def batch_time_stretch_varied(
 ) -> list:
     """Stretch utterances (1-D arrays or tensors) by per-utterance ratios:
     one padded batch per synthesis hop. Returns a list of 1-D tensors, the
-    i-th of length (n_i-1)*Rs_i + N."""
-    if len(xs) != len(stretches):
-        raise ValueError("xs and stretches must have equal length")
-    groups: dict[int, list[int]] = defaultdict(list)
-    for i, s in enumerate(stretches):
-        groups[cfg.synthesis_hop(s)].append(i)
+    i-th of length (n_i-1)*Rs_i + N. The grouping, and each group's pad and
+    stack, are the span pv.batch_group."""
+    with profiling.span("pv.batch_time_stretch_varied"):
+        if len(xs) != len(stretches):
+            raise ValueError("xs and stretches must have equal length")
+        with profiling.span("pv.batch_group"):
+            groups: dict[int, list[int]] = defaultdict(list)
+            for i, s in enumerate(stretches):
+                groups[cfg.synthesis_hop(s)].append(i)
 
-    out: list = [None] * len(xs)
-    for rs, idxs in groups.items():
-        rows = [pipeline._as_signal(xs[i], device) for i in idxs]
-        max_len = max(len(r) for r in rows)
-        batch = torch.stack([torch.nn.functional.pad(r, (0, max_len - len(r))) for r in rows])
-        nfs = [framing.num_frames(len(r), cfg.n_fft, cfg.hop) for r in rows]
-        ys = batch_time_stretch_rs(batch, rs, cfg, mesh=mesh, n_valid_frames=nfs)
-        for row, i in enumerate(idxs):
-            out[i] = ys[row, : framing.output_length(nfs[row], cfg.n_fft, rs)]
-    return out
+        out: list = [None] * len(xs)
+        for rs, idxs in groups.items():
+            with profiling.span("pv.batch_group"):
+                rows = [pipeline._as_signal(xs[i], device) for i in idxs]
+                max_len = max(len(r) for r in rows)
+                batch = torch.stack([torch.nn.functional.pad(r, (0, max_len - len(r))) for r in rows])
+                nfs = [framing.num_frames(len(r), cfg.n_fft, cfg.hop) for r in rows]
+            ys = batch_time_stretch_rs(batch, rs, cfg, mesh=mesh, n_valid_frames=nfs)
+            for row, i in enumerate(idxs):
+                out[i] = ys[row, : framing.output_length(nfs[row], cfg.n_fft, rs)]
+        return out

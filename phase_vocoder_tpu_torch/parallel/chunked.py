@@ -69,6 +69,7 @@ from ..ops.fused import (
 )
 from ..ops.stft import istft_ola
 from ..ops.window import hann_window
+from ..utils import profiling
 from .mesh import Mesh, make_mesh
 
 __all__ = ["chunked_time_stretch", "batched_chunked_time_stretch", "min_frames_per_device"]
@@ -310,37 +311,38 @@ def chunked_time_stretch(
     denominator). Tensors stay on their device; anything else goes to
     `device` as float32.
     """
-    x = pipeline._as_signal(x, device)
-    rs = cfg.synthesis_hop(stretch)
-    n, ra = cfg.n_fft, cfg.hop
-    nf = framing.num_frames(x.shape[-1], n, ra)
-    if nf <= 0:
-        return x.new_zeros((0,))
-    if mesh is None:
-        mesh = make_mesh(axis="seq")
-    D, d = mesh.size("seq"), mesh.index("seq")
-    out_len = framing.output_length(nf, n, rs)
+    with profiling.span("pv.chunked_time_stretch"):
+        x = pipeline._as_signal(x, device)
+        rs = cfg.synthesis_hop(stretch)
+        n, ra = cfg.n_fft, cfg.hop
+        nf = framing.num_frames(x.shape[-1], n, ra)
+        if nf <= 0:
+            return x.new_zeros((0,))
+        if mesh is None:
+            mesh = make_mesh(axis="seq")
+        D, d = mesh.size("seq"), mesh.index("seq")
+        out_len = framing.output_length(nf, n, rs)
 
-    if _fused1_ok(cfg, rs):
-        # F a multiple of the segment's scan chunk, sized so that the OLA
-        # spill rows nf..nf+m-2 land inside the last rank's span.
-        per_rank = -(-(nf + n // rs - 1) // D)
-        F = -(-per_rank // SCAN_CHUNK) * SCAN_CHUNK
+        if _fused1_ok(cfg, rs):
+            # F a multiple of the segment's scan chunk, sized so that the OLA
+            # spill rows nf..nf+m-2 land inside the last rank's span.
+            per_rank = -(-(nf + n // rs - 1) // D)
+            F = -(-per_rank // SCAN_CHUNK) * SCAN_CHUNK
+            if (D == 1 and not force) or F < min_frames_per_device(cfg, rs):
+                return pipeline.time_stretch(x, stretch, cfg)
+            x_sh, x_tail = _split(x, F, D, cfg, d)
+            main = _chunked_body_fused1(x_sh, x_tail, nf, cfg, rs, F, mesh)
+            return _gather_parts(main, None, mesh)[:out_len]
+
+        F = -(-nf // D)
         if (D == 1 and not force) or F < min_frames_per_device(cfg, rs):
             return pipeline.time_stretch(x, stretch, cfg)
         x_sh, x_tail = _split(x, F, D, cfg, d)
-        main = _chunked_body_fused1(x_sh, x_tail, nf, cfg, rs, F, mesh)
-        return _gather_parts(main, None, mesh)[:out_len]
-
-    F = -(-nf // D)
-    if (D == 1 and not force) or F < min_frames_per_device(cfg, rs):
-        return pipeline.time_stretch(x, stretch, cfg)
-    x_sh, x_tail = _split(x, F, D, cfg, d)
-    if _fused_chunk_ok(cfg, rs):
-        main, tail = _chunked_body_fused(x_sh, x_tail, nf, cfg, rs, F, mesh, batched=False)
-    else:
-        main, tail = _chunked_body(x_sh, x_tail, nf, cfg, rs, F, mesh)
-    return _gather_parts(main, tail, mesh)[:out_len]
+        if _fused_chunk_ok(cfg, rs):
+            main, tail = _chunked_body_fused(x_sh, x_tail, nf, cfg, rs, F, mesh, batched=False)
+        else:
+            main, tail = _chunked_body(x_sh, x_tail, nf, cfg, rs, F, mesh)
+        return _gather_parts(main, tail, mesh)[:out_len]
 
 
 def batched_chunked_time_stretch(
@@ -353,34 +355,35 @@ def batched_chunked_time_stretch(
     """Stretch a (B, T) batch data-parallel over the mesh's "data" axis AND
     sequence-parallel over its "seq" axis (B divisible by the "data" size).
     Every rank gets the whole (B, (nf-1)*Rs + N) output."""
-    xs = xs.to(torch.float32).contiguous() if isinstance(xs, torch.Tensor) else (
-        torch.as_tensor(xs, dtype=torch.float32, device=device))
-    if xs.dim() != 2:
-        raise ValueError(f"expected (B, T) batch, got shape {tuple(xs.shape)}")
-    rs = cfg.synthesis_hop(stretch)
-    n, ra = cfg.n_fft, cfg.hop
-    nf = framing.num_frames(xs.shape[-1], n, ra)
-    if nf <= 0:
-        return xs.new_zeros((xs.shape[0], 0))
-    if mesh is None or "seq" not in mesh.shape or "data" not in mesh.shape:
-        raise ValueError("batched_chunked_time_stretch needs a ('data', 'seq') mesh")
-    D = mesh.size("seq")
-    F = -(-nf // D)
-    if F < min_frames_per_device(cfg, rs):
-        raise ValueError(
-            f"recording too short to chunk over {D} devices "
-            f"(need >= {min_frames_per_device(cfg, rs) * D} frames, have {nf})"
-        )
-    B, data = xs.shape[0], mesh.size("data")
-    if B % data:
-        raise ValueError(f"batch of {B} rows does not split over {data} data ranks")
-    local = B // data
-    i = mesh.index("data")
-    x_sh, x_tail = _split(xs[i * local : (i + 1) * local], F, D, cfg, mesh.index("seq"))
-    if _fused_chunk_ok(cfg, rs):
-        main, tail = _chunked_body_fused(x_sh, x_tail, nf, cfg, rs, F, mesh, batched=True)
-    else:
-        parts = [_chunked_body(a, b, nf, cfg, rs, F, mesh) for a, b in zip(x_sh, x_tail)]
-        main, tail = (torch.stack(p) for p in zip(*parts))
-    rows = _gather_parts(main, tail, mesh)
-    return torch.cat(mesh.all_gather(rows, "data"))[:, : framing.output_length(nf, n, rs)]
+    with profiling.span("pv.batched_chunked_time_stretch"):
+        xs = xs.to(torch.float32).contiguous() if isinstance(xs, torch.Tensor) else (
+            torch.as_tensor(xs, dtype=torch.float32, device=device))
+        if xs.dim() != 2:
+            raise ValueError(f"expected (B, T) batch, got shape {tuple(xs.shape)}")
+        rs = cfg.synthesis_hop(stretch)
+        n, ra = cfg.n_fft, cfg.hop
+        nf = framing.num_frames(xs.shape[-1], n, ra)
+        if nf <= 0:
+            return xs.new_zeros((xs.shape[0], 0))
+        if mesh is None or "seq" not in mesh.shape or "data" not in mesh.shape:
+            raise ValueError("batched_chunked_time_stretch needs a ('data', 'seq') mesh")
+        D = mesh.size("seq")
+        F = -(-nf // D)
+        if F < min_frames_per_device(cfg, rs):
+            raise ValueError(
+                f"recording too short to chunk over {D} devices "
+                f"(need >= {min_frames_per_device(cfg, rs) * D} frames, have {nf})"
+            )
+        B, data = xs.shape[0], mesh.size("data")
+        if B % data:
+            raise ValueError(f"batch of {B} rows does not split over {data} data ranks")
+        local = B // data
+        i = mesh.index("data")
+        x_sh, x_tail = _split(xs[i * local : (i + 1) * local], F, D, cfg, mesh.index("seq"))
+        if _fused_chunk_ok(cfg, rs):
+            main, tail = _chunked_body_fused(x_sh, x_tail, nf, cfg, rs, F, mesh, batched=True)
+        else:
+            parts = [_chunked_body(a, b, nf, cfg, rs, F, mesh) for a, b in zip(x_sh, x_tail)]
+            main, tail = (torch.stack(p) for p in zip(*parts))
+        rows = _gather_parts(main, tail, mesh)
+        return torch.cat(mesh.all_gather(rows, "data"))[:, : framing.output_length(nf, n, rs)]

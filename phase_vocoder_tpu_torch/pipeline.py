@@ -57,6 +57,7 @@ from .ops.stft import (
     stft_supported,
 )
 from .ops.window import hann_window
+from .utils import profiling
 
 __all__ = [
     "analyze",
@@ -113,10 +114,16 @@ def phasor_general_stretch(x: torch.Tensor, cfg: PvocConfig, rs: int) -> torch.T
     overlap-add, window-energy normalization."""
     n = cfg.n_fft
     mag, pre, pim, nf = stft_phasor_terms(x, n, cfg.hop, rs, scan=True)
-    y_frames = istft_frames_cart(mag * pre, mag * pim, n)
-    out = framing.overlap_add(y_frames, rs, method="fold")
-    norm = framing.ola_window_norm(hann_window(n, x.device), nf, rs, method="fold")
-    return out / norm
+    with profiling.span("pv.stage.products"):
+        y_re, y_im = mag * pre, mag * pim
+    y_frames = istft_frames_cart(y_re, y_im, n)
+    del y_re, y_im  # freed before the fold allocates, as when passed inline
+    with profiling.span("pv.stage.overlap_add"):
+        out = framing.overlap_add(y_frames, rs, method="fold")
+    with profiling.span("pv.stage.window_norm"):
+        norm = framing.ola_window_norm(hann_window(n, x.device), nf, rs, method="fold")
+    with profiling.span("pv.stage.normalize"):
+        return out / norm
 
 
 def fused_analysis_ok(cfg: PvocConfig) -> bool:
@@ -135,9 +142,12 @@ def _reduced_q(cfg: PvocConfig, rs: int) -> int:
 
 
 def _as_signal(x, device) -> torch.Tensor:
+    """A tensor as float32, contiguous, on its device; anything else copied
+    to `device` as float32 (the span pv.to_device)."""
     if isinstance(x, torch.Tensor):
         return x.to(torch.float32).contiguous()
-    return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+    with profiling.span("pv.to_device"):
+        return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
 
 
 def _as_tensor(a, device):
@@ -313,15 +323,17 @@ def time_stretch(
     has no branch cuts. The max_* limits select the streaming executor for
     long inputs on the routes without a fused kernel, as in the JAX package.
     """
-    x = _as_signal(x, device)
-    rs = cfg.synthesis_hop(stretch)
-    nf = framing.num_frames(x.shape[-1], cfg.n_fft, cfg.hop)
-    if nf <= 0:
-        return x.new_zeros((0,))
-    route = _route(
-        cfg, rs, nf, branch_policy, max_monolithic_frames, max_phasor_general_frames
-    )
-    return _stretch(route, x, stretch, cfg, rs)
+    with profiling.span("pv.time_stretch"):
+        x = _as_signal(x, device)
+        with profiling.span("pv.route"):
+            rs = cfg.synthesis_hop(stretch)
+            nf = framing.num_frames(x.shape[-1], cfg.n_fft, cfg.hop)
+            if nf <= 0:
+                return x.new_zeros((0,))
+            route = _route(
+                cfg, rs, nf, branch_policy, max_monolithic_frames, max_phasor_general_frames
+            )
+        return _stretch(route, x, stretch, cfg, rs)
 
 
 def pitch_shift(
@@ -335,13 +347,16 @@ def pitch_shift(
     resample by the inverse factor. Duration is preserved. branch_policy as
     in time_stretch: long q >= 2 inputs run the stretch stage on the
     branch-faithful polar streaming executor."""
-    x = _as_signal(x, device)
-    factor = 2.0 ** (semitones / 12.0)
-    rs = cfg.synthesis_hop(factor)
-    stretched_len = stretch_output_length(x.shape[-1], cfg, factor)
-    if stretched_len <= 0:
-        return x.new_zeros((0,))
-    out_len = int(round(stretched_len / factor))
-    nf = framing.num_frames(x.shape[-1], cfg.n_fft, cfg.hop)
-    y = _stretch(_route(cfg, rs, nf, branch_policy), x, factor, cfg, rs)
-    return resample_linear(y, 1.0 / factor, out_len)
+    with profiling.span("pv.pitch_shift"):
+        x = _as_signal(x, device)
+        factor = 2.0 ** (semitones / 12.0)
+        rs = cfg.synthesis_hop(factor)
+        stretched_len = stretch_output_length(x.shape[-1], cfg, factor)
+        if stretched_len <= 0:
+            return x.new_zeros((0,))
+        out_len = int(round(stretched_len / factor))
+        with profiling.span("pv.route"):
+            nf = framing.num_frames(x.shape[-1], cfg.n_fft, cfg.hop)
+            route = _route(cfg, rs, nf, branch_policy)
+        y = _stretch(route, x, factor, cfg, rs)
+        return resample_linear(y, 1.0 / factor, out_len)

@@ -50,6 +50,7 @@ from .ops.fused import SCAN_CHUNK, fused_stream_segment, init_carry, segment_wor
 from .ops.phase import segment_phase
 from .ops.stft import istft_ola
 from .ops.window import hann_window
+from .utils import profiling
 
 __all__ = [
     "DEFAULT_SEGMENT_FRAMES",
@@ -220,10 +221,11 @@ def _stream_scan_from(
     for j in range(s_count):
         n_valid = min(max(nf - (s0 + j) * F, 0), F)
         rows = slice(j * F, (j + 1) * F)
-        out, state = segment_step(
-            None, n_valid, state, cfg, rs,
-            spec=(mag_all[rows], phi_all[rows]), frame_offset=g, started=started,
-        )
+        with profiling.span("pv.segment"):
+            out, state = segment_step(
+                None, n_valid, state, cfg, rs,
+                spec=(mag_all[rows], phi_all[rows]), frame_offset=g, started=started,
+            )
         outs.append(out)
         g += n_valid
         started = True
@@ -264,17 +266,18 @@ def stream_time_stretch(
     inputs and for long inputs on the polar backends. Tensors stay on their
     device; anything else goes to `device` as float32.
     """
-    x = pipeline._as_signal(x, device)
-    rs = cfg.synthesis_hop(stretch)
-    nf = framing.num_frames(x.shape[-1], cfg.n_fft, cfg.hop)
-    if nf <= 0:
-        return x.new_zeros((0,))
-    F, S = plan_segments(nf, cfg, rs, segment_frames)
-    x_pad = pad_for_segments(x, cfg, F, S)
-    state0 = init_state(cfg, rs, dtype=x.dtype, device=x.device)
-    main, state = _stream_scan_from(x_pad, state0, nf, cfg, rs, F, S)
-    out = torch.cat([main, flush_tail(state)])
-    return out[: framing.output_length(nf, cfg.n_fft, rs)]
+    with profiling.span("pv.stream_time_stretch"):
+        x = pipeline._as_signal(x, device)
+        rs = cfg.synthesis_hop(stretch)
+        nf = framing.num_frames(x.shape[-1], cfg.n_fft, cfg.hop)
+        if nf <= 0:
+            return x.new_zeros((0,))
+        F, S = plan_segments(nf, cfg, rs, segment_frames)
+        x_pad = pad_for_segments(x, cfg, F, S)
+        state0 = init_state(cfg, rs, dtype=x.dtype, device=x.device)
+        main, state = _stream_scan_from(x_pad, state0, nf, cfg, rs, F, S)
+        out = torch.cat([main, flush_tail(state)])
+        return out[: framing.output_length(nf, cfg.n_fft, rs)]
 
 
 # ---------------------------------------------------------------------------
@@ -338,10 +341,11 @@ def _fused_scan_from(
     carry, tail = state0.carry, state0.tail
     g, started = state0.frame_offset, state0.started
     for j in range(s_count):
-        _, carry, tail = fused_stream_segment(
-            x, carry, tail, started, g, nf, n_fft, hop, rs, F,
-            out=out[j * F * rs : (j + 1) * F * rs], work=work,
-        )
+        with profiling.span("pv.segment"):
+            _, carry, tail = fused_stream_segment(
+                x, carry, tail, started, g, nf, n_fft, hop, rs, F,
+                out=out[j * F * rs : (j + 1) * F * rs], work=work,
+            )
         g += F
         started = 1
     return out, FusedStreamState(carry=carry, tail=tail, started=started, frame_offset=g)
@@ -360,18 +364,19 @@ def fused_stream_time_stretch(
     Requires pipeline.fused_ok geometry (raises ValueError otherwise).
     Tensors stay on their device; anything else goes to `device`.
     """
-    x = pipeline._as_signal(x, device)
-    rs = cfg.synthesis_hop(stretch)
-    if not pipeline.fused_ok(cfg, rs):
-        raise ValueError(
-            "fused_stream_time_stretch requires the fused-kernel geometry "
-            "(fused backend, n_fft even and <= 4096, hop | n_fft, rs <= n_fft/2)"
+    with profiling.span("pv.fused_stream_time_stretch"):
+        x = pipeline._as_signal(x, device)
+        rs = cfg.synthesis_hop(stretch)
+        if not pipeline.fused_ok(cfg, rs):
+            raise ValueError(
+                "fused_stream_time_stretch requires the fused-kernel geometry "
+                "(fused backend, n_fft even and <= 4096, hop | n_fft, rs <= n_fft/2)"
+            )
+        nf = framing.num_frames(x.shape[-1], cfg.n_fft, cfg.hop)
+        if nf <= 0:
+            return x.new_zeros((0,))
+        F, S = fused_plan_segments(nf, cfg.n_fft, rs, segment_frames)
+        out, _ = _fused_scan_from(
+            x, fused_init_state(cfg.n_fft, rs, x.device), nf, cfg.n_fft, cfg.hop, rs, F, S
         )
-    nf = framing.num_frames(x.shape[-1], cfg.n_fft, cfg.hop)
-    if nf <= 0:
-        return x.new_zeros((0,))
-    F, S = fused_plan_segments(nf, cfg.n_fft, rs, segment_frames)
-    out, _ = _fused_scan_from(
-        x, fused_init_state(cfg.n_fft, rs, x.device), nf, cfg.n_fft, cfg.hop, rs, F, S
-    )
-    return out[: framing.output_length(nf, cfg.n_fft, rs)]
+        return out[: framing.output_length(nf, cfg.n_fft, rs)]

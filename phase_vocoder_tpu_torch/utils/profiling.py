@@ -9,10 +9,28 @@ the time of each call between CUDA events, the device time of one traced
 call by kernel, and the peak device memory of a call. roofline_report
 holds a measured throughput to the H100 rooflines of utils/metrics.py,
 and emit prints a record as one JSON line.
+
+The port's spans and counters live here too, in one process-wide
+registry. span(name) times a block of the program while torch.profiler
+records (any profiler: the CLI's `--trace-dir`, pvbench's traced jobs,
+profile_call); otherwise it costs one check and returns a shared null
+context. setup(name) times a once-a-process set-up step (pv.setup.*)
+always. A span is (name, depth, start_ns, end_ns) on time.time_ns(), the
+system clock to which Kineto converts its host and device timestamps, in
+a ring of the newest RING spans. Only inside trace() does a span also
+enter torch.profiler.record_function, so that it lands in the exported
+Chrome trace beside the kernels; under any other profiler it emits no
+event, and the profiler's own ops keep their parents (pvbench names an
+idle gap by the host op the gap falls in). The outermost span of a
+call is its entry point's (pv.time_stretch, ...), and readers take it
+so. count(name, n) adds to a counter, always: ops/_build.launch counts
+each kernel launch as launches.<wrapper>. spans(), counters() and
+reset() read and clear the registry.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -24,9 +42,81 @@ import torch
 from .metrics import binding_roofline_audio_s
 
 
+# ------------------------------------------------- spans and counters
+
+RING = 65_536  # spans kept, the oldest dropped first
+_spans: collections.deque = collections.deque(maxlen=RING)
+_counters: dict = {}
+_depth = 0  # spans open now (one thread records)
+_emit = False  # inside trace(): spans also enter record_function
+_recording = torch._C._autograd._profiler_enabled
+_NULL = contextlib.nullcontext()
+
+
+class _Span:
+    """One open span; appended to the ring when it closes."""
+
+    __slots__ = ("name", "start", "event")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        global _depth
+        self.event = torch.autograd.profiler.record_function(self.name).__enter__() if _emit else None
+        self.start = time.time_ns()
+        _depth += 1
+        return self
+
+    def __exit__(self, *exc):
+        global _depth
+        end = time.time_ns()
+        _depth -= 1
+        _spans.append((self.name, _depth, self.start, end))
+        if self.event is not None:
+            self.event.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context that records `name` while torch.profiler records, and
+    the shared null context otherwise."""
+    if not _recording():
+        return _NULL
+    return _Span(name)
+
+
+def setup(step: str):
+    """A context that records the set-up span pv.setup.<step>, profiler
+    or not."""
+    return _Span(f"pv.setup.{step}")
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the counter `name`."""
+    _counters[name] = _counters.get(name, 0) + n
+
+
+def spans() -> list:
+    """The recorded spans, (name, depth, start_ns, end_ns), by start."""
+    return sorted(_spans, key=lambda s: (s[2], s[1]))
+
+
+def counters() -> dict:
+    """A copy of the counters."""
+    return dict(_counters)
+
+
+def reset() -> None:
+    """Drop every span and counter."""
+    _spans.clear()
+    _counters.clear()
+
+
 @contextlib.contextmanager
 def trace(trace_dir: str | None):
-    """Profile the enclosed block into trace_dir/trace.json.
+    """Profile the enclosed block into trace_dir/trace.json, the port's
+    spans among the host events.
 
     No-op when trace_dir is None, so call sites can pass the CLI flag
     straight through.
@@ -36,24 +126,18 @@ def trace(trace_dir: str | None):
         return
     from torch.profiler import ProfilerActivity, profile
 
+    global _emit
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
-        yield
+        _emit = True
+        try:
+            yield
+        finally:
+            _emit = False
     os.makedirs(trace_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
-
-
-@contextlib.contextmanager
-def stage_timer(results: dict, name: str):
-    """Wall-clock a stage into `results[name]` (seconds), waiting for the
-    card's queued work first when there is a card."""
-    t0 = time.perf_counter()
-    yield
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    results[name] = time.perf_counter() - t0
 
 
 def time_calls(fn, reps: int, device="cuda", before=None) -> list[float]:
