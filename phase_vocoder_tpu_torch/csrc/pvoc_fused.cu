@@ -40,10 +40,10 @@
 // in FP32 (~2.5-5 N log2 N FLOP per transform, about a hundredth of a
 // matrix DFT), so the passes are bound by the spectra (nf x (N+2) floats,
 // written once and read once at integer k where fft_real.cuh serves N,
-// and a packed Y besides elsewhere) and the windowed frames (nf x N
-// floats) that go through device memory between launches; at integer k
-// the synthesis pass also does the closed form's square roots and
-// divisions.
+// and a packed Y besides elsewhere) that go through device memory between
+// launches, and, where fft_real.cuh does not serve N, the windowed frames
+// (nf x N floats) besides; at integer k the synthesis pass also does the
+// closed form's square roots and divisions.
 // FP32 FMA, no tensor cores: the forward transform feeds the unit phasors,
 // and every operand split with a ~2^-17 floor failed the 1e-4 golden gate
 // on the TPU; the FFT also sums with less rounding error than a direct
@@ -102,29 +102,39 @@
 //       every caller) is one warp a block, its chunk totals staged into
 //       shared memory a stage ahead of the chain;
 //   (c) synthesis: Y = |X| P, then per frame the inverse FFT of the
-//       Hermitian spectrum, scaled by 1/N and windowed, to (nf, N) frames.
-//       For a power-of-two N from 256 to 4096 (synth_real) a real frame
-//       goes through fft_real.cuh's N/2-point body: the pre-twiddle merge
+//       Hermitian spectrum, scaled by 1/N and windowed. For a power-of-two
+//       N from 256 to 4096 (synth_real) a real frame goes through
+//       fft_real.cuh's N/2-point body: the pre-twiddle merge
 //       Z[k] = (Y[k] + conj Y[N/2-k]) + i W^-k (Y[k] - conj Y[N/2-k]), the
 //       inverse N/2-point Stockham FFT in registers (radix 16/8), and
 //       Re z[n], Im z[n] to samples 2n, 2n+1; N/32 threads a frame (a warp
 //       at N = 1024), 8192/N frames a 256-thread block, stage twiddles in
-//       shared memory, a grid of as many blocks as run at once walking
-//       over the frame groups of every batch row. synth_real reads Y from
-//       the packed rows of the q >= 2 phase passes, forms it at integer k
-//       from the spectrum and the anchor table (b), or, in
-//       pvoc_phasor_synth, forms it from the magnitude and phasor planes as
-//       it loads them, so that in those two no packed copy of Y goes
-//       through device memory. Every other N
-//       takes fft_synthesis: one block a frame, a complex N-point FFT in
-//       shared memory (fft_common.cuh: radix 2 at N = 128, mixed radix for
-//       N not a power of two), after phasor_y packs Y;
-//   (d) overlap-add in gather form (ola_rows): a warp (or, for short
-//       rows, a part of one) owns an output row of Rs samples and sums, for each sample, the <= m frames covering
-//       it in increasing frame order, then multiplies by the inverse window
-//       energy of its row (head, interior or tail), chosen once a row; the
-//       frames are read and the row written in contiguous float4 runs
-//       where Rs allows, and a resident grid walks over the rows.
+//       shared memory, each block of a resident grid on a contiguous run
+//       of frame groups of one batch row. synth_real reads Y from the
+//       packed rows of the q >= 2 phase passes, forms it at integer k from
+//       the spectrum and the anchor table (b), or, in pvoc_phasor_synth,
+//       forms it from the magnitude and phasor planes as it loads them, so
+//       that in those two no packed copy of Y goes through device memory.
+//       Its frames stay in shared memory for (d). Every other N takes
+//       fft_synthesis: one block a frame, a complex N-point FFT in shared
+//       memory (fft_common.cuh: radix 2 at N = 128, mixed radix for N not
+//       a power of two), after phasor_y packs Y, to (nf, N) frames in
+//       device memory;
+//   (d) overlap-add, in the order of a gather: each output sample sums the
+//       <= m frames covering it in increasing frame order, from the
+//       partial sum a stream's previous segment left (or 0), then is
+//       multiplied by the inverse window energy of its row (head, interior
+//       or tail). Where synth_real runs, it is synth_real's epilogue: a
+//       block sums the output rows its group of frames ends from the
+//       frames in shared memory and the partial sums of the next m-1 rows
+//       it carries from group to group, and at a run's start first
+//       transforms the m-1 frames before it, so that no frame reaches
+//       device memory and no block waits for another. Only where
+//       fft_real.cuh does not serve N (fft_synthesis) does a pass of its
+//       own (ola_rows) gather the frames: a warp (or, for short rows, a
+//       part of one) owns an output row of Rs samples, frames read and the
+//       row written in contiguous float4 runs where Rs allows, a resident
+//       grid walking over the rows.
 // A batch is the same launches with the batch row as gridDim.y (in
 // analysis_real and synth_real, the batch rows' frame groups flattened
 // over one grid, a group never across two rows; in ola_rows, the batch
@@ -140,7 +150,7 @@
 // from the carry once the recording has started; the carry scan starts
 // from the carried P, and its running value after the last chunk is the
 // next segment's P (equal to what the apply pass writes for the last
-// frame); the gather starts each of the first m-1 rows from the
+// frame); the overlap-add starts each of the first m-1 rows from the
 // un-normalized partial sum the previous segment left, and leaves the sums
 // of its own last frames into the next m-1 rows the same way. With F a
 // multiple of the chunk and F >= m-1, every float operation happens in the
@@ -499,168 +509,421 @@ fft_synthesis(const float* __restrict__ y, const float* __restrict__ win,
 // and the anchor table u0 (kClosed).
 enum SynthSource { kRows, kPlanes, kClosed };
 
-// (c) on fft_real.cuh's body, N = 2^LOG2N from 256 to 4096:
-// frames[i] = w * irfft(Y_i) with the imaginary parts of DC and Nyquist
+// W consecutive floats: a float4 (16-byte aligned) or one float, read
+// through the read-only path (device memory only) or written.
+template <int W>
+__device__ __forceinline__ void load_w(const float* __restrict__ p, float (&a)[W]) {
+  if constexpr (W == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    a[0] = q.x;
+    a[1] = q.y;
+    a[2] = q.z;
+    a[3] = q.w;
+  } else {
+    a[0] = __ldg(p);
+  }
+}
+template <int W>
+__device__ __forceinline__ void store_w(float* p, const float (&a)[W]) {
+  if constexpr (W == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+  } else {
+    p[0] = a[0];
+  }
+}
+
+// load_w's read from shared memory (store_w writes either).
+template <int W>
+__device__ __forceinline__ void load_s(const float* p, float (&a)[W]) {
+  if constexpr (W == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    a[0] = q.x;
+    a[1] = q.y;
+    a[2] = q.z;
+    a[3] = q.w;
+  } else {
+    a[0] = p[0];
+  }
+}
+
+// Where the overlap-add of a launch goes: n_out samples a batch row of out
+// (n_out apart), of which the first n_main are normalized by their rows of
+// norm (norm_rows, or in a ragged batch the stack of tables) and the rest
+// are the un-normalized partial sums for the next launch, into tail_out;
+// output rows < m-1 start from the partial sums tail_in left for them
+// (none when tail_in is null).
+struct OlaOut {
+  float* out;
+  float* tail_out;
+  const float* tail_in;
+  const float* norm;
+  int64_t n_out, n_main;
+};
+
+// The row of inverse window energies that normalizes global output row gr
+// of a recording of nf_total frames: head rows 0..m-2, tail rows m-1..2m-3
+// (the output rows nf_total..nf_total+m-2), then the interior row 2m-2;
+// -1 past the recording's output, where the row is written 0.
+__device__ __forceinline__ int norm_index(int64_t gr, int64_t nf_total, int m) {
+  if (gr >= nf_total) {
+    const int64_t d = gr - nf_total;
+    return d > m - 2 ? -1 : (int)(m - 1 + d);
+  }
+  return gr < m - 1 ? (int)gr : 2 * m - 2;
+}
+
+// A batch row's normalization: its table of 2m-1 rows and the frame count
+// that places its head and tail rows. In a ragged batch (g.nfs set) that
+// count is the row's own (n_row) and o.norm is a stack of tables, one for
+// each count 1..m-1 (the table of a count >= m-1 is the last).
+struct RowNorm {
+  const float* table;
+  int64_t nf_total;
+};
+__device__ __forceinline__ RowNorm row_norm(const Geo& g, const OlaOut& o, int64_t n_row, int m) {
+  if (g.nfs == nullptr) return {o.norm, g.nf_total};
+  const int64_t key = n_row < m - 1 ? (n_row > 1 ? n_row : 1) : m - 1;
+  return {o.norm + (key - 1) * (2 * m - 1) * (int64_t)g.rs, n_row};
+}
+
+// Where output row r (Rs samples from r Rs) of batch row bat goes: dst, its
+// first sample in out, or in tail_out at and past n_main; nrm, its row of
+// inverse window energies (by the global row goff + r), null for tail_out
+// and for a row past the recording's output, which is written 0 (zero).
+struct RowDst {
+  float* dst;
+  const float* nrm;
+  bool zero;
+};
+__device__ __forceinline__ RowDst row_dst(const Geo& g, const OlaOut& o, int bat, int64_t r,
+                                          int64_t n_row, int m) {
+  const int64_t n0 = r * g.rs;
+  if (n0 >= o.n_main) return {o.tail_out + (n0 - o.n_main), nullptr, false};
+  const RowNorm rn = row_norm(g, o, n_row, m);
+  const int nrow = norm_index(g.goff + r, rn.nf_total, m);
+  return {o.out + bat * o.n_out + n0, nrow < 0 ? nullptr : rn.table + nrow * (int64_t)g.rs,
+          nrow < 0};
+}
+
+// True where the overlap-add can read and write its rows in float4
+// pieces: Rs, N, n_out and n_main multiples of 4 and o's buffers 16-byte
+// aligned.
+inline bool ola_vec(const OlaOut& o, const Geo& g) {
+  auto a16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  return g.rs % 4 == 0 && g.n_fft % 4 == 0 && o.n_out % 4 == 0 && o.n_main % 4 == 0 &&
+         a16(o.norm) && a16(o.tail_in) && a16(o.out) && a16(o.tail_out);
+}
+
+// Frame groups of F frames a batch row in synth_real's overlap-add: group
+// j ends the output rows j F .. j F + F - 1, the last group also the rows
+// after them, up to the batch row's `rows` (= its frames + m - 1).
+__host__ __device__ __forceinline__ int ola_groups(int rows, int m, int F) {
+  const int lead = rows - (m - 1);
+  return lead > F ? (lead + F - 1) / F : 1;
+}
+
+// synth_real's overlap-add of one group (i0 = its first frame, live
+// frames in slots k_lo .. k_hi-1 of fbuf, FB floats apart) of batch row
+// bat (normalized by rn): rows i0 + e for e_begin <= e < e_all, each the
+// carried partial sum cur[e] (e < m-1) or 0, plus the group's frames that
+// cover it, oldest first; rows e < e_end end here and go where row_dst
+// would send them, the rest are carried into nxt[e - F]. What row_dst
+// decides per row is set once for the group, so that a piece of W samples
+// costs a few 32-bit operations besides its loads and its store.
+template <int W>
+__device__ __forceinline__ void ola_epilogue(const float* fbuf, int FB, int F, int n_fft,
+                                             const float* cur, float* nxt, int64_t i0,
+                                             int k_lo, int k_hi, int e_begin, int e_end,
+                                             int e_all, int m, const OlaOut& o, const Geo& g,
+                                             int bat, const RowNorm& rn) {
+  const int rs = g.rs, pw = rs / W;  // pieces a row
+  const int de = real_fft::kThreads / pw, dp = real_fft::kThreads % pw;
+  const int64_t n0 = i0 * rs;  // row i0's first sample
+  float* out_g = o.out + bat * o.n_out + n0;
+  const int64_t tail_g = n0 - o.n_main;
+  // Rows e < e_main go to out, the rest to tail_out; a sample e Rs + tt
+  // past the batch row's output (lim) is not written.
+  const int64_t main_rows = (o.n_main - n0 + rs - 1) / rs;
+  const int e_main = main_rows < 0 ? 0 : main_rows > e_all ? e_all : (int)main_rows;
+  const int64_t lim = o.n_out - n0;
+  const int64_t gr0 = g.goff + i0;  // row i0's global row
+  int e = e_begin + (int)threadIdx.x / pw, p = (int)threadIdx.x % pw;
+  while (e < e_all) {
+    const int tt = p * W, off = e * rs + tt;
+    float v[W], f[W];
+    if (e < m - 1) {
+      load_s<W>(cur + off, v);
+    } else {
+#pragma unroll
+      for (int u = 0; u < W; ++u) v[u] = 0.f;
+    }
+    const int ka = e - (m - 1) > k_lo ? e - (m - 1) : k_lo;
+    const int kb = e < k_hi - 1 ? e : k_hi - 1;
+    for (int k = ka; k <= kb; ++k) {  // oldest first
+      const int s = (e - k) * rs + tt;
+      if (s < n_fft) {  // W | N, so a piece is wholly in the frame or past it
+        load_s<W>(fbuf + k * FB + s, f);
+#pragma unroll
+        for (int u = 0; u < W; ++u) v[u] += f[u];
+      }
+    }
+    if (e >= e_end) {
+      store_w<W>(nxt + off - F * rs, v);
+    } else if (off < lim) {  // W | n_out
+      if (e >= e_main) {
+        store_w<W>(o.tail_out + (tail_g + off), v);
+      } else {
+        const int nrow = norm_index(gr0 + e, rn.nf_total, m);
+        if (nrow < 0) {
+#pragma unroll
+          for (int u = 0; u < W; ++u) v[u] = 0.f;
+        } else {
+          load_w<W>(rn.table + nrow * rs + tt, f);
+#pragma unroll
+          for (int u = 0; u < W; ++u) v[u] = v[u] * f[u];
+        }
+        store_w<W>(out_g + off, v);
+      }
+    }
+    e += de;
+    p += dp;
+    if (p >= pw) {
+      p -= pw;
+      ++e;
+    }
+  }
+}
+
+// (c) and (d) on fft_real.cuh's body, N = 2^LOG2N from 256 to 4096: each
+// frame w * irfft(Y_i) with the imaginary parts of DC and Nyquist
 // dropped, through the merge Z[k] = (Y[k] + conj Y[M-k]) + i W^-k (Y[k] -
 // conj Y[M-k]), W^-k = twc[k] + i tws[k], the inverse M-point FFT z and
-// frames[i][2n], [2n+1] = (Re z[n], Im z[n]) / N * w. Y comes from SRC
+// samples 2n, 2n+1 = (Re z[n], Im z[n]) / N * w; then the overlap-add of
+// the frames into the normalized output rows of o. Y comes from SRC
 // (SynthSource). With kPlanes and kClosed it is formed as the bins are
 // loaded, so that no packed copy of Y goes through device memory; kClosed
 // runs phase_closed's arithmetic (closed_bin, DC passed through, Nyquist
 // times (-1)^(Rs (goff + i))) on each bin as it arrives, so its Y is
-// phase_closed's bit for bit. A group is F consecutive frames of
-// one batch row; the rows' groups are flattened over a resident grid. A
-// group wholly past its row's frames is skipped by the whole block; in a
-// group that is not, a frame past the row's frames runs the transform
-// with its group (its barriers are its group's) and writes nothing.
-// Shared memory: stage twiddles (2 M), F frame buffers (2 FS each).
+// phase_closed's bit for bit.
+//
+// A group is F consecutive frames of one batch row (ola_groups a row);
+// each block takes a contiguous share of the rows' groups, cut into runs
+// at batch rows. A group's frames go from registers into their slots'
+// buffers in shared memory; then the whole block makes the output rows
+// the group's frames end: for each sample, the partial sum carried in from
+// the earlier frames (shared memory, (m-1) Rs floats, from tail_in or 0 at
+// a run's start), plus the group's frames oldest first, times the row's
+// inverse energy (row_dst), to o; the sums of the m-1 rows after the
+// group go on to the next group in the other carry buffer. So each output
+// is the float sum ola_rows makes, in its order: tail_in or 0, the frames
+// r-m+1 .. r that exist, oldest first (a frame's samples past N not
+// added), then times the inverse energy. At a run's start the block first
+// transforms the m-1 frames before its first group (their group, with
+// the frames before them dead), whose sums it writes nowhere: no block
+// hands partial rows to another, so the blocks need no order and no
+// atomics. A group with no live frame is not transformed; in a group that
+// has one, a dead frame (past the row's frames, or before a run's m-1)
+// runs the transform with its group where the group's barriers are a
+// warp's (T < 32) and else skips it, and is never added.
+// Shared memory: stage twiddles (2 M), F frame buffers (2 FS each, the
+// transform's, then the windowed frame), two carry buffers ((m-1) Rs each).
 // Registers: fft_real.cuh's cap of 64 (kMinBlocks blocks an SM), but at
-// N = 2048 three blocks an SM (80 registers, no spill): under the cap of
-// 64 this kernel spilled 44-68 bytes there (nvcc -Xptxas -v) and ran
-// slower on an H100. kClosed at N = 4096 also takes three (80 registers):
-// under 64 it spilled 44 bytes. kClosed loads the frame's X first (32
-// values a thread, as kRows), then each bin's anchor from L1 as it forms
-// that bin's Y: in four rounds of four bins, loads first in each, its
-// pass ran slower on an H100.
+// N = 2048 three blocks an SM (80 registers): under the cap of 64 this
+// kernel spilled 44-68 bytes there (nvcc -Xptxas -v) and ran slower on an
+// H100. kClosed at N = 4096 also takes three (80 registers): under 64 it
+// spilled 44 bytes. kPlanes takes three at every N: under 64, with the
+// overlap-add's state, it spilled 8-24 bytes and its 3.0x / 3600 s call
+// took 0.925 ms against 0.885 at three blocks an SM, on an H100. The
+// indices of groups and frames are 32-bit, so that the overlap-add's
+// state live across the transform stays small; still, kRows at N = 1024
+// and 2048 (q >= 2) and kClosed at N = 4096 spill 28-44 bytes. The rows
+// go in float4 pieces where ola_vec allows. kClosed loads the frame's
+// X first (32 values a thread, as kRows), then each bin's anchor from L1
+// as it forms that bin's Y: in four rounds of four bins, loads first in
+// each, its pass ran slower on an H100.
 template <int LOG2N, int SRC>
 __global__ void __launch_bounds__(real_fft::kThreads,
-                                  LOG2N == 11 || (LOG2N == 12 && SRC == kClosed) ? 3
-                                                                             : real_fft::kMinBlocks)
+                                  LOG2N == 11 || SRC == kPlanes || (LOG2N == 12 && SRC == kClosed)
+                                      ? 3
+                                      : real_fft::kMinBlocks)
 synth_real(const float* __restrict__ y, const float* __restrict__ u0,
            const float* __restrict__ mag,
            const float* __restrict__ pre, const float* __restrict__ pim,
            const float* __restrict__ mask, const float* __restrict__ win,
            const float* __restrict__ twc, const float* __restrict__ tws,
-           float* __restrict__ frames, Geo g) {
+           OlaOut o, Geo g, int vec) {
   using P = real_fft::Plan<LOG2N>;
   using real_fft::kV;
   using real_fft::pad;
-  constexpr int M = P::M, T = P::T, F = P::F;
+  constexpr int N = P::N, M = P::M, T = P::T, F = P::F, FB = 2 * P::FS;
   constexpr int R0 = 1 << P::lr(0), RL = 1 << P::lr(P::S - 1);
   extern __shared__ __align__(16) float sm[];
   float* twr = sm;
   float* twi = sm + M;
+  float* fbuf = sm + 2 * M;  // slot k's buffer at fbuf + k FB
   const int slot = threadIdx.x / T, t = threadIdx.x % T;
-  float* br = sm + 2 * M + slot * 2 * P::FS;
+  float* br = fbuf + slot * FB;
   float* bi = br + P::FS;
+  const int rs = g.rs, m = (N + rs - 1) / rs;
+  const int cw = (m - 1) * rs;  // floats of the carried partial rows
   real_fft::build_twiddles<P>(twr, twi, twc, tws);
-  __syncthreads();
   const float2* win2 = reinterpret_cast<const float2*>(win);
-  float2* out2 = reinterpret_cast<float2*>(frames);
-  const float scale = 1.f / P::N;
-  const int64_t per_row = (g.nf + F - 1) / F;
-  const int64_t groups = per_row * g.batch;
-  for (int64_t gi = blockIdx.x; gi < groups; gi += gridDim.x) {
-    const int bat = (int)(gi / per_row);
-    const int64_t i0 = (gi - bat * per_row) * F;
-    const int64_t n_row = row_frames(g, bat);
-    if (i0 >= n_row) continue;  // the same for the whole block
-    const int64_t i = i0 + slot;
-    const bool live = i < n_row;
-    const int64_t fr = bat * g.nf + i;  // the frame's row in the buffers
-    real_fft::group_sync<T>(slot);  // the last group's buffer reads done
-    if (live) {
-      // All of a round's loads first, so that they are in flight
-      // together; bin k = t + T u, u < 16, then bin M (thread 0).
-      if constexpr (SRC == kPlanes) {
-        float ra[kV], rb[kV];
-        const float mk = mask != nullptr ? __ldg(mask + fr) : 1.f;
-        const float* m_row = mag + fr * (M + 1);
-        const float* re_row = pre + fr * (M + 1);
-        const float* im_row = pim + fr * (M + 1);
+  const float scale = 1.f / N;
+  // Group and frame indices are 32-bit (the launcher checks that rows x
+  // batch fits), so that little state stays live across the transform.
+  const int rows = (int)((o.n_out + rs - 1) / rs);  // output rows a batch row
+  const int per_row = ola_groups(rows, m, F);
+  const int total = per_row * g.batch;
+  const int first = (int)((int64_t)total * blockIdx.x / gridDim.x);
+  const int last = (int)((int64_t)total * (blockIdx.x + 1) / gridDim.x);
+  for (int run = first; run < last;) {
+    const int bat = run / per_row;
+    const int j0 = run - bat * per_row;  // the run's groups j0 .. j1-1
+    const int j1 = last - bat * per_row < per_row ? last - bat * per_row : per_row;
+    run = bat * per_row + j1;
+    const int n_row = (int)row_frames(g, bat);
+    const int hb = j0 * F - (m - 1) > 0 ? j0 * F - (m - 1) : 0;  // its first frame
+    float* cur = fbuf + F * FB;  // partial sums of rows j F .. j F + m - 2
+    float* nxt = cur + cw;
+    __syncthreads();  // the last run's reads of the carry done
+    for (int c = threadIdx.x; c < cw; c += real_fft::kThreads) {
+      const int r = hb / F * F + c / rs;
+      cur[c] = o.tail_in != nullptr && r < m - 1 ? o.tail_in[r * rs + c % rs] : 0.f;
+    }
+    for (int j = hb / F; j < j1; ++j) {
+      const int i0 = j * F;
+      // The group's live frames are slots k_lo .. k_hi-1.
+      const int k_lo = (hb > i0 ? hb : i0) - i0;
+      const int hi = (n_row < i0 + F ? n_row : i0 + F) - i0;
+      const int k_hi = hi > k_lo ? hi : k_lo;
+      const bool live = slot >= k_lo && slot < k_hi;
+      const int64_t fr = bat * g.nf + i0 + slot;  // the frame's row in the buffers
+      __syncthreads();  // the last group's reads of the frame buffers done
+      if (k_lo < k_hi && (live || T < 32)) {
+        const int i = i0 + slot;
+        if (live) {
+          // All of a round's loads first, so that they are in flight
+          // together; bin k = t + T u, u < 16, then bin M (thread 0).
+          if constexpr (SRC == kPlanes) {
+            float ra[kV], rb[kV];
+            const float mk = mask != nullptr ? __ldg(mask + fr) : 1.f;
+            const float* m_row = mag + fr * (M + 1);
+            const float* re_row = pre + fr * (M + 1);
+            const float* im_row = pim + fr * (M + 1);
 #pragma unroll
-        for (int u = 0; u < kV; ++u) {
-          ra[u] = __ldg(m_row + t + T * u);
-          rb[u] = __ldg(re_row + t + T * u);
-        }
+            for (int u = 0; u < kV; ++u) {
+              ra[u] = __ldg(m_row + t + T * u);
+              rb[u] = __ldg(re_row + t + T * u);
+            }
 #pragma unroll
-        for (int u = 0; u < kV; ++u) br[pad(t + T * u)] = (ra[u] * rb[u]) * mk;
+            for (int u = 0; u < kV; ++u) br[pad(t + T * u)] = (ra[u] * rb[u]) * mk;
 #pragma unroll
-        for (int u = 0; u < kV; ++u) rb[u] = __ldg(im_row + t + T * u);
+            for (int u = 0; u < kV; ++u) rb[u] = __ldg(im_row + t + T * u);
 #pragma unroll
-        for (int u = 0; u < kV; ++u) {
-          const int k = t + T * u;
-          bi[pad(k)] = k == 0 ? 0.f : (ra[u] * rb[u]) * mk;
-        }
-        if (t == 0) br[pad(M)] = (__ldg(m_row + M) * __ldg(re_row + M)) * mk;
-      } else if constexpr (SRC == kClosed) {
-        // X of bins k (all loads first, as kRows), then each bin's anchor
-        // (bins 1..M-1 of the frame's batch row, u0 + bat 2 (M-1): [re |
-        // im]; the same table for every frame of the row, so it stays in
-        // L1) and its Y.
-        const float* row = y + fr * 2 * (M + 1);
-        const float* a_row = u0 + (int64_t)bat * 2 * (M - 1);
-        float ra[kV], rb[kV];
+            for (int u = 0; u < kV; ++u) {
+              const int k = t + T * u;
+              bi[pad(k)] = k == 0 ? 0.f : (ra[u] * rb[u]) * mk;
+            }
+            if (t == 0) br[pad(M)] = (__ldg(m_row + M) * __ldg(re_row + M)) * mk;
+          } else if constexpr (SRC == kClosed) {
+            // X of bins k (all loads first, as kRows), then each bin's anchor
+            // (bins 1..M-1 of the frame's batch row, u0 + bat 2 (M-1): [re |
+            // im]; the same table for every frame of the row, so it stays in
+            // L1) and its Y.
+            const float* row = y + fr * 2 * (M + 1);
+            const float* a_row = u0 + (int64_t)bat * 2 * (M - 1);
+            float ra[kV], rb[kV];
 #pragma unroll
-        for (int u = 0; u < kV; ++u) {
-          ra[u] = __ldg(row + t + T * u);
-          rb[u] = __ldg(row + M + 1 + t + T * u);
-        }
+            for (int u = 0; u < kV; ++u) {
+              ra[u] = __ldg(row + t + T * u);
+              rb[u] = __ldg(row + M + 1 + t + T * u);
+            }
 #pragma unroll
-        for (int u = 0; u < kV; ++u) {
-          const int k = t + T * u;
-          const int a = k > 0 ? k - 1 : 0;  // bin 0 takes no anchor
-          const float ar = __ldg(a_row + a), ai = __ldg(a_row + M - 1 + a);
-          if (k == 0) {  // DC passes through
-            br[pad(0)] = ra[u];
-            bi[pad(0)] = 0.f;
+            for (int u = 0; u < kV; ++u) {
+              const int k = t + T * u;
+              const int a = k > 0 ? k - 1 : 0;  // bin 0 takes no anchor
+              const float ar = __ldg(a_row + a), ai = __ldg(a_row + M - 1 + a);
+              if (k == 0) {  // DC passes through
+                br[pad(0)] = ra[u];
+                bi[pad(0)] = 0.f;
+              } else {
+                float yr, yi;
+                closed_bin(ra[u], rb[u], ar, ai, g, yr, yi);
+                br[pad(k)] = yr;
+                bi[pad(k)] = yi;
+              }
+            }
+            if (t == 0) {  // Nyquist times (-1)^(Rs (goff + i))
+              const float sign = ((g.rs & 1) && ((g.goff + i) & 1)) ? -1.f : 1.f;
+              br[pad(M)] = __ldg(row + M) * sign;
+            }
           } else {
-            float yr, yi;
-            closed_bin(ra[u], rb[u], ar, ai, g, yr, yi);
-            br[pad(k)] = yr;
-            bi[pad(k)] = yi;
+            const float* row = y + fr * 2 * (M + 1);
+            float ra[kV], rb[kV];
+#pragma unroll
+            for (int u = 0; u < kV; ++u) {
+              ra[u] = __ldg(row + t + T * u);
+              rb[u] = __ldg(row + M + 1 + t + T * u);
+            }
+#pragma unroll
+            for (int u = 0; u < kV; ++u) {
+              const int k = t + T * u;
+              br[pad(k)] = ra[u];
+              bi[pad(k)] = k == 0 ? 0.f : rb[u];
+            }
+            if (t == 0) br[pad(M)] = __ldg(row + M);
+          }
+          if (t == 0) bi[pad(M)] = 0.f;
+        }
+        real_fft::group_sync<T>(slot);
+        float vr[kV], vi[kV];
+#pragma unroll
+        for (int kk = 0; kk < kV / R0; ++kk) {
+#pragma unroll
+          for (int r = 0; r < R0; ++r) {
+            const int n = real_fft::source<P, 0>(t, kk, r);
+            const float yr = br[pad(n)], yi = bi[pad(n)];
+            const float cr = br[pad(M - n)], ci = -bi[pad(M - n)];  // conj Y[M-n]
+            const float sr = yr + cr, si = yi + ci;
+            const float dr = yr - cr, di = yi - ci;
+            const float c = __ldg(twc + n), s = __ldg(tws + n);
+            vr[kk * R0 + r] = sr - (c * di + s * dr);
+            vi[kk * R0 + r] = si + (c * dr - s * di);
           }
         }
-        if (t == 0) {  // Nyquist times (-1)^(Rs (goff + i))
-          const float sign = ((g.rs & 1) && ((g.goff + i) & 1)) ? -1.f : 1.f;
-          br[pad(M)] = __ldg(row + M) * sign;
+        real_fft::fft<P, false>(vr, vi, br, bi, twr, twi, t, slot);
+        real_fft::group_sync<T>(slot);  // the transform's reads of br, bi done
+        if (live) {
+          float2* f2 = reinterpret_cast<float2*>(br);
+#pragma unroll
+          for (int kk = 0; kk < kV / RL; ++kk) {
+#pragma unroll
+            for (int r = 0; r < RL; ++r) {
+              const int n = real_fft::dest<P, P::S - 1>(t, kk, r);
+              const float2 w = __ldg(win2 + n);
+              f2[n] = make_float2(vr[kk * RL + r] * scale * w.x, vi[kk * RL + r] * scale * w.y);
+            }
+          }
         }
+      }
+      __syncthreads();  // the group's frames and the carry in
+      // Rows i0 + e: ended for e < e_end, and written where the run owns
+      // them (j >= j0; a halo group makes only the carry), carried into
+      // nxt for e_end <= e < e_all.
+      const bool tail_rows = j == per_row - 1;
+      const int e_all = tail_rows ? rows - i0 : F + m - 1;
+      const int e_end = tail_rows ? e_all : F;
+      const int e_begin = j >= j0 ? 0 : e_end;
+      if (vec) {
+        ola_epilogue<4>(fbuf, FB, F, N, cur, nxt, i0, k_lo, k_hi, e_begin, e_end, e_all, m, o, g,
+                        bat, row_norm(g, o, n_row, m));
       } else {
-        const float* row = y + fr * 2 * (M + 1);
-        float ra[kV], rb[kV];
-#pragma unroll
-        for (int u = 0; u < kV; ++u) {
-          ra[u] = __ldg(row + t + T * u);
-          rb[u] = __ldg(row + M + 1 + t + T * u);
-        }
-#pragma unroll
-        for (int u = 0; u < kV; ++u) {
-          const int k = t + T * u;
-          br[pad(k)] = ra[u];
-          bi[pad(k)] = k == 0 ? 0.f : rb[u];
-        }
-        if (t == 0) br[pad(M)] = __ldg(row + M);
+        ola_epilogue<1>(fbuf, FB, F, N, cur, nxt, i0, k_lo, k_hi, e_begin, e_end, e_all, m, o, g,
+                        bat, row_norm(g, o, n_row, m));
       }
-      if (t == 0) bi[pad(M)] = 0.f;
-    }
-    real_fft::group_sync<T>(slot);
-    float vr[kV], vi[kV];
-#pragma unroll
-    for (int kk = 0; kk < kV / R0; ++kk) {
-#pragma unroll
-      for (int r = 0; r < R0; ++r) {
-        const int n = real_fft::source<P, 0>(t, kk, r);
-        const float yr = br[pad(n)], yi = bi[pad(n)];
-        const float cr = br[pad(M - n)], ci = -bi[pad(M - n)];  // conj Y[M-n]
-        const float sr = yr + cr, si = yi + ci;
-        const float dr = yr - cr, di = yi - ci;
-        const float c = __ldg(twc + n), s = __ldg(tws + n);
-        vr[kk * R0 + r] = sr - (c * di + s * dr);
-        vi[kk * R0 + r] = si + (c * dr - s * di);
-      }
-    }
-    real_fft::fft<P, false>(vr, vi, br, bi, twr, twi, t, slot);
-    if (live) {
-#pragma unroll
-      for (int kk = 0; kk < kV / RL; ++kk) {
-#pragma unroll
-        for (int r = 0; r < RL; ++r) {
-          const int n = real_fft::dest<P, P::S - 1>(t, kk, r);
-          const float2 w = __ldg(win2 + n);
-          out2[fr * M + n] = make_float2(vr[kk * RL + r] * scale * w.x,
-                                         vi[kk * RL + r] * scale * w.y);
-        }
-      }
+      float* swap = cur;
+      cur = nxt;
+      nxt = swap;
     }
   }
 }
@@ -1239,19 +1502,13 @@ __global__ void phasor_y(const float* __restrict__ mag,
   y[fr * 2 * g.nb + g.nb + b] = yi;
 }
 
-// (d) Gather-form overlap-add with the COLA normalization, over n_out
-// samples of local rows 0.. of this launch, per batch row (n_out samples
-// apart in out). A row's sum starts from the un-normalized partial sum
-// tail_in left for it (rows < m-1; none when tail_in is null), then adds
-// this launch's frames oldest first. The first n_main samples are
-// normalized into out; the rest are the partial sums for the next launch,
-// un-normalized, into tail_out. norm_rows holds 2m-1 rows of Rs inverse
-// window energies: head rows 0..m-2, tail rows (output rows
-// nf_total..nf_total+m-2), then the interior row, chosen by the global row
-// goff + r; rows past the recording's output are written 0. In a ragged
-// batch (g.nfs set) each batch row has nf_total = its own frame count and
-// norm_rows is a stack of such tables, one for each count 1..m-1 (the
-// table of a count >= m-1 is the last).
+// (d) where fft_real.cuh does not serve N (fft_synthesis' frames):
+// gather-form overlap-add with the COLA normalization, over o.n_out
+// samples of local rows 0.. of this launch, per batch row. A row's sum
+// starts from the un-normalized partial sum o.tail_in left for it (rows <
+// m-1), then adds this launch's frames oldest first, then goes where
+// row_dst says (normalized into out, un-normalized into tail_out, or 0).
+// synth_real's overlap-add makes every sum in this order too.
 //
 // A group of 2^lg lanes (a warp, or for Rs < 32 W a part of one: the
 // fewest lanes that cover Rs / W, so that no lane idles) owns output row r
@@ -1269,39 +1526,14 @@ __global__ void phasor_y(const float* __restrict__ mag,
 // with no division. Each output is the same float sum, in the same order,
 // as one thread a sample made it (tail_in, then the frames oldest first,
 // then times the inverse energy), so the result does not depend on W.
-// W consecutive floats: a float4 (16-byte aligned) or one float.
-template <int W>
-__device__ __forceinline__ void load_w(const float* __restrict__ p, float (&a)[W]) {
-  if constexpr (W == 4) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    a[0] = q.x;
-    a[1] = q.y;
-    a[2] = q.z;
-    a[3] = q.w;
-  } else {
-    a[0] = __ldg(p);
-  }
-}
-template <int W>
-__device__ __forceinline__ void store_w(float* p, const float (&a)[W]) {
-  if constexpr (W == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
-  } else {
-    p[0] = a[0];
-  }
-}
-
 template <int W>
 __global__ void __launch_bounds__(kThreads)
-ola_rows(const float* __restrict__ frames, const float* __restrict__ norm_rows,
-         const float* __restrict__ tail_in, float* __restrict__ out,
-         float* __restrict__ tail_out, int64_t n_out, int64_t n_main, Geo g,
-         int m, int lg) {
+ola_rows(const float* __restrict__ frames, OlaOut o, Geo g, int m, int lg) {
   const int lanes = 1 << lg;  // a row's lanes, a power of two <= 32
   const int lane = threadIdx.x & (lanes - 1);
   const int per_block = kThreads >> lg;  // rows a block holds at once
   const int rs = g.rs, n_fft = g.n_fft;
-  const int64_t rows = (n_out + rs - 1) / rs;  // rows per batch row
+  const int64_t rows = (o.n_out + rs - 1) / rs;  // rows per batch row
   const int64_t total = rows * g.batch;
   for (int64_t w = (int64_t)blockIdx.x * per_block + (threadIdx.x >> lg); w < total;
        w += (int64_t)gridDim.x * per_block) {
@@ -1309,77 +1541,48 @@ ola_rows(const float* __restrict__ frames, const float* __restrict__ norm_rows,
     const int64_t r = w - bat * rows;
     const int64_t n_row = row_frames(g, bat);
     const int64_t n0 = r * rs;  // the row's first sample
-    const int len = (int)(n_out - n0 < rs ? n_out - n0 : rs);
+    const int len = (int)(o.n_out - n0 < rs ? o.n_out - n0 : rs);
     // Frames r - d for d in [d_lo, d_hi] cover the row.
     const int d_hi = (int)(r < m - 1 ? r : m - 1);
     const int d_lo = (int)(r - (n_row - 1) > 0 ? r - (n_row - 1) : 0);
     // Frame r - d at sample d Rs: frame r's start, d (N - Rs) back.
     const float* fr = frames + ((int64_t)bat * g.nf + r) * n_fft;
-    const float* tin = tail_in != nullptr && r < m - 1 ? tail_in + n0 : nullptr;
-    float* dst;
-    const float* nrm = nullptr;  // null: un-normalized, into tail_out
-    bool zero = false;
-    if (n0 >= n_main) {
-      dst = tail_out + (n0 - n_main);
-    } else {
-      dst = out + bat * n_out + n0;
-      int64_t nf_total = g.nf_total;
-      const float* norm = norm_rows;
-      if (g.nfs != nullptr) {
-        nf_total = n_row;
-        const int64_t key = n_row < m - 1 ? (n_row > 1 ? n_row : 1) : m - 1;
-        norm += (key - 1) * (2 * m - 1) * (int64_t)rs;
-      }
-      const int64_t gr = g.goff + r;
-      int64_t nrow;
-      if (gr >= nf_total) {
-        nrow = m - 1 + (gr - nf_total);
-        zero = nrow > 2 * m - 3;
-      } else if (gr < m - 1) {
-        nrow = gr;
-      } else {
-        nrow = 2 * m - 2;
-      }
-      nrm = norm + nrow * rs;
-    }
+    const float* tin = o.tail_in != nullptr && r < m - 1 ? o.tail_in + n0 : nullptr;
+    const RowDst d = row_dst(g, o, bat, r, n_row, m);
     for (int t = lane * W; t < len; t += lanes * W) {
       float acc[W], v[W];
 #pragma unroll
       for (int e = 0; e < W; ++e) acc[e] = 0.f;
-      if (!zero) {
+      if (!d.zero) {
         if (tin != nullptr) load_w<W>(tin + t, acc);
 #pragma unroll 4
-        for (int d = d_hi; d >= d_lo; --d) {
-          const int off = d * rs + t;
-          if (d == m - 1 && off >= n_fft) continue;  // past the oldest frame's end
-          load_w<W>(fr - (int64_t)d * n_fft + off, v);
+        for (int k = d_hi; k >= d_lo; --k) {
+          const int off = k * rs + t;
+          if (k == m - 1 && off >= n_fft) continue;  // past the oldest frame's end
+          load_w<W>(fr - (int64_t)k * n_fft + off, v);
 #pragma unroll
           for (int e = 0; e < W; ++e) acc[e] += v[e];
         }
-        if (nrm != nullptr) {
-          load_w<W>(nrm + t, v);
+        if (d.nrm != nullptr) {
+          load_w<W>(d.nrm + t, v);
 #pragma unroll
           for (int e = 0; e < W; ++e) acc[e] = acc[e] * v[e];
         }
       }
-      store_w<W>(dst + t, acc);
+      store_w<W>(d.dst + t, acc);
     }
   }
 }
 
-// The gather of n_out samples per batch row, in float4 runs where the
+// The gather of o.n_out samples per batch row, in float4 runs where the
 // geometry and the buffers' alignment allow.
-cudaError_t launch_ola(const float* frames, const float* norm_rows,
-                       const float* tail_in, float* out, float* tail_out,
-                       int64_t n_out, int64_t n_main, const Geo& g, int m,
+cudaError_t launch_ola(const float* frames, const OlaOut& o, const Geo& g, int m,
                        cudaStream_t stream) {
-  auto a16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
-  const bool vec = g.rs % 4 == 0 && g.n_fft % 4 == 0 && n_out % 4 == 0 && n_main % 4 == 0 &&
-                   a16(frames) && a16(norm_rows) && a16(tail_in) && a16(out) && a16(tail_out);
+  const bool vec = ola_vec(o, g) && (reinterpret_cast<uintptr_t>(frames) & 15) == 0;
   const int w = vec ? 4 : 1;
   int lg = 0;  // lanes a row: the least power of two >= Rs / W, at most 32
   while (lg < 5 && (w << lg) < g.rs) ++lg;
-  const int64_t rows = (n_out + g.rs - 1) / g.rs * g.batch;
+  const int64_t rows = (o.n_out + g.rs - 1) / g.rs * g.batch;
   const int64_t per_block = kThreads >> lg;
   const int64_t blocks = (rows + per_block - 1) / per_block;
   if (blocks == 0) return cudaSuccess;
@@ -1388,11 +1591,9 @@ cudaError_t launch_ola(const float* frames, const float* norm_rows,
                         : real_fft::grid_for(ola_rows<1>, 0, blocks, &grid);
   if (err != cudaSuccess) return err;
   if (vec) {
-    ola_rows<4><<<grid, kThreads, 0, stream>>>(frames, norm_rows, tail_in, out, tail_out,
-                                               n_out, n_main, g, m, lg);
+    ola_rows<4><<<grid, kThreads, 0, stream>>>(frames, o, g, m, lg);
   } else {
-    ola_rows<1><<<grid, kThreads, 0, stream>>>(frames, norm_rows, tail_in, out, tail_out,
-                                               n_out, n_main, g, m, lg);
+    ola_rows<1><<<grid, kThreads, 0, stream>>>(frames, o, g, m, lg);
   }
   return cudaGetLastError();
 }
@@ -1463,41 +1664,42 @@ struct SynthIn {
 };
 
 template <int LOG2N, int SRC>
-cudaError_t launch_synth_real(const SynthIn& in, const float* fft, float* frames,
+cudaError_t launch_synth_real(const SynthIn& in, const float* fft, const OlaOut& o,
                               const Geo& g, cudaStream_t stream) {
   using P = real_fft::Plan<LOG2N>;
-  const size_t smem = sizeof(float) * (2 * P::M + P::F * 2 * P::FS);
+  const int m = (P::N + g.rs - 1) / g.rs;
+  const size_t smem = sizeof(float) * (2 * P::M + P::F * 2 * P::FS + 2 * (m - 1) * g.rs);
+  const int64_t rows = (o.n_out + g.rs - 1) / g.rs;
+  if (rows * g.batch > INT32_MAX) return cudaErrorInvalidValue;  // 32-bit group indices
+  const int64_t groups = (int64_t)ola_groups((int)rows, m, P::F) * g.batch;
   unsigned grid = 0;
-  const cudaError_t err = real_fft::grid_for(
-      synth_real<LOG2N, SRC>, smem, (g.nf + P::F - 1) / P::F * g.batch, &grid);
+  const cudaError_t err = real_fft::grid_for(synth_real<LOG2N, SRC>, smem, groups, &grid);
   if (err != cudaSuccess) return err;
   synth_real<LOG2N, SRC><<<grid, real_fft::kThreads, smem, stream>>>(
-      in.y, in.u0, in.mag, in.pre, in.pim, in.mask, fft, fft + P::N, fft + P::N + P::M,
-      frames, g);
+      in.y, in.u0, in.mag, in.pre, in.pim, in.mask, fft, fft + P::N, fft + P::N + P::M, o, g,
+      (int)ola_vec(o, g));
   return cudaGetLastError();
 }
 
+// The synthesis and overlap-add of g.nf frames of each batch row (any of
+// them may be 0) on fft_real.cuh's body, N = 2^log2n.
 template <int SRC>
-cudaError_t synthesis_real(int log2n, const SynthIn& in, const float* fft, float* frames,
+cudaError_t synthesis_real(int log2n, const SynthIn& in, const float* fft, const OlaOut& o,
                            const Geo& g, cudaStream_t stream) {
   switch (log2n) {
-    case 8: return launch_synth_real<8, SRC>(in, fft, frames, g, stream);
-    case 9: return launch_synth_real<9, SRC>(in, fft, frames, g, stream);
-    case 10: return launch_synth_real<10, SRC>(in, fft, frames, g, stream);
-    case 11: return launch_synth_real<11, SRC>(in, fft, frames, g, stream);
-    default: return launch_synth_real<12, SRC>(in, fft, frames, g, stream);
+    case 8: return launch_synth_real<8, SRC>(in, fft, o, g, stream);
+    case 9: return launch_synth_real<9, SRC>(in, fft, o, g, stream);
+    case 10: return launch_synth_real<10, SRC>(in, fft, o, g, stream);
+    case 11: return launch_synth_real<11, SRC>(in, fft, o, g, stream);
+    default: return launch_synth_real<12, SRC>(in, fft, o, g, stream);
   }
 }
 
-// The synthesis of the packed rows y over g.nf frames of each batch row:
-// synth_real where fft_real.cuh serves N, else fft_synthesis (one block a
-// frame) in the instantiation of its plan's body.
-cudaError_t launch_synthesis(const float* y, const float* fft, float* frames,
-                             const Geo& g, cudaStream_t stream) {
-  if (const int l = real_fft::real_log2(g.n_fft)) {
-    return synthesis_real<kRows>(l, {y, nullptr, nullptr, nullptr, nullptr, nullptr}, fft,
-                                 frames, g, stream);
-  }
+// Where fft_real.cuh does not serve N: fft_synthesis (one block a frame,
+// in the instantiation of its plan's body) of the packed rows y into
+// frames, over g.nf > 0 frames of each batch row.
+cudaError_t launch_fft_synthesis(const float* y, const float* fft, float* frames,
+                                 const Geo& g, cudaStream_t stream) {
   const dim3 grid((unsigned)g.nf, (unsigned)g.batch);
   const float* twc = fft + g.n_fft;
   const float* tws = fft + g.n_fft + g.nh;
@@ -1610,9 +1812,13 @@ bool closed_in_synth(const Geo& g) {
 }
 
 // The TSM passes over g.nf frames of each batch row of x (any of them may
-// be 0), then the gather of n_out samples per row. carry_in/carry_out/
-// tail_in/tail_out are null for whole recordings. With fft_half (the table
-// of the N/2-point transform) the analysis is the fold pass.
+// be 0), then the overlap-add of n_out samples per row. carry_in/
+// carry_out/tail_in/tail_out are null for whole recordings. With fft_half
+// (the table of the N/2-point transform) the analysis is the fold pass.
+// Where fft_real.cuh serves N, synth_real makes the output rows itself
+// (frames may be null; it runs even with no frame, for a segment past the
+// recording's end); elsewhere fft_synthesis writes frames and ola_rows
+// gathers them.
 cudaError_t run_tsm(const float* x, float* out, float* tail_out,
                     float* carry_out, float* spec, float* y, float* anchor,
                     float* frames, float* tot, float* carry, const float* fft,
@@ -1623,6 +1829,11 @@ cudaError_t run_tsm(const float* x, float* out, float* tail_out,
                     cudaStream_t stream) {
   const int m = (g.n_fft + g.rs - 1) / g.rs;
   const int ng = g.nh - 1;
+  const int log2n = real_fft::real_log2(g.n_fft);
+  const bool closed = closed_in_synth(g);
+  // The anchor table of the closed form: the segment's carry, else made
+  // by phase_anchor.
+  const float* u0 = carry_out != nullptr ? carry_out : anchor;
   cudaError_t err;
 
   if (g.nf > 0) {
@@ -1632,18 +1843,12 @@ cudaError_t run_tsm(const float* x, float* out, float* tail_out,
           spec, carry_in, carry_out, g);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
-    if (closed_in_synth(g)) {
-      const float* u0 = carry_out;
-      if (u0 == nullptr) {
+    if (closed) {
+      if (carry_out == nullptr) {
         if (anchor == nullptr) return cudaErrorInvalidValue;
         phase_anchor<<<grid_for(ng, g), kThreads, 0, stream>>>(spec, carry_in, anchor, g);
         if ((err = cudaGetLastError()) != cudaSuccess) return err;
-        u0 = anchor;
       }
-      err = synthesis_real<kClosed>(real_fft::real_log2(g.n_fft),
-                                    {spec, u0, nullptr, nullptr, nullptr, nullptr}, fft,
-                                    frames, g, stream);
-      if (err != cudaSuccess) return err;
     } else {
       if (y == nullptr) return cudaErrorInvalidValue;
       if (g.q == 1) {
@@ -1662,7 +1867,6 @@ cudaError_t run_tsm(const float* x, float* out, float* tail_out,
             spec, carry, y, g, L);
         if ((err = cudaGetLastError()) != cudaSuccess) return err;
       }
-      if ((err = launch_synthesis(y, fft, frames, g, stream)) != cudaSuccess) return err;
     }
   } else if (carry_out != nullptr) {  // a segment past the last frame
     err = cudaMemcpyAsync(carry_out, carry_in, 4 * ng * sizeof(float),
@@ -1670,7 +1874,18 @@ cudaError_t run_tsm(const float* x, float* out, float* tail_out,
     if (err != cudaSuccess) return err;
   }
 
-  return launch_ola(frames, norm_rows, tail_in, out, tail_out, n_out, n_main, g, m, stream);
+  const OlaOut o = {out, tail_out, tail_in, norm_rows, n_out, n_main};
+  if (log2n != 0) {
+    return closed ? synthesis_real<kClosed>(log2n, {spec, u0, nullptr, nullptr, nullptr, nullptr},
+                                            fft, o, g, stream)
+                  : synthesis_real<kRows>(log2n, {y, nullptr, nullptr, nullptr, nullptr, nullptr},
+                                          fft, o, g, stream);
+  }
+  if (frames == nullptr) return cudaErrorInvalidValue;
+  if (g.nf > 0 && (err = launch_fft_synthesis(y, fft, frames, g, stream)) != cudaSuccess) {
+    return err;
+  }
+  return launch_ola(frames, o, g, m, stream);
 }
 
 }  // namespace
@@ -1681,7 +1896,9 @@ extern "C" const char* pvoc_cuda_error_string(int err) {
 
 // Buffers (all float32, allocated by the caller):
 //   x (>= (nf-1)*ra + n_fft), out ((nf-1)*rs + n_fft),
-//   spec (nf, 2*(n_fft/2+1)), frames (nf, n_fft);
+//   spec (nf, 2*(n_fft/2+1));
+//   frames (nf, n_fft) where fft_real.cuh does not serve n_fft (else null:
+//   synth_real overlap-adds its frames in shared memory);
 //   y (nf, 2*(n_fft/2+1)), the packed Y, except where the phase runs in
 //   synth_real's load (q == 1 and fft_real.cuh serves n_fft: null there);
 //   anchor (2, n_fft/2-1), the anchor table, there only (else null);
@@ -1819,15 +2036,17 @@ extern "C" int pvoc_terms(const float* x, float* spec, float* mag, float* t,
 }
 
 // Synthesis from given phasors, for each of the batch rows: Y = |X| P
-// (times mask, (batch, nf), when not null), the windowed inverse FFT into
-// frames (batch*nf, n_fft) and the gather overlap-add into out (batch,
-// (nf-1)*rs + n_fft) with norm_rows (2m-1, rs): the recording's
-// normalization rows, or ones for the un-normalized sum. mag, pre, pim
-// (batch, nf, nb). Where fft_real.cuh serves n_fft, synth_real forms Y
-// from the planes itself and y may be null; for any other n_fft, y
-// (batch*nf, 2*nb) is scratch for phasor_y's packed Y. Any rs > 0: the
-// gather sums m = ceil(n_fft/rs) segments a frame (norm_rows has 2m-1
-// rows), as pvoc_fused's does; m = n_fft/rs where rs | n_fft.
+// (times mask, (batch, nf), when not null), the windowed inverse FFT and
+// the gather overlap-add into out (batch, (nf-1)*rs + n_fft) with
+// norm_rows (2m-1, rs): the recording's normalization rows, or ones for
+// the un-normalized sum. mag, pre, pim (batch, nf, nb). Where fft_real.cuh
+// serves n_fft, synth_real forms Y from the planes itself and sums its own
+// frames into out, in one launch; y and frames may be null. For any other
+// n_fft, y (batch*nf, 2*nb) is scratch for phasor_y's packed Y and frames
+// (batch*nf, n_fft) for fft_synthesis' frames, which ola_rows gathers. Any
+// rs > 0: the overlap-add sums m = ceil(n_fft/rs) segments a frame
+// (norm_rows has 2m-1 rows), as pvoc_fused's does; m = n_fft/rs where rs |
+// n_fft.
 extern "C" int pvoc_phasor_synth(const float* mag, const float* pre,
                                  const float* pim, const float* mask,
                                  float* y, float* frames, float* out,
@@ -1838,18 +2057,14 @@ extern "C" int pvoc_phasor_synth(const float* mag, const float* pre,
   g.batch = batch;
   const int m = (n_fft + rs - 1) / rs;
   const int64_t out_len = (nf - 1) * (int64_t)rs + n_fft;
-  cudaError_t err;
+  const OlaOut o = {out, nullptr, nullptr, norm_rows, out_len, out_len};
   if (const int l = real_fft::real_log2(n_fft)) {
-    err = synthesis_real<kPlanes>(l, {nullptr, nullptr, mag, pre, pim, mask}, fft, frames, g,
-                                  stream);
-  } else if (y == nullptr) {
-    err = cudaErrorInvalidValue;
-  } else {
-    phasor_y<<<grid_for(nf * g.nb, g), kThreads, 0, stream>>>(mag, pre, pim,
-                                                              mask, y, g);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    err = launch_synthesis(y, fft, frames, g, stream);
+    return synthesis_real<kPlanes>(l, {nullptr, nullptr, mag, pre, pim, mask}, fft, o, g, stream);
   }
+  if (y == nullptr || frames == nullptr) return cudaErrorInvalidValue;
+  phasor_y<<<grid_for(nf * g.nb, g), kThreads, 0, stream>>>(mag, pre, pim, mask, y, g);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_ola(frames, norm_rows, nullptr, out, nullptr, out_len, out_len, g, m, stream);
+  if ((err = launch_fft_synthesis(y, fft, frames, g, stream)) != cudaSuccess) return err;
+  return launch_ola(frames, o, g, m, stream);
 }

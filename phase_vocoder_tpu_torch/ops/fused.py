@@ -48,8 +48,11 @@ magnitude and phasor planes, and which at integer k forms the closed form
 itself from the spectra and a per-row anchor table (closed_in_synth: no
 phase pass, no packed Y). For any other even n_fft, a block a frame on
 csrc/fft_common.cuh's FFT: fft_analysis (fft_analysis_fold for zrev=True)
-and fft_synthesis, after a pass that packs Y. The overlap-add of every
-entry is one gather (ola_rows) that gives each output row to a warp.
+and fft_synthesis, after a pass that packs Y. The overlap-add sums each
+output sample's frames oldest first, then normalizes it by its row: in
+synth_real's epilogue, from the frames it holds in shared memory, so that
+no frame reaches device memory; after fft_synthesis, in a gather of its
+own (ola_rows) that gives each output row to a warp.
 
 The plain helpers of the chunked bodies (phasor_scan,
 phasor_prefix_exclusive, boundary_step_term) sit beside them.
@@ -165,9 +168,10 @@ def real_body(n_fft: int) -> bool:
     """True when csrc/fft_real.cuh's n_fft/2-point body serves n_fft (a
     power of two from 256 to 4096, real_fft::real_log2 in C): there every
     entry's analysis runs analysis_real (for zrev=True too) and its
-    synthesis synth_real, and pvoc_phasor_synth needs no packed-Y scratch;
-    at every other even n_fft, fft_analysis / fft_analysis_fold and
-    fft_synthesis, a block a frame."""
+    synthesis and overlap-add synth_real, so that no entry needs a frames
+    scratch and pvoc_phasor_synth no packed-Y scratch; at every other even
+    n_fft, fft_analysis / fft_analysis_fold and fft_synthesis, a block a
+    frame, and the gather ola_rows."""
     return 256 <= n_fft <= MAX_N_FFT and n_fft & (n_fft - 1) == 0
 
 
@@ -728,10 +732,11 @@ def closed_in_synth(n_fft: int, q: int) -> bool:
 def _workspace(frames: int, n_fft: int, q: int, device, batch: int = 1,
                segment: bool = False) -> dict:
     """Scratch of the TSM passes for `batch` rows of `frames` frames:
-    spectra, windowed frames, and either the packed Y or, where
-    closed_in_synth, the (batch, 2, n_fft/2-1) anchor table (none for a
-    stream segment, whose carry holds its anchor); and the chunk totals and
-    carries of the q >= 2 scan."""
+    spectra; the windowed frames only where not real_body(n_fft) (there
+    synth_real overlap-adds its frames in shared memory); either the packed
+    Y or, where closed_in_synth, the (batch, 2, n_fft/2-1) anchor table
+    (none for a stream segment, whose carry holds its anchor); and the
+    chunk totals and carries of the q >= 2 scan."""
     f32 = dict(dtype=torch.float32, device=device)
     closed = closed_in_synth(n_fft, q)
     work = {
@@ -739,7 +744,7 @@ def _workspace(frames: int, n_fft: int, q: int, device, batch: int = 1,
         "y": None if closed else torch.empty((batch * frames, n_fft + 2), **f32),
         "anchor": (torch.empty((batch, 2, n_fft // 2 - 1), **f32)
                    if closed and not segment else None),
-        "frames": torch.empty((batch * frames, n_fft), **f32),
+        "frames": None if real_body(n_fft) else torch.empty((batch * frames, n_fft), **f32),
         "tot": None,
         "carry": None,
     }
@@ -1159,15 +1164,14 @@ def _synth_reference(mag, pre, pim, n_fft: int, rs: int, nf: int, mask) -> torch
     return ola.reshape(-1)[: (nf - 1) * rs + n_fft]
 
 
-def _synth_launch(mag, pre, pim, n_fft: int, rs: int, nf: int, mask, what: str,
-                  return_frames: bool = False):
+def _synth_launch(mag, pre, pim, n_fft: int, rs: int, nf: int, mask, what: str):
     """The pvoc_phasor_synth kernel over (B, >= nf, nb) planes; mask (B, nf)
-    or None. Returns (B, (nf-1)*rs + n_fft), and with return_frames also
-    the kernel's (B*nf, n_fft) windowed frames before the overlap-add.
-    Where real_body(n_fft), the kernel forms Y from the planes as it loads
-    them (two launches: synth_real and the gather); elsewhere a first
-    launch packs Y into a (B*nf, 2*nb) scratch, allocated only then, for
-    fft_synthesis. `what` is the launching wrapper's name."""
+    or None. Returns (B, (nf-1)*rs + n_fft). Where real_body(n_fft), one
+    launch (synth_real) forms Y from the planes as it loads them and sums
+    its frames into the output in shared memory; elsewhere a first launch
+    packs Y into a (B*nf, 2*nb) scratch for fft_synthesis, whose (B*nf,
+    n_fft) frames the gather (ola_rows) sums, both allocated only then.
+    `what` is the launching wrapper's name."""
     with profiling.span("pv.prepare"):
         for t in (mag, pre, pim):
             if t.device.type != "cuda":
@@ -1176,8 +1180,10 @@ def _synth_launch(mag, pre, pim, n_fft: int, rs: int, nf: int, mask, what: str,
         B, nb = mag.shape[0], n_fft // 2 + 1
         dev = str(mag.device)
         f32 = dict(dtype=torch.float32, device=mag.device)
-        y = None if real_body(n_fft) else torch.empty((B * nf, 2 * nb), **f32)
-        frames = torch.empty((B * nf, n_fft), **f32)
+        y = frames = None
+        if not real_body(n_fft):
+            y = torch.empty((B * nf, 2 * nb), **f32)
+            frames = torch.empty((B * nf, n_fft), **f32)
         out = torch.empty((B, (nf - 1) * rs + n_fft), **f32)
         if mask is None:
             norm = _device_norm_rows(n_fft, rs, min(nf, -(-n_fft // rs) - 1), dev)
@@ -1189,11 +1195,11 @@ def _synth_launch(mag, pre, pim, n_fft: int, rs: int, nf: int, mask, what: str,
             what, lib.pvoc_phasor_synth,
             mag.data_ptr(), pre.data_ptr(), pim.data_ptr(),
             None if mask is None else mask.data_ptr(), None if y is None else y.data_ptr(),
-            frames.data_ptr(),
+            None if frames is None else frames.data_ptr(),
             out.data_ptr(), _device_fft_table(n_fft, dev).data_ptr(), norm.data_ptr(),
             B, nf, n_fft, rs, torch.cuda.current_stream().cuda_stream,
         )
-    return (out, frames) if return_frames else out
+    return out
 
 
 def phasor_istft_ola_reference(

@@ -137,6 +137,7 @@ def test_workspace_has_no_y_on_the_closed_route(n_fft, batch):
     assert fused.closed_in_synth(n_fft, 1)
     work = fused._workspace(40, n_fft, 1, "cpu", batch=batch)
     assert work["y"] is None and work["tot"] is None and work["carry"] is None
+    assert work["frames"] is None  # synth_real overlap-adds in shared memory
     assert work["anchor"].shape == (batch, 2, n_fft // 2 - 1)
     assert work["spec"].shape == (batch * 40, n_fft + 2)
     seg = fused.segment_workspace(64, n_fft, n_fft // 4, n_fft // 2, "cpu")
@@ -156,6 +157,8 @@ def test_workspace_keeps_y_elsewhere(n_fft, q):
         assert work["y"].shape == work["spec"].shape
         assert work["anchor"] is None
         assert (work["tot"] is None) == (q == 1)
+        # the frames scratch only where fft_synthesis writes frames for ola_rows
+        assert (work["frames"] is None) == fused.real_body(n_fft)
 
 
 # ---------------------------------------------------------- the row gather

@@ -16,10 +16,11 @@ least 1e-2, at 1e-5 of the largest of them (the bound chip_smoke.py holds
 phasor_istft_ola to; where the energy is smaller, 1/energy lifts a lone
 frame's edge taps to hundreds and a bound on the whole would hide an
 interior error), and silent where no frame reaches; the kernel's frames
-against the plain windowed irfft at 1e-6 of their largest, and its gather
-bit for bit against the plain fold and normalization of those frames, at
-those Rs and at Rs = 256 and 512, where m = N/Rs; and the 3.0x route's
-launches.
+(read as the kernel's output at Rs = N with a mask of ones, where each
+output row is one frame) against the plain windowed irfft at 1e-6 of
+their largest, and its overlap-add bit for bit against the plain fold and
+normalization of those frames, at those Rs and at Rs = 256 and 512, where
+m = N/Rs; and the 3.0x route's launches.
 No JAX here, so that the card tests run where JAX is absent:
 
     python -m pytest tests/test_torch_general_synth.py --noconftest -m card
@@ -122,11 +123,15 @@ def test_gather_is_the_plain_fold_of_its_frames_bit_for_bit(card, rs, nf):
     """The kernel's windowed frames are the plain irfft's; each sample sums
     them oldest first from zero, then takes its row's inverse energy: the
     plain fold and normalization of the kernel's own frames, bit for bit,
-    so m = ceil(N/Rs) segments a frame (N/Rs at Rs | N, as before)."""
+    so m = ceil(N/Rs) segments a frame (N/Rs at Rs | N, as before). The
+    frames never leave the kernel; at Rs = N with a mask of ones (unit
+    normalization rows) output row i is 0 + frame i times 1, and a frame's
+    bits do not depend on Rs."""
     planes = _planes(nf, card, seed=rs * nf)
-    out, frames = fused._synth_launch(*(t[None] for t in planes), N, rs, nf, None,
-                                      "phasor_synth_general", return_frames=True)
-    out = out[0]
+    t3 = tuple(t[None] for t in planes)
+    out = fused._synth_launch(*t3, N, rs, nf, None, "phasor_synth_general")[0]
+    ones = torch.ones((1, nf), device=card)
+    frames = fused._synth_launch(*t3, N, N, nf, ones, "phasor_synth_general")[0].reshape(nf, N)
     plain = fused._synth_frames_reference(*planes, N, nf, None)
     assert float((frames - plain).abs().max() / plain.abs().max()) <= 1e-6
     ola = fused._ola_rows_reference(frames, nf, rs, None)
