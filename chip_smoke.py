@@ -35,6 +35,9 @@ each; any failure raises and the script exits non-zero:
          istft_frames / istft_frames_cart with a
          frame mask whose last 100 frames are 0, also at each of those
          five N, with rows r0..r1 alone bitwise equal to the whole call's;
+         phasor_general_closed (the general route at integer k) at k = 3-8
+         with N = 256, 512, 1024 and 4096, Ra = N/4 (Rs > N/2), where
+         the window energy is >= 1e-2, within 1e-5 (k - 1);
      2f. (run after 2e) segment_phase (csrc/phase_scan.cu, the faithful
          stream's phase chain) against segment_phase_reference bit for bit
          through an int32 view, and rerun bit for bit: N = 256, 1024 and
@@ -93,11 +96,17 @@ each; any failure raises and the script exits non-zero:
          stream at 0.5x on 660 s resumed the same way; the general-hop
          route (time_stretch
          3.0x on 3600 s, pitch_shift +19 st on 300 s) and the polar stages
-         at Rs = 171 on 300 s, timed, with their kernels (pvoc_terms and
-         phasor_synth_general, with its bound; istft_frames_cart on the
-         3.0x planes, which no route calls now: 0 launches on the kernels
-         line) against the plain versions at those shapes; one 8192-frame
-         segment of the fused
+         at Rs = 171 on 300 s, timed, with their kernels: at 3.0x (integer
+         k) one pvoc_fused launch a call (phasor_general_closed), bitwise
+         the direct call, within 3e-3 of pvbench/reference/pv64.py and no
+         further from it than the terms-plus-scan chain on the same input,
+         within 1e-4 of that chain where the window energy is >= 1e-2 and
+         2e-5 of its plain version, with its passes and bound; at +19 st
+         (Rs = 767, q = 256) pvoc_terms and phasor_synth_general on the
+         stretch step's input, each timed and held to its plain version
+         there;
+         istft_frames_cart on the 3.0x planes, which no route calls now: 0
+         launches on the kernels line; one 8192-frame segment of the fused
          stream (pvoc_fused_segment) by device time;
      4e. the parallel layer: the BASELINE batch (64 utterances of 5-30 s,
          ratios 0.5-2.0) through batch_time_stretch_varied, rows against
@@ -228,7 +237,8 @@ stft.cu outputs at N = 1024, the sizes that keep the
 one-block-a-frame analysis and fft_synthesis (stft/istft and
 phasor_istft_ola at N = 768; pvoc_fused at N = 128 with q >= 2),
 phasor_istft_ola(_batch) on seeded random planes (Rs = 128, 256, 512),
-the phasor terms
+time_stretch 2.0x on 3600 s with pvoc_fused and zrev there, the phasor
+terms
 (3.0x / 3600 s scanned, 60 s with unit phasors), q >= 2 at N = 1024 and
 Rs = 171 (pvoc_fused, zrev, one stream segment, a ragged batch: the carry
 scan of every q >= 2 caller) and select_lerp with and without chunk bases
@@ -236,7 +246,9 @@ on seeded tables at strides 0, 1 and 2; every integer-k output
 (pvoc_fused, zrev, one stream segment and a ragged batch at N = 256, 1024
 and 4096; pvoc_fused at N = 768 and 128), whose closed form is rounded as
 written since the phase moved into the synthesis, is hashed as an output
-that may move. Also times pvoc_fused and zrev at Rs = 171 on 300 s,
+that may move, and so is time_stretch 3.0x on 3600 s, whose general route
+forms the integer-k closed form since the prefix product of step terms
+gave way to it. Also times pvoc_fused and zrev at Rs = 171 on 300 s,
 pitch_shift -7 st on 300 s, and select_lerp in both modes beside
 F.interpolate (per-call means and profiler device times), and records
 pvoc_terms' and the q >= 2 pvoc_fused's passes by name. First of all
@@ -813,17 +825,21 @@ def _ab_worker(root: str, faithful_only: bool = False) -> int:
     rec["pvoc_fused_zrev_2x_3600s_ms"] = _time_ms(
         lambda: fused.fused_time_stretch(x_long, N_FFT, HOP, 512, zrev=True), reps=5)
     # The two cells' routes through the public API (2.0x: the fused route;
-    # 3.0x: pvoc_terms, then phasor_synth_general): time, device time by
-    # kernel from one trace, peak memory, and the outputs' hashes (must not
-    # move), with pvoc_fused and zrev at 2.0x / 3600 s.
+    # 3.0x: the general route, at integer k phasor_general_closed): time,
+    # device time by kernel from one trace, peak memory, and the outputs'
+    # hashes: 2.0x with pvoc_fused and zrev at 2.0x / 3600 s must not move;
+    # 3.0x may, where this checkout's general route forms the integer-k
+    # closed form in place of the parent's prefix product of step terms
+    # (the same mathematics, another rounding).
     for factor in (2.0, 3.0):
         fn = lambda: pv.time_stretch(x_long, factor, cfg)  # noqa: E731
         rec[f"time_stretch_{factor:g}x_3600s_ms"] = _time_ms(fn, reps=5)
         rec[f"time_stretch_{factor:g}x_3600s_passes"] = _profile_call(fn)["by_kernel_ms"]
         rec[f"time_stretch_{factor:g}x_3600s_peak_gb"] = _peak_gb(fn)
-    rec["hash_stretch_2x_3x_3600s"] = digest(
-        pv.time_stretch(x_long, 2.0, cfg), pv.time_stretch(x_long, 3.0, cfg),
+    rec["hash_stretch_2x_3600s"] = digest(
+        pv.time_stretch(x_long, 2.0, cfg),
         fused.fused_time_stretch(x_long, N_FFT, HOP, 512), fused.fused_time_stretch(x_long, N_FFT, HOP, 512, zrev=True))
+    rec["moved_stretch_3x_3600s"] = digest(pv.time_stretch(x_long, 3.0, cfg))
     nf_long = (len(x_long) - N_FFT) // HOP + 1
     F_long, _ = streaming.fused_plan_segments(nf_long, N_FFT, 512, streaming.DEFAULT_FUSED_SEGMENT_FRAMES)
     _, st10 = streaming._fused_scan_from(
@@ -1534,6 +1550,8 @@ def main() -> int:
         phasor_istft_ola,
         phasor_istft_ola_batch,
         phasor_istft_ola_batch_reference,
+        phasor_general_closed,
+        phasor_general_closed_reference,
         phasor_istft_ola_reference,
         phasor_synth_general,
         phasor_synth_general_reference,
@@ -1583,7 +1601,7 @@ def main() -> int:
         "istft_frames": istft_frames, "istft_frames_cart": istft_frames_cart,
         "pvoc_fused_batch": fused_time_stretch_batch, "pvoc_terms_batch": stft_phasor_terms_batch,
         "phasor_istft_ola": phasor_istft_ola, "phasor_istft_ola_batch": phasor_istft_ola_batch,
-        "phasor_synth_general": phasor_synth_general,
+        "phasor_synth_general": phasor_synth_general, "phasor_general_closed": phasor_general_closed,
         "pvoc_fused_zrev": fused_time_stretch_zrev, "resample_blocked": resample_blocked,
         "select_lerp_roll2": select_lerp_two_level, "select_lerp": select_lerp,
         "stft_fused": stft_fused, "segment_phase": segment_phase,
@@ -1886,9 +1904,32 @@ def main() -> int:
                 _check(bool(torch.equal(fn(a_[r0:r1], b_[r0:r1], n, mask_n[r0:r1]), a[r0:r1])),
                        f"{name} at N={n}: rows {r0}..{r1} alone differ from the whole call's")
         del mp_, pp_, rp_, ip_, a, b
+    # phasor_general_closed (the general route at integer k, Rs > N/2):
+    # the closed form's integer power at k = 3-8 (Rs = k Ra: m = 2 at k = 3,
+    # 1 from k = 4 on) at N = 256, 512, 1024 and 4096 with Ra = N/4 (at
+    # N = 1024, k = 4 is +24 st), against its plain version where the
+    # window energy is >= 1e-2, and silent
+    # where no frame reaches (the gaps past each frame from k = 5 on).
+    # Bound: 1e-5 (pvoc_fused's at k = 2) times k - 1, since
+    # P_i = u_0^(1-k) u_i^k carries the anchor's rounding k - 1 times.
+    closed_k = {}
+    for n, ra in ((256, 64), (512, 128), (1024, 256), (4096, 1024)):
+        nf_c = (len(x60) - n) // ra + 1
+        w64 = hann_window(n, dev, torch.float64)
+        for k in range(3, 9):
+            a = phasor_general_closed(x60, n, ra, k * ra)
+            b = phasor_general_closed_reference(x60, n, ra, k * ra)
+            energy = ola_window_norm(w64, nf_c, k * ra, eps=0.0, method="fold")
+            held = energy >= 1e-2
+            key = f"{n}/{ra}/k{k}"
+            closed_k[key] = float((a - b)[held].abs().max() / b[held].abs().max())
+            _check(closed_k[key] < 1e-5 * (k - 1) and not a[energy == 0].any(),
+                   f"phasor_general_closed vs plain at {key}: {closed_k}")
+    del a, b, held, energy
     _emit("2d_general_hop_kernels_vs_plain", seconds=60, pvoc_terms=terms, pvoc_terms_chunk_edges=edges,
-          frames_rel_to_max=frames, masked_frames=100, rows_bitwise=True,
-          bounds={"mag_rel": 1e-5, "p_weighted": 1e-4, "frames": 1e-5})
+          frames_rel_to_max=frames, masked_frames=100, rows_bitwise=True, phasor_general_closed=closed_k,
+          bounds={"mag_rel": 1e-5, "p_weighted": 1e-4, "frames": 1e-5,
+                  "phasor_general_closed": "1e-5 (k - 1), window energy >= 1e-2"})
     del re_p, im_p
 
     # ---- 2e. the parallel layer's kernels vs their plain versions, 60 s
@@ -2630,7 +2671,7 @@ def main() -> int:
     gen, gen_launches = {}, {}
     for name, secs, fn, expect in (
         ("stretch_3x_3600s", 3600.0, lambda: pv.time_stretch(x_long, 3.0, cfg),
-         {"pvoc_terms": 4, "phasor_synth_general": 4}),
+         {"phasor_general_closed": 4}),
         ("pitch_19_300s", 300.0, lambda: pv.pitch_shift(x_pitch, 19.0, cfg),
          {"pvoc_terms": 4, "phasor_synth_general": 4, "resample_lerp": 4}),
         ("polar_stages_rs171_300s", 300.0, polar_stages, {"stft_polar": 4, "istft_frames": 4}),
@@ -2643,36 +2684,81 @@ def main() -> int:
     y = pv.time_stretch(x_long, 3.0, cfg)
     _check(len(y) == pv.stretch_output_length(len(x_long), cfg, 3.0) and bool(torch.isfinite(y).all()),
            "general-hop 3.0x output")
+    # The 3.0x route (integer k, Rs = 768 > N/2): one pvoc_fused launch a
+    # call, phasor_general_closed (analysis_real, phase_anchor, synth_real
+    # with the closed form in its load and the overlap-add at m = 2).
+    # Against the benchmark's float64 reference (pvbench/reference/pv64.py:
+    # its max_rel_err, the cell's limit 3e-3) and no further from it than
+    # the terms-plus-scan chain it replaced (pvoc_terms scanned, then
+    # phasor_synth_general) on the same input, whose prefix product drifts
+    # over the 224,997 frames (on an H100 4.9e-5 from the reference, the
+    # closed form 7.4e-6); against that chain where the window energy is
+    # >= 1e-2 at the port's waveform bar, 1e-4 (4.8e-5 measured); against
+    # its plain version at 2e-5, 2d's 1e-5 (k - 1).
+    from pvbench.reference import pv64
+
+    closed_main = {"frames": nf_long}
+    _check(_bits_equal(y, phasor_general_closed(x_long, N_FFT, HOP, 768)),
+           "time_stretch 3.0x differs from phasor_general_closed")
+    kt = stft_phasor_terms(x_long, N_FFT, HOP, 768)
+    chain = phasor_synth_general(*kt[:3], N_FFT, 768, kt[3])
+    held = ola_window_norm(hann_window(N_FFT, dev, torch.float64), nf_long, 768, eps=0.0, method="fold") >= 1e-2
+    closed_main["vs_chain_rel"] = float((y - chain)[held].abs().max() / chain[held].abs().max())
+    del held
+    ref = pv64.time_stretch(x_long, 3.0, N_FFT, HOP)
+    closed_main["vs_pv64_max_rel_err"] = pv64.max_rel_err(y, ref, N_FFT)
+    closed_main["chain_vs_pv64_max_rel_err"] = pv64.max_rel_err(chain, ref, N_FFT)
+    del ref, chain
+    b = phasor_general_closed_reference(x_long, N_FFT, HOP, 768)
+    closed_main.update(rel=_rel(y, b), max_abs=_max_abs(y, b))
+    del b
+    _check(closed_main["vs_chain_rel"] < 1e-4 and closed_main["vs_pv64_max_rel_err"] < 3e-3
+           and closed_main["vs_pv64_max_rel_err"] <= closed_main["chain_vs_pv64_max_rel_err"]
+           and closed_main["rel"] < 2e-5, f"phasor_general_closed at 3.0x / 3600 s: {closed_main}")
+    try:
+        closed_main["passes"] = _profiled(lambda: phasor_general_closed(x_long, N_FFT, HOP, 768), kernels=3)
+    except RuntimeError as e:
+        closed_main["passes"] = f"not measured: {e}"
+    closed_main.update(
+        ms=_time_ms(lambda: phasor_general_closed(x_long, N_FFT, HOP, 768), reps=5),
+        plain_ms=_time_ms(lambda: phasor_general_closed_reference(x_long, N_FFT, HOP, 768), reps=1),
+        **_bound(4 * (len(x_long) + len(y)), 2 * nf_long * _FFT_FLOP))
     y = pv.pitch_shift(x_pitch, 19.0, cfg)
     _check(bool(torch.isfinite(y).all()), "pitch +19 output")
     del y
-    # Their kernels against the plain versions at those shapes (these
-    # launches are not counted above).
-    kt = stft_phasor_terms(x_long, N_FFT, HOP, 768)
-    pt = stft_phasor_terms_reference(x_long, N_FFT, HOP, 768)
-    terms_main = _weighted_phasor_err(kt, pt)
-    # P is a product over all 224,997 frames: two f32 analyses' step terms
+    # The general route's kernels where a route runs them: the stretch
+    # step of pitch_shift +19 st on 300 s (Rs = 767, q = 256: the scan is
+    # the mathematics there), on the same input, against the plain
+    # versions (these launches are not counted above).
+    rs19 = cfg.synthesis_hop(2.0 ** (19.0 / 12.0))
+    _check(rs19 == 767, f"+19 st synthesis hop {rs19}")
+    nf19 = (len(x_pitch) - N_FFT) // HOP + 1
+    kp = stft_phasor_terms(x_pitch, N_FFT, HOP, rs19)
+    pt = stft_phasor_terms_reference(x_pitch, N_FFT, HOP, rs19)
+    terms_main = _weighted_phasor_err(kp, pt)
+    del pt
+    # P is a product over all 18,747 frames: two f32 analyses' step terms
     # differ by ~1e-7 rad and their difference walks like sqrt(frames)
-    # (7.9e-5 measured on an H100; 1.1e-5 to 1.6e-5 at 60 s), so 3e-4 here.
-    _check(terms_main["mag_rel"] < 1e-5 and terms_main["p_weighted"] < 3e-4,
-           f"pvoc_terms vs plain at 3.0x / 3600 s: {terms_main}")
+    # (1.7e-5 at Rs = 767 on 60 s on an H100), so 2d's 1e-4 here.
+    _check(terms_main["mag_rel"] < 1e-5 and terms_main["p_weighted"] < 1e-4,
+           f"pvoc_terms vs plain at +19 st / 300 s: {terms_main}")
     # Its passes from one torch.profiler trace: the analysis, the terms
     # with the in-chunk products, the carry scan and the apply pass.
-    split = _profile_call(lambda: stft_phasor_terms(x_long, N_FFT, HOP, 768))
-    passes = ("analysis_real<10>", "terms_chunks<true, 1>", "scan_carry_staged", "scan_apply_chunks<1>")
-    _check(sorted(split["by_kernel_ms"]) == sorted(passes) and split["kernels"] == len(passes),
-           f"pvoc_terms at 3.0x / 3600 s: passes {split}")
+    split = _profile_call(lambda: stft_phasor_terms(x_pitch, N_FFT, HOP, rs19))
+    passes = ("analysis_real", "scan_apply_chunks", "scan_carry_staged", "terms_chunks")
+    _check(sorted(k.split("<")[0] for k in split["by_kernel_ms"]) == list(passes)
+           and split["kernels"] == len(passes), f"pvoc_terms at +19 st / 300 s: passes {split}")
     terms_main["passes"] = split
-    terms_main.update(frames=nf_long,
-                      ms=_time_ms(lambda: stft_phasor_terms(x_long, N_FFT, HOP, 768), reps=5),
-                      plain_ms=_time_ms(lambda: stft_phasor_terms_reference(x_long, N_FFT, HOP, 768), reps=1),
-                      **_bound(4 * (len(x_long) + 3 * kt[0].numel()), nf_long * _FFT_FLOP))
+    terms_main.update(frames=nf19,
+                      ms=_time_ms(lambda: stft_phasor_terms(x_pitch, N_FFT, HOP, rs19), reps=10),
+                      plain_ms=_time_ms(lambda: stft_phasor_terms_reference(x_pitch, N_FFT, HOP, rs19), reps=1),
+                      **_bound(4 * (len(x_pitch) + 3 * kp[0].numel()), nf19 * _FFT_FLOP))
     # The route's synthesis at the same shape (pvoc_phasor_synth at Rs =
-    # 768, m = 2) against its plain version on the kernel's planes.
-    a = phasor_synth_general(*kt[:3], N_FFT, 768, nf_long)
-    b = phasor_synth_general_reference(*kt[:3], N_FFT, 768, nf_long)
-    synth_general_main = {"frames": nf_long, "rel": _rel(a, b), "max_abs": _max_abs(a, b)}
-    _check(synth_general_main["rel"] < 1e-5, f"phasor_synth_general vs plain at 3.0x / 3600 s: {synth_general_main}")
+    # 767, m = 2) against its plain version on the kernel's planes.
+    a = phasor_synth_general(*kp[:3], N_FFT, rs19, nf19)
+    b = phasor_synth_general_reference(*kp[:3], N_FFT, rs19, nf19)
+    synth_general_main = {"frames": nf19, "rel": _rel(a, b), "max_abs": _max_abs(a, b)}
+    _check(synth_general_main["rel"] < 1e-5, f"phasor_synth_general vs plain at +19 st / 300 s: {synth_general_main}")
     del a, b
     # One kernel (synth_real with the overlap-add): a dropped trace holds
     # none, so trace again. On an H100 its traces came back empty in two of
@@ -2680,17 +2766,19 @@ def main() -> int:
     # split is then not measured (its time is the events' ms below).
     try:
         synth_general_main["passes"] = _profiled(
-            lambda: phasor_synth_general(*kt[:3], N_FFT, 768, nf_long), kernels=1)
+            lambda: phasor_synth_general(*kp[:3], N_FFT, rs19, nf19), kernels=1)
     except RuntimeError as e:
         synth_general_main["passes"] = f"not measured: {e}"
 
     # Bound: the three planes read and the waveform written once.
     synth_general_main.update(
-        ms=_time_ms(lambda: phasor_synth_general(*kt[:3], N_FFT, 768, nf_long), reps=5),
-        plain_ms=_time_ms(lambda: phasor_synth_general_reference(*kt[:3], N_FFT, 768, nf_long), reps=1),
-        **_bound(4 * (3 * kt[0][:nf_long].numel() + (nf_long - 1) * 768 + N_FFT), nf_long * _FFT_FLOP))
+        ms=_time_ms(lambda: phasor_synth_general(*kp[:3], N_FFT, rs19, nf19), reps=10),
+        plain_ms=_time_ms(lambda: phasor_synth_general_reference(*kp[:3], N_FFT, rs19, nf19), reps=1),
+        **_bound(4 * (3 * kp[0][:nf19].numel() + (nf19 - 1) * rs19 + N_FFT), nf19 * _FFT_FLOP))
+    del kp
+    # istft_frames_cart on the 3.0x planes of the chain above.
     y_re, y_im = kt[0] * kt[1], kt[0] * kt[2]
-    del kt, pt
+    del kt
     a = istft_frames_cart(y_re, y_im, N_FFT)
     b = istft_frames_cart_reference(y_re, y_im, N_FFT)
     cart_main = {"frames": nf_long, "rel_to_max": float((a - b).abs().max() / b.abs().max()),
@@ -2744,7 +2832,8 @@ def main() -> int:
     _check(seg_main["stream_rel"] < 3e-5, f"fused stream vs plain stream at 3600 s: {seg_main}")
     del y_k, ka, pa, kt, pt, st10
     _emit("4d_general_hop_main_path", card=smi, launches=gen_launches, **gen,
-          pvoc_terms_3x_3600s=terms_main, phasor_synth_general_3x_3600s=synth_general_main,
+          phasor_general_closed_3x_3600s=closed_main,
+          pvoc_terms_19st_300s=terms_main, phasor_synth_general_19st_300s=synth_general_main,
           istft_frames_cart_3x_3600s=cart_main,
           istft_frames_rs171_300s=polar_main, pvoc_fused_segment_2x_3600s=seg_main)
 
@@ -3297,8 +3386,10 @@ def main() -> int:
              ff_launches["stretch_0.5x_660s"]["segment_phase"], sp_main, sp_main["max_abs"]),
         _row("pvoc_fused_segment", "pvoc_fused.cu", "ops/pallas/fused.py:1886",
              fs["launches"]["pvoc_fused_segment"], seg_main, seg_main["max_abs"]),
+        # The general route runs pvoc_terms and phasor_synth_general at
+        # q >= 2 (+19 st: Rs = 767); at 3.0x (integer k) phasor_general_closed.
         _row("pvoc_terms", "pvoc_fused.cu", "ops/pallas/fused.py:713",
-             gen_launches["stretch_3x_3600s"]["pvoc_terms"], terms_main, terms_main["y_max_abs"]),
+             gen_launches["pitch_19_300s"]["pvoc_terms"], terms_main, terms_main["y_max_abs"]),
         _row("istft_frames", "stft.cu", "ops/pallas/stft.py:264",
              gen_launches["polar_stages_rs171_300s"]["istft_frames"], polar_main, polar_main["max_abs"]),
         # No route runs it since phasor_synth_general took the general
@@ -3306,8 +3397,10 @@ def main() -> int:
         _row("istft_frames_cart", "stft.cu", "ops/pallas/stft.py:280",
              gen_launches["stretch_3x_3600s"]["istft_frames_cart"], cart_main, cart_main["max_abs"]),
         _row("phasor_synth_general", "pvoc_fused.cu", "ops/pallas/stft.py:280 and pipeline.py:84-90 (XLA)",
-             gen_launches["stretch_3x_3600s"]["phasor_synth_general"], synth_general_main,
+             gen_launches["pitch_19_300s"]["phasor_synth_general"], synth_general_main,
              synth_general_main["max_abs"]),
+        _row("phasor_general_closed", "pvoc_fused.cu", "ops/pallas/fused.py:713, stft.py:280 and pipeline.py:84-90 (XLA)",
+             gen_launches["stretch_3x_3600s"]["phasor_general_closed"], closed_main, closed_main["max_abs"]),
         _row("pvoc_fused_batch", "pvoc_fused.cu", "ops/pallas/fused.py:1610",
              b64["launches"]["pvoc_fused_batch"], fb_main, fb_main["max_abs"]),
         _row("pvoc_terms_batch", "pvoc_fused.cu", "ops/pallas/fused.py:733",

@@ -7,7 +7,11 @@
 //     _pvoc_tile, as wrapped by fused_time_stretch -> pvoc_fused below.
 //     Raw samples in, normalized stretched waveform of length
 //     (nf-1)*Rs + N out, for Ra | N and any 0 < Rs <= N/2; N even, up to
-//     4096;
+//     4096. The passes take any Rs > 0 (m = ceil(N/Rs) segments a frame
+//     in the overlap-add); at integer k with Rs > N/2, where the phase
+//     runs in synth_real's load (closed_in_synth), the same entry is the
+//     general-hop route's TSM (phasor_general_closed), whose prefix
+//     product of step terms is the closed form there;
 //   * _pvoc_kernel_z (fused_time_stretch(zrev=True)) -> pvoc_fused_zrev
 //     below: the same TSM with the analysis through the fold pass (a'),
 //     which uses the frame's real symmetry to halve the transform, where

@@ -10,7 +10,7 @@ is phasor algebra on the unit analysis phasors u_i = X_i/|X_i|:
                      h = e^{-i Ra w_b}, c = e^{+i Rs w_b}
   Y_i = |X_i| P_i; DC passes through, Nyquist times (-1)^(Rs i).
 
-Six wrappers of csrc/pvoc_fused.cu, each with its plain torch version
+Seven wrappers of csrc/pvoc_fused.cu, each with its plain torch version
 (`*_reference`) beside it; a CUDA tensor launches the kernel (counting one
 launch as launches.<wrapper> in utils/profiling's registry, through
 _build.launch) or raises, a CPU tensor runs the plain version:
@@ -25,17 +25,25 @@ _build.launch) or raises, a CPU tensor runs the plain version:
   fused_time_stretch_batch the same TSM over the rows of a (B, T) batch,
                            each row with its own frame count
                            (parallel/batch.py);
+  phasor_general_closed    the same TSM (the pvoc_fused entry) at integer
+                           k and Rs > N/2 where closed_in_synth: the
+                           general-hop route of pipeline.py there, whose
+                           prefix product is the closed form;
   fused_stream_segment     the same TSM on one F-frame segment, with the
                            cross-segment state in and out (streaming.py's
                            fused executor, parallel/chunked.py's
                            integer-k body);
   stft_phasor_terms(_batch) framing, windowed DFT, |X|, unit phasors and
                            the step terms of every bin, optionally scanned
-                           (the general-hop route of pipeline.py, the
-                           chunked bodies), of one recording or a batch;
+                           (the general-hop route of pipeline.py at q >= 2
+                           or an N outside real_body, the chunked
+                           bodies), of one recording or a batch;
   phasor_istft_ola(_batch) Y = mask |X| P from given phasors, inverse
                            DFT and overlap-add, normalized without a mask
-                           (the chunked bodies' synthesis).
+                           (the chunked bodies' synthesis);
+  phasor_synth_general     the same from given phasors at any Rs > 0,
+                           normalized (the general-hop route's synthesis
+                           where it runs stft_phasor_terms).
 
 Which kernel body does the transforms: for n_fft a power of two from 256
 to 4096 (real_body), every entry above runs its analysis and its
@@ -109,6 +117,8 @@ __all__ = [
     "phasor_istft_ola_batch_reference",
     "phasor_synth_general",
     "phasor_synth_general_reference",
+    "phasor_general_closed",
+    "phasor_general_closed_reference",
     "phasor_scan",
     "phasor_prefix_exclusive",
     "boundary_step_term",
@@ -478,15 +488,18 @@ def _step_terms(ure, uim, pre, pim, consts, rs: int, hop: int):
 # -------------------------------------------------------- the fused TSM
 
 
-def _check_args(x: torch.Tensor, n_fft: int, hop: int, rs: int) -> int:
+def _check_args(x: torch.Tensor, n_fft: int, hop: int, rs: int, supported: bool | None = None,
+                requires: str | None = None) -> int:
+    """The frame count of a 1-D float32 recording, or ValueError. The
+    geometry test is phasor_supported's unless `supported` (with the
+    `requires` of its message) is given."""
     if x.dtype != torch.float32 or x.dim() != 1:
         raise ValueError(f"expected a 1-D float32 tensor, got {x.dtype} {tuple(x.shape)}")
-    if not phasor_supported(n_fft, hop, rs):
-        raise ValueError(
-            f"fused path requires {_FFT_LIMIT}, "
-            f"hop | n_fft and 0 < rs <= n_fft/2 "
-            f"(got n_fft={n_fft}, hop={hop}, rs={rs})"
-        )
+    if supported is None:
+        supported = phasor_supported(n_fft, hop, rs)
+        requires = f"fused path requires {_FFT_LIMIT}, hop | n_fft and 0 < rs <= n_fft/2"
+    if not supported:
+        raise ValueError(f"{requires} (got n_fft={n_fft}, hop={hop}, rs={rs})")
     nf = num_frames(x.shape[-1], n_fft, hop)
     if nf <= 0:
         raise ValueError("input shorter than one frame")
@@ -634,7 +647,14 @@ def fused_time_stretch_reference(
     of the kernel's fold pass. Returns (nf-1)*rs + n_fft samples.
     """
     nf = _check_args(x, n_fft, hop, rs)
-    fold = zrev and fold_analysis_applies(n_fft, hop)
+    return _tsm_reference(x, nf, n_fft, hop, rs, zrev and fold_analysis_applies(n_fft, hop))
+
+
+def _tsm_reference(x: torch.Tensor, nf: int, n_fft: int, hop: int, rs: int,
+                   fold: bool = False) -> torch.Tensor:
+    """The plain TSM of a whole recording of nf frames at any Rs > 0 (m =
+    ceil(n_fft/rs) segments a frame): frames, fold overlap-add, the
+    normalization rows; (nf-1)*rs + n_fft samples."""
     frames, _ = _tsm_frames_reference(
         x, 0, nf, n_fft, hop, rs, init_carry(n_fft, x.device), False, fold=fold
     )
@@ -689,8 +709,10 @@ def fused_time_stretch_zrev(x: torch.Tensor, n_fft: int, hop: int, rs: int) -> t
 
 
 def _fused_launch(x: torch.Tensor, nf: int, n_fft: int, hop: int, rs: int, wrapper) -> torch.Tensor:
-    """The pvoc_fused kernel for `wrapper` (fused_time_stretch), or the
-    pvoc_fused_zrev kernel (fused_time_stretch_zrev), counting its launch."""
+    """The pvoc_fused kernel for `wrapper` (fused_time_stretch, or
+    phasor_general_closed at Rs > N/2), or the pvoc_fused_zrev kernel
+    (fused_time_stretch_zrev), counting its launch under the wrapper's
+    name."""
     fold = wrapper is fused_time_stretch_zrev
     with profiling.span("pv.prepare"):
         _check_cuda(x, wrapper.__name__)
@@ -1305,6 +1327,48 @@ def phasor_synth_general(
     _check_general(mag, pre, pim, n_fft, rs, nf)
     return _synth_launch(mag[None], pre[None], pim[None], n_fft, rs, nf, None,
                          "phasor_synth_general")[0]
+
+
+# -------------------------------------- the general route at integer k
+
+
+def _check_general_closed(x: torch.Tensor, n_fft: int, hop: int, rs: int) -> int:
+    return _check_args(
+        x, n_fft, hop, rs,
+        real_body(n_fft) and 0 < hop and n_fft % hop == 0 and rs % hop == 0 and 2 * rs > n_fft,
+        f"phasor_general_closed requires n_fft a power of two from 256 to {MAX_N_FFT}, "
+        "hop | n_fft, hop | rs and rs > n_fft/2")
+
+
+def phasor_general_closed_reference(
+    x: torch.Tensor, n_fft: int, hop: int, rs: int
+) -> torch.Tensor:
+    """Plain torch version of phasor_general_closed, on x's device: the
+    plain fused TSM (fused_time_stretch_reference's body), whose frames,
+    overlap-add and normalization rows take any m."""
+    nf = _check_general_closed(x, n_fft, hop, rs)
+    return _tsm_reference(x, nf, n_fft, hop, rs)
+
+
+def phasor_general_closed(x: torch.Tensor, n_fft: int, hop: int, rs: int) -> torch.Tensor:
+    """The general-hop route's TSM of a 1-D float32 tensor at integer
+    k = Rs/Ra with Rs > N/2, where closed_in_synth(n_fft, 1) holds (n_fft a
+    power of two from 256 to 4096, hop | n_fft). At integer k every step
+    term c (u_i conj u_{i-1} h)^k is (u_i conj u_{i-1})^k (c h^k = 1), so
+    the prefix product of stft_phasor_terms telescopes to the closed form
+    P_i = u_0 (u_i conj u_0)^k, and the fused TSM's passes serve Rs > N/2
+    as they stand: analysis_real, phase_anchor, then synth_real forming Y
+    in its load and summing m = ceil(N/Rs) segments a frame in its
+    epilogue. No terms, scan or planes. Returns (nf-1)*rs + n_fft samples.
+
+    A CUDA tensor launches the pvoc_fused kernel and counts one launch as
+    launches.phasor_general_closed; a CPU tensor runs
+    phasor_general_closed_reference.
+    """
+    nf = _check_general_closed(x, n_fft, hop, rs)
+    if x.device.type == "cpu":
+        return _tsm_reference(x, nf, n_fft, hop, rs)
+    return _fused_launch(x, nf, n_fft, hop, rs, phasor_general_closed)
 
 
 # ------------------------------------ phasor helpers of the chunked bodies

@@ -7,12 +7,17 @@ Routes of time_stretch, in the JAX package's order:
   2. the fused TSM kernel (ops/fused.py) where it covers the geometry
      (0 < Rs <= N/2);
   3. on the "fused" backend past that (Rs > N/2: stretch above 2, pitch
-     above +12 st), the general-hop phasor route phasor_general_stretch:
-     the stft_phasor_terms kernel, then the phasor_synth_general kernel
-     (Y = mag * P in its load, the windowed inverse DFT, the fold-order
-     overlap-add and the window-energy normalization); the streaming
-     executor past both max_monolithic_frames and
-     max_phasor_general_frames;
+     above +12 st), the general-hop phasor route phasor_general_stretch.
+     At integer k where closed_in_synth holds (q = 1, n_fft a power of
+     two from 256 to 4096), its prefix product is the closed form, and
+     the phasor_general_closed kernel runs the fused TSM's passes at
+     m = ceil(N/Rs) (the analysis, the anchor table, the synthesis with
+     the phase in its load and the overlap-add in its epilogue). At
+     q >= 2, or another n_fft, the stft_phasor_terms kernel, then the
+     phasor_synth_general kernel (Y = mag * P in its load, the windowed
+     inverse DFT, the fold-order overlap-add and the window-energy
+     normalization). The streaming executor past both
+     max_monolithic_frames and max_phasor_general_frames;
   4. on the "matmul"/"xla" backends, the monolithic polar path (analyze ->
      stretch_polar -> synthesize_polar) up to max_monolithic_frames, the
      streaming executor beyond.
@@ -42,8 +47,10 @@ from .ops import framing, phase
 from .ops.fused import (
     MAX_N_FFT,
     _rational_k,
+    closed_in_synth,
     fft_size_supported,
     fused_time_stretch,
+    phasor_general_closed,
     phasor_supported,
     phasor_synth_general,
     phasor_terms_supported,
@@ -110,9 +117,14 @@ def phasor_general_ok(cfg: PvocConfig, rs: int) -> bool:
 
 
 def phasor_general_stretch(x: torch.Tensor, cfg: PvocConfig, rs: int) -> torch.Tensor:
-    """TSM for general synthesis hops (see phasor_general_ok): phasor terms
-    with the prefix product, then Y = mag * P, windowed inverse-DFT frames,
-    fold overlap-add and window-energy normalization in one synthesis."""
+    """TSM for general synthesis hops (see phasor_general_ok). Where
+    closed_in_synth holds for the reduced q of Rs/Ra, the prefix product is
+    the integer-k closed form, which phasor_general_closed forms in its
+    synthesis; otherwise phasor terms with the prefix product, then Y =
+    mag * P, windowed inverse-DFT frames, fold overlap-add and
+    window-energy normalization in one synthesis."""
+    if closed_in_synth(cfg.n_fft, _reduced_q(cfg, rs)):
+        return phasor_general_closed(x, cfg.n_fft, cfg.hop, rs)
     mag, pre, pim, nf = stft_phasor_terms(x, cfg.n_fft, cfg.hop, rs, scan=True)
     return phasor_synth_general(mag, pre, pim, cfg.n_fft, rs, nf)
 

@@ -20,7 +20,9 @@ interior error), and silent where no frame reaches; the kernel's frames
 output row is one frame) against the plain windowed irfft at 1e-6 of
 their largest, and its overlap-add bit for bit against the plain fold and
 normalization of those frames, at those Rs and at Rs = 256 and 512, where
-m = N/Rs; and the 3.0x route's launches.
+m = N/Rs; the 2.5x route's launches (the terms, then this synthesis), and
+the 3.0x route's (one pvoc_fused launch, phasor_general_closed, against
+the chain of the two on the same input).
 No JAX here, so that the card tests run where JAX is absent:
 
     python -m pytest tests/test_torch_general_synth.py --noconftest -m card
@@ -139,16 +141,53 @@ def test_gather_is_the_plain_fold_of_its_frames_bit_for_bit(card, rs, nf):
     assert torch.equal(out.view(torch.int32), want.view(torch.int32))
 
 
-@pytest.mark.card
-def test_the_general_route_launches_two_entries(card):
-    t = torch.arange(4 * 16000, dtype=torch.float64, device=card) / 16000
-    x = (0.4 * torch.sin(2 * torch.pi * 440.0 * t)).to(torch.float32)
+def _route_launches(x: torch.Tensor, stretch: float) -> tuple[dict, torch.Tensor]:
+    """The launches.* counts of one time_stretch call, and its output."""
     torch.cuda.synchronize()
     before = profiling.counters()
-    y = tpv.time_stretch(x, 3.0)
+    y = tpv.time_stretch(x, stretch)
     torch.cuda.synchronize()
     after = profiling.counters()
     got = {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
-    assert got == {"launches.stft_phasor_terms": 1, "launches.phasor_synth_general": 1}
-    assert y.shape[0] == tpv.stretch_output_length(x.shape[0], tpv.PvocConfig(), 3.0)
+    assert y.shape[0] == tpv.stretch_output_length(x.shape[0], tpv.PvocConfig(), stretch)
     assert bool(torch.isfinite(y).all())
+    return got, y
+
+
+def _tone(card) -> torch.Tensor:
+    t = torch.arange(4 * 16000, dtype=torch.float64, device=card) / 16000
+    return (0.4 * torch.sin(2 * torch.pi * 440.0 * t)).to(torch.float32)
+
+
+@pytest.mark.card
+def test_the_general_route_launches_two_entries(card):
+    """At q >= 2 (2.5x, Rs = 640) the general route runs the terms, then
+    this synthesis."""
+    got, _ = _route_launches(_tone(card), 2.5)
+    assert got == {"launches.stft_phasor_terms": 1, "launches.phasor_synth_general": 1}
+
+
+@pytest.mark.card
+def test_the_integer_k_general_route_launches_one_entry(card):
+    """At 3.0x (Rs = 768, k = 3) the general route's prefix product is the
+    closed form: one pvoc_fused launch (phasor_general_closed). Where the
+    window energy is at least 1e-2, within 1e-5 of the float64 reference
+    (pvbench/reference/pv64.py; 2.8e-6 for the plain version) and within
+    the port's waveform bar, 1e-4, of the terms-plus-synthesis chain on the
+    same input, whose prefix product rounds at every frame (1.0e-5 apart
+    on an H100)."""
+    from pvbench.reference import pv64
+
+    x = _tone(card)
+    got, y = _route_launches(x, 3.0)
+    assert got == {"launches.phasor_general_closed": 1}
+    mag, pre, pim, nf = fused.stft_phasor_terms(x, N, 256, 768)
+    chain = fused.phasor_synth_general(mag, pre, pim, N, 768, nf)
+    ref = pv64.time_stretch(x, 3.0, N, 256)
+    held = _energy(nf, 768, card) >= 1e-2
+
+    def rel(a, b):
+        return float((a.double() - b.double())[held].abs().max() / b.double()[held].abs().max())
+
+    assert rel(y, ref) <= 1e-5
+    assert rel(y, chain) <= 1e-4

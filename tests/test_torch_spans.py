@@ -61,8 +61,8 @@ def test_a_time_stretch_records_its_entry_and_route_in_order_and_depth(registry)
 def test_the_general_route_records_its_stages(registry):
     with _cpu_profile():
         pv.time_stretch(_signal(), 3.0)
-    # The terms and the synthesis are one kernel entry each (a launch span
-    # on the card); their plain versions record none.
+    # At integer k the route is one kernel entry, phasor_general_closed (a
+    # launch span on the card); its plain version records none.
     assert _names(profiling.spans()) == ["pv.time_stretch", "pv.route"]
 
 
