@@ -9,9 +9,11 @@ command changes (a sha256 stamp beside it). A missing nvcc or a failed
 build raises with the compiler's output. Loading is the set-up span
 pv.setup.library, a compile pv.setup.nvcc inside it.
 
-Every call of a kernel entry goes through launch(), which times it as
-the span pv.launch:<wrapper>, raises on its return code and counts it as
-launches.<wrapper> (utils/profiling.py).
+Every call of a kernel entry goes through launch(), which makes the
+tensors' device current, passes that device's current stream, times the
+call as the span pv.launch:<wrapper>, raises on its return code and counts
+it as launches.<wrapper> (utils/profiling.py). check_cuda() is the one
+check of a kernel's tensor inputs.
 """
 
 from __future__ import annotations
@@ -203,17 +205,36 @@ def _launch_names(wrapper: str) -> tuple[str, str]:
     return "pv.launch:" + wrapper, "launches." + wrapper
 
 
-def launch(wrapper: str, entry, *args) -> None:
-    """entry(*args), a kernel entry of the library, as the span
-    pv.launch:<wrapper>: raise on its return code (check) and count one
-    launch as launches.<wrapper>, keyed by the launching wrapper's name."""
+def launch(wrapper: str, entry: str, device: int, *args) -> None:
+    """entry(*args, stream), the library's entry of that name, on device
+    `device` (the index of the tensors' card) and its current stream,
+    which every entry takes as its last argument. The C call alone is the
+    span pv.launch:<wrapper>; raise on its return code (check) and count
+    one launch as launches.<wrapper>, keyed by the launching wrapper's
+    name."""
+    fn = getattr(kernels(), entry)
     span, counter = _launch_names(wrapper)
-    with profiling.span(span):
-        check(entry(*args), entry.__name__)
+    with _device_guard(device):
+        stream = _current_stream(device)
+        with profiling.span(span):
+            check(fn(*args, stream), entry)
     profiling.count(counter)
 
 
-def current_stream(index: int) -> int:
+def check_cuda(what: str, *tensors: torch.Tensor, dtype: torch.dtype | None = None) -> None:
+    """Raise ValueError unless every tensor is a contiguous CUDA tensor (of
+    `dtype` when one is given): what a kernel entry reads through a bare
+    pointer. `what` names the wrapper in the message."""
+    for t in tensors:
+        if not t.is_cuda:  # builds no torch.device: ~0.5 us a call less than t.device.type
+            raise ValueError(f"{what}: unsupported device {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: needs a contiguous tensor")
+        if dtype is not None and t.dtype != dtype:
+            raise ValueError(f"{what}: needs {dtype} tensors, got {t.dtype}")
+
+
+def _current_stream(index: int) -> int:
     """The handle of device `index`'s current CUDA stream, as
     torch.cuda.current_stream(index).cuda_stream gives it, without building
     a Stream object (0.2 against 8 us of host time a call on the H100's
@@ -221,7 +242,7 @@ def current_stream(index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
-def device_guard(index: int):
+def _device_guard(index: int):
     """torch.cuda.device(index), or no guard when device `index` is already
     current (entering and leaving the guard costs ~4.5 us a call)."""
     if index == torch.cuda.current_device():

@@ -488,20 +488,39 @@ def _step_terms(ure, uim, pre, pim, consts, rs: int, hop: int):
 # -------------------------------------------------------- the fused TSM
 
 
-def _check_args(x: torch.Tensor, n_fft: int, hop: int, rs: int, supported: bool | None = None,
-                requires: str | None = None) -> int:
-    """The frame count of a 1-D float32 recording, or ValueError. The
-    geometry test is phasor_supported's unless `supported` (with the
-    `requires` of its message) is given."""
-    if x.dtype != torch.float32 or x.dim() != 1:
-        raise ValueError(f"expected a 1-D float32 tensor, got {x.dtype} {tuple(x.shape)}")
-    if supported is None:
-        supported = phasor_supported(n_fft, hop, rs)
-        requires = f"fused path requires {_FFT_LIMIT}, hop | n_fft and 0 < rs <= n_fft/2"
-    if not supported:
+def _general_closed_supported(n_fft: int, hop: int, rs: int) -> bool:
+    """The geometry of phasor_general_closed: closed_in_synth at integer k
+    (hop | rs) and Rs > N/2."""
+    return real_body(n_fft) and 0 < hop and n_fft % hop == 0 and rs % hop == 0 and 2 * rs > n_fft
+
+
+# The geometry that each signal entry takes, (predicate(n_fft, hop, rs),
+# what its error message says it requires), for _check_signal.
+_FUSED = (phasor_supported, f"fused path requires {_FFT_LIMIT}, hop | n_fft and 0 < rs <= n_fft/2")
+_TERMS = (phasor_terms_supported, f"stft_phasor_terms requires {_FFT_LIMIT}, hop | n_fft and rs > 0")
+_GENERAL_CLOSED = (
+    _general_closed_supported,
+    f"phasor_general_closed requires n_fft a power of two from 256 to {MAX_N_FFT}, "
+    "hop | n_fft, hop | rs and rs > n_fft/2",
+)
+_RANK_NAMES = {1: "1-D", 2: "(B, T)"}
+
+
+def _check_signal(x: torch.Tensor, n_fft: int, hop: int, rs: int, geometry: tuple,
+                  rank: int = 1, frames: bool = True) -> int:
+    """The frame count of a float32 signal of `rank` dimensions (1: a
+    recording, 2: a (B, T) batch of them), or ValueError: a wrong rank or
+    dtype, a geometry that `geometry` (_FUSED, _TERMS or _GENERAL_CLOSED)
+    does not take, or, with `frames`, a signal shorter than one frame (a
+    stream segment's x need hold only the frames it runs, which
+    fused_stream_segment checks)."""
+    if x.dtype != torch.float32 or x.dim() != rank:
+        raise ValueError(f"expected a {_RANK_NAMES[rank]} float32 tensor, got {x.dtype} {tuple(x.shape)}")
+    supported, requires = geometry
+    if not supported(n_fft, hop, rs):
         raise ValueError(f"{requires} (got n_fft={n_fft}, hop={hop}, rs={rs})")
     nf = num_frames(x.shape[-1], n_fft, hop)
-    if nf <= 0:
+    if frames and nf <= 0:
         raise ValueError("input shorter than one frame")
     return nf
 
@@ -646,7 +665,7 @@ def fused_time_stretch_reference(
     (where fold_analysis_applies) the analysis is _rfft_fold, the algebra
     of the kernel's fold pass. Returns (nf-1)*rs + n_fft samples.
     """
-    nf = _check_args(x, n_fft, hop, rs)
+    nf = _check_signal(x, n_fft, hop, rs, _FUSED)
     return _tsm_reference(x, nf, n_fft, hop, rs, zrev and fold_analysis_applies(n_fft, hop))
 
 
@@ -684,12 +703,12 @@ def fused_time_stretch(
     ~1e-5 interior relative of zrev=False (another rounding of the forward
     transform). Its reruns are bitwise equal.
     """
-    nf = _check_args(x, n_fft, hop, rs)
+    nf = _check_signal(x, n_fft, hop, rs, _FUSED)
     if zrev and fold_analysis_applies(n_fft, hop):
         return fused_time_stretch_zrev(x, n_fft, hop, rs)
     if x.device.type == "cpu":
         return fused_time_stretch_reference(x, n_fft, hop, rs)
-    return _fused_launch(x, nf, n_fft, hop, rs, fused_time_stretch)
+    return _fused_launch(x, nf, n_fft, hop, rs, "fused_time_stretch")
 
 
 def fused_time_stretch_zrev(x: torch.Tensor, n_fft: int, hop: int, rs: int) -> torch.Tensor:
@@ -697,7 +716,7 @@ def fused_time_stretch_zrev(x: torch.Tensor, n_fft: int, hop: int, rs: int) -> t
     ValueError elsewhere). A CUDA tensor launches the pvoc_fused_zrev kernel
     and counts one launch as launches.fused_time_stretch_zrev; a CPU
     tensor runs fused_time_stretch_reference(zrev=True)."""
-    nf = _check_args(x, n_fft, hop, rs)
+    nf = _check_signal(x, n_fft, hop, rs, _FUSED)
     if not fold_analysis_applies(n_fft, hop):
         raise ValueError(
             f"the fold analysis needs an even n_fft/hop and n_fft a multiple of 4 "
@@ -705,41 +724,32 @@ def fused_time_stretch_zrev(x: torch.Tensor, n_fft: int, hop: int, rs: int) -> t
         )
     if x.device.type == "cpu":
         return fused_time_stretch_reference(x, n_fft, hop, rs, zrev=True)
-    return _fused_launch(x, nf, n_fft, hop, rs, fused_time_stretch_zrev)
+    return _fused_launch(x, nf, n_fft, hop, rs, "fused_time_stretch_zrev", "pvoc_fused_zrev")
 
 
-def _fused_launch(x: torch.Tensor, nf: int, n_fft: int, hop: int, rs: int, wrapper) -> torch.Tensor:
-    """The pvoc_fused kernel for `wrapper` (fused_time_stretch, or
-    phasor_general_closed at Rs > N/2), or the pvoc_fused_zrev kernel
-    (fused_time_stretch_zrev), counting its launch under the wrapper's
-    name."""
-    fold = wrapper is fused_time_stretch_zrev
+def _fused_launch(x: torch.Tensor, nf: int, n_fft: int, hop: int, rs: int, what: str,
+                  entry: str = "pvoc_fused") -> torch.Tensor:
+    """The C entry `entry`: pvoc_fused (for fused_time_stretch, and for
+    phasor_general_closed at Rs > N/2) or pvoc_fused_zrev (for
+    fused_time_stretch_zrev, which also takes the half-length FFT table),
+    counting its launch under the wrapper's name `what`."""
     with profiling.span("pv.prepare"):
-        _check_cuda(x, wrapper.__name__)
+        _build.check_cuda(what, x)
         dev = str(x.device)
         tables = _device_tables(n_fft, hop, rs, dev)
         norm = _device_norm_rows(n_fft, rs, min(nf, -(-n_fft // rs) - 1), dev)
         p, q = _rational_k(rs, hop)
         out = torch.empty((nf - 1) * rs + n_fft, dtype=torch.float32, device=x.device)
         work = _workspace(nf, n_fft, q, x.device)
-        lib = _build.kernels()
-        half = [_device_fft_table(n_fft // 2, dev).data_ptr()] if fold else []
-    with torch.cuda.device(x.device):
-        _build.launch(
-            wrapper.__name__, lib.pvoc_fused_zrev if fold else lib.pvoc_fused,
-            x.data_ptr(), out.data_ptr(), *_ptrs(work),
-            tables["fft"].data_ptr(), *half, tables["consts"].data_ptr(),
-            norm.data_ptr(), nf, n_fft, hop, rs, p, q, int(_pow_alg(p, q)), SCAN_CHUNK,
-            float(np.float32(p / q)), torch.cuda.current_stream().cuda_stream,
-        )
+        half = [_device_fft_table(n_fft // 2, dev).data_ptr()] if entry == "pvoc_fused_zrev" else []
+    _build.launch(
+        what, entry, x.get_device(),
+        x.data_ptr(), out.data_ptr(), *_ptrs(work),
+        tables["fft"].data_ptr(), *half, tables["consts"].data_ptr(),
+        norm.data_ptr(), nf, n_fft, hop, rs, p, q, int(_pow_alg(p, q)), SCAN_CHUNK,
+        float(np.float32(p / q)),
+    )
     return out
-
-
-def _check_cuda(x: torch.Tensor, what: str) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {x.device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{what} needs a contiguous tensor")
 
 
 def closed_in_synth(n_fft: int, q: int) -> bool:
@@ -788,13 +798,9 @@ def _ptrs(work: dict) -> list:
 
 
 def _check_segment(x, carry, tail, frame_offset: int, n_fft: int, hop: int, rs: int, seg_frames: int):
-    if x.dtype != torch.float32 or x.dim() != 1:
-        raise ValueError(f"expected a 1-D float32 tensor, got {x.dtype} {tuple(x.shape)}")
-    if not phasor_supported(n_fft, hop, rs):
-        raise ValueError(
-            f"fused stream requires {_FFT_LIMIT}, hop | n_fft "
-            f"and 0 < rs <= n_fft/2 (got n_fft={n_fft}, hop={hop}, rs={rs})"
-        )
+    """_check_signal's head (x of any length), then the segment's own
+    conditions: its frame count and offset, the state's shapes."""
+    _check_signal(x, n_fft, hop, rs, _FUSED, frames=False)
     m = -(-n_fft // rs)
     if seg_frames <= 0 or seg_frames % SCAN_CHUNK or seg_frames < m - 1:
         raise ValueError(
@@ -864,8 +870,7 @@ def fused_stream_segment(
         )
     with profiling.span("pv.prepare"):
         _check_segment(x, carry, tail, frame_offset, n_fft, hop, rs, seg_frames)
-        for t, what in ((x, "x"), (carry, "carry"), (tail, "tail")):
-            _check_cuda(t, f"fused_stream_segment ({what})")
+        _build.check_cuda("fused_stream_segment", x, carry, tail)
         n_valid = min(max(nf - frame_offset, 0), seg_frames)
         if n_valid and not (
             x_frame0 <= frame_offset
@@ -888,17 +893,15 @@ def fused_stream_segment(
         tail_out = torch.empty_like(tail)
         carry_out = torch.empty_like(carry)
         x_seg = x.data_ptr() + ((frame_offset - x_frame0) * hop * 4 if n_valid else 0)
-        lib = _build.kernels()
-    with torch.cuda.device(x.device):
-        _build.launch(
-            "fused_stream_segment", lib.pvoc_fused_segment,
-            x_seg, out.data_ptr(), tail_out.data_ptr(), carry_out.data_ptr(),
-            *_ptrs(work), tables["fft"].data_ptr(), tables["consts"].data_ptr(),
-            norm.data_ptr(), carry.data_ptr(), tail.data_ptr(),
-            n_valid, seg_frames, frame_offset, nf, int(bool(started)),
-            n_fft, hop, rs, p, q, int(_pow_alg(p, q)), SCAN_CHUNK,
-            float(np.float32(p / q)), torch.cuda.current_stream().cuda_stream,
-        )
+    _build.launch(
+        "fused_stream_segment", "pvoc_fused_segment", x.get_device(),
+        x_seg, out.data_ptr(), tail_out.data_ptr(), carry_out.data_ptr(),
+        *_ptrs(work), tables["fft"].data_ptr(), tables["consts"].data_ptr(),
+        norm.data_ptr(), carry.data_ptr(), tail.data_ptr(),
+        n_valid, seg_frames, frame_offset, nf, int(bool(started)),
+        n_fft, hop, rs, p, q, int(_pow_alg(p, q)), SCAN_CHUNK,
+        float(np.float32(p / q)),
+    )
     return out, carry_out, tail_out
 
 
@@ -911,26 +914,12 @@ def segment_workspace(seg_frames: int, n_fft: int, hop: int, rs: int, device) ->
 # ------------------------------------------------------------ phasor terms
 
 
-def _check_terms(x: torch.Tensor, n_fft: int, hop: int, rs: int, dim: int = 1) -> int:
-    if x.dtype != torch.float32 or x.dim() != dim:
-        raise ValueError(f"expected a {dim}-D float32 tensor, got {x.dtype} {tuple(x.shape)}")
-    if not phasor_terms_supported(n_fft, hop, rs):
-        raise ValueError(
-            f"stft_phasor_terms requires {_FFT_LIMIT}, "
-            f"hop | n_fft and rs > 0 (got n_fft={n_fft}, hop={hop}, rs={rs})"
-        )
-    nf = num_frames(x.shape[-1], n_fft, hop)
-    if nf <= 0:
-        raise ValueError("input shorter than one frame")
-    return nf
-
-
 def stft_phasor_terms_reference(
     x: torch.Tensor, n_fft: int, hop: int, rs: int, scan: bool = True,
     return_u: bool = False,
 ) -> tuple:
     """Plain torch version of stft_phasor_terms, on x's device."""
-    nf = _check_terms(x, n_fft, hop, rs)
+    nf = _check_signal(x, n_fft, hop, rs, _TERMS)
     nh = n_fft // 2
     w = hann_window(n_fft, device=x.device)
     spec = torch.fft.rfft(frame_signal(x, n_fft, hop) * w, dim=-1)
@@ -959,7 +948,7 @@ def _terms_launch(xs: torch.Tensor, nf: int, n_fft: int, hop: int, rs: int, scan
     """The pvoc_terms kernel over the rows of xs (B, T): planes (B, nf, nb);
     `what` is the launching wrapper's name."""
     with profiling.span("pv.prepare"):
-        _check_cuda(xs, what)
+        _build.check_cuda(what, xs)
         B, nb = xs.shape[0], n_fft // 2 + 1
         f32 = dict(dtype=torch.float32, device=xs.device)
         spec = torch.empty((B * nf, 2 * nb), **f32)
@@ -972,19 +961,16 @@ def _terms_launch(xs: torch.Tensor, nf: int, n_fft: int, hop: int, rs: int, scan
             carry = torch.empty_like(tot)
         tables = _device_tables(n_fft, hop, rs, str(xs.device))
         p, q = _rational_k(rs, hop)
-        lib = _build.kernels()
-    with torch.cuda.device(xs.device):
-        _build.launch(
-            what, lib.pvoc_terms,
-            xs.data_ptr(), spec.data_ptr(), mag.data_ptr(), t.data_ptr(),
-            None if u is None else u.data_ptr(),
-            None if tot is None else tot.data_ptr(),
-            None if carry is None else carry.data_ptr(),
-            tables["fft"].data_ptr(), tables["consts"].data_ptr(),
-            nf, n_fft, hop, rs, p, q, int(_pow_alg(p, q)), SCAN_CHUNK,
-            float(np.float32(p / q)), int(scan), B, xs.shape[-1],
-            torch.cuda.current_stream().cuda_stream,
-        )
+    _build.launch(
+        what, "pvoc_terms", xs.get_device(),
+        xs.data_ptr(), spec.data_ptr(), mag.data_ptr(), t.data_ptr(),
+        None if u is None else u.data_ptr(),
+        None if tot is None else tot.data_ptr(),
+        None if carry is None else carry.data_ptr(),
+        tables["fft"].data_ptr(), tables["consts"].data_ptr(),
+        nf, n_fft, hop, rs, p, q, int(_pow_alg(p, q)), SCAN_CHUNK,
+        float(np.float32(p / q)), int(scan), B, xs.shape[-1],
+    )
     if return_u:
         return mag, t[0], t[1], u[0], u[1]
     return mag, t[0], t[1]
@@ -1008,7 +994,7 @@ def stft_phasor_terms(
     launches.stft_phasor_terms; a CPU tensor runs
     stft_phasor_terms_reference.
     """
-    nf = _check_terms(x, n_fft, hop, rs)
+    nf = _check_signal(x, n_fft, hop, rs, _TERMS)
     if x.device.type == "cpu":
         return stft_phasor_terms_reference(x, n_fft, hop, rs, scan, return_u)
     planes = _terms_launch(x[None], nf, n_fft, hop, rs, scan, return_u, "stft_phasor_terms")
@@ -1021,7 +1007,7 @@ def stft_phasor_terms_batch_reference(
 ) -> tuple:
     """Plain torch version of stft_phasor_terms_batch: the single-recording
     plain version row by row, stacked."""
-    nf = _check_terms(xs, n_fft, hop, rs, dim=2)
+    nf = _check_signal(xs, n_fft, hop, rs, _TERMS, rank=2)
     rows = [stft_phasor_terms_reference(x, n_fft, hop, rs, scan, return_u) for x in xs]
     return (*(torch.stack(planes) for planes in zip(*(r[:-1] for r in rows))), nf)
 
@@ -1039,7 +1025,7 @@ def stft_phasor_terms_batch(
     one launch as launches.stft_phasor_terms_batch; a CPU tensor runs
     stft_phasor_terms_batch_reference.
     """
-    nf = _check_terms(xs, n_fft, hop, rs, dim=2)
+    nf = _check_signal(xs, n_fft, hop, rs, _TERMS, rank=2)
     if xs.device.type == "cpu":
         return stft_phasor_terms_batch_reference(xs, n_fft, hop, rs, scan, return_u)
     planes = _terms_launch(xs, nf, n_fft, hop, rs, scan, return_u, "stft_phasor_terms_batch")
@@ -1050,18 +1036,9 @@ def stft_phasor_terms_batch(
 
 
 def _check_batch(xs: torch.Tensor, n_fft: int, hop: int, rs: int, n_valid_frames) -> tuple[int, list]:
-    """(frames of the padded rows, each row's own frame count)."""
-    if xs.dtype != torch.float32 or xs.dim() != 2:
-        raise ValueError(f"expected a (B, T) float32 tensor, got {xs.dtype} {tuple(xs.shape)}")
-    if not phasor_supported(n_fft, hop, rs):
-        raise ValueError(
-            f"fused path requires {_FFT_LIMIT}, "
-            f"hop | n_fft and 0 < rs <= n_fft/2 "
-            f"(got n_fft={n_fft}, hop={hop}, rs={rs})"
-        )
-    nf = num_frames(xs.shape[-1], n_fft, hop)
-    if nf <= 0:
-        raise ValueError("input shorter than one frame")
+    """(frames of the padded rows, each row's own frame count):
+    _check_signal's head, then the batch's own frame counts."""
+    nf = _check_signal(xs, n_fft, hop, rs, _FUSED, rank=2)
     if n_valid_frames is None:
         return nf, [nf] * xs.shape[0]
     if isinstance(n_valid_frames, torch.Tensor):
@@ -1108,7 +1085,7 @@ def fused_time_stretch_batch(
     if xs.device.type == "cpu":
         return fused_time_stretch_batch_reference(xs, n_fft, hop, rs, nfs)
     with profiling.span("pv.prepare"):
-        _check_cuda(xs, "fused_time_stretch_batch")
+        _build.check_cuda("fused_time_stretch_batch", xs)
         B, m = xs.shape[0], -(-n_fft // rs)
         dev = str(xs.device)
         tables = _device_tables(n_fft, hop, rs, dev)
@@ -1117,37 +1094,40 @@ def fused_time_stretch_batch(
         p, q = _rational_k(rs, hop)
         out = torch.empty((B, (nf + m - 1) * rs), dtype=torch.float32, device=xs.device)
         work = _workspace(nf, n_fft, q, xs.device, batch=B)
-        lib = _build.kernels()
-    with torch.cuda.device(xs.device):
-        _build.launch(
-            "fused_time_stretch_batch", lib.pvoc_fused_batch,
-            xs.data_ptr(), counts.data_ptr(), out.data_ptr(), *_ptrs(work),
-            tables["fft"].data_ptr(), tables["consts"].data_ptr(), norm.data_ptr(),
-            B, xs.shape[1], nf, n_fft, hop, rs, p, q, int(_pow_alg(p, q)), SCAN_CHUNK,
-            float(np.float32(p / q)), torch.cuda.current_stream().cuda_stream,
-        )
+    _build.launch(
+        "fused_time_stretch_batch", "pvoc_fused_batch", xs.get_device(),
+        xs.data_ptr(), counts.data_ptr(), out.data_ptr(), *_ptrs(work),
+        tables["fft"].data_ptr(), tables["consts"].data_ptr(), norm.data_ptr(),
+        B, xs.shape[1], nf, n_fft, hop, rs, p, q, int(_pow_alg(p, q)), SCAN_CHUNK,
+        float(np.float32(p / q)),
+    )
     return out
 
 
 # ------------------------------------------- synthesis from given phasors
 
 
-def _check_synth(mag, pre, pim, n_fft: int, rs: int, nf: int, dim: int) -> None:
-    if not synth_supported(n_fft, rs):
-        raise ValueError(
-            f"phasor_istft_ola requires {_FFT_LIMIT}, "
-            f"rs | n_fft and n_fft // rs >= 2 (got n_fft={n_fft}, rs={rs})"
-        )
-    _check_planes(mag, pre, pim, n_fft, nf, dim)
+# The geometry that each plane entry takes, (predicate(n_fft, rs), what
+# its error message says it requires), for _check_planes.
+_SYNTH = (synth_supported, f"phasor_istft_ola requires {_FFT_LIMIT}, rs | n_fft and n_fft // rs >= 2")
+_GENERAL = (lambda n_fft, rs: fft_size_supported(n_fft) and rs > 0,
+            f"phasor_synth_general requires {_FFT_LIMIT} and rs > 0")
 
 
-def _check_planes(mag, pre, pim, n_fft: int, nf: int, dim: int) -> None:
+def _check_planes(mag, pre, pim, n_fft: int, rs: int, nf: int, geometry: tuple, rank: int = 2) -> None:
+    """ValueError unless `geometry` (_SYNTH or _GENERAL) takes (n_fft, rs)
+    and mag, pre, pim are float32 planes of `rank` dimensions (2: one
+    recording, 3: a batch) with the n_fft//2+1 bins and at least nf
+    frames."""
+    supported, requires = geometry
+    if not supported(n_fft, rs):
+        raise ValueError(f"{requires} (got n_fft={n_fft}, rs={rs})")
     nb = n_fft // 2 + 1
     if any(t.dtype != torch.float32 for t in (mag, pre, pim)):
         raise ValueError("mag, pre, pim must be float32")
-    if mag.dim() != dim or mag.shape[-1] != nb or pre.shape != mag.shape or pim.shape != mag.shape:
+    if mag.dim() != rank or mag.shape[-1] != nb or pre.shape != mag.shape or pim.shape != mag.shape:
         raise ValueError(
-            f"mag, pre, pim must be {dim}-D with {nb} bins, got "
+            f"mag, pre, pim must be {rank}-D with {nb} bins, got "
             f"{tuple(mag.shape)} {tuple(pre.shape)} {tuple(pim.shape)}"
         )
     if not 0 < nf <= mag.shape[-2]:
@@ -1195,10 +1175,8 @@ def _synth_launch(mag, pre, pim, n_fft: int, rs: int, nf: int, mask, what: str):
     n_fft) frames the gather (ola_rows) sums, both allocated only then.
     `what` is the launching wrapper's name."""
     with profiling.span("pv.prepare"):
-        for t in (mag, pre, pim):
-            if t.device.type != "cuda":
-                raise ValueError(f"{what}: unsupported device {t.device}")
         mag, pre, pim = (t[:, :nf].contiguous() for t in (mag, pre, pim))
+        _build.check_cuda(what, mag, pre, pim)
         B, nb = mag.shape[0], n_fft // 2 + 1
         dev = str(mag.device)
         f32 = dict(dtype=torch.float32, device=mag.device)
@@ -1211,16 +1189,14 @@ def _synth_launch(mag, pre, pim, n_fft: int, rs: int, nf: int, mask, what: str):
             norm = _device_norm_rows(n_fft, rs, min(nf, -(-n_fft // rs) - 1), dev)
         else:
             norm = _device_unit_rows(n_fft, rs, dev)
-        lib = _build.kernels()
-    with torch.cuda.device(mag.device):
-        _build.launch(
-            what, lib.pvoc_phasor_synth,
-            mag.data_ptr(), pre.data_ptr(), pim.data_ptr(),
-            None if mask is None else mask.data_ptr(), None if y is None else y.data_ptr(),
-            None if frames is None else frames.data_ptr(),
-            out.data_ptr(), _device_fft_table(n_fft, dev).data_ptr(), norm.data_ptr(),
-            B, nf, n_fft, rs, torch.cuda.current_stream().cuda_stream,
-        )
+    _build.launch(
+        what, "pvoc_phasor_synth", mag.get_device(),
+        mag.data_ptr(), pre.data_ptr(), pim.data_ptr(),
+        None if mask is None else mask.data_ptr(), None if y is None else y.data_ptr(),
+        None if frames is None else frames.data_ptr(),
+        out.data_ptr(), _device_fft_table(n_fft, dev).data_ptr(), norm.data_ptr(),
+        B, nf, n_fft, rs,
+    )
     return out
 
 
@@ -1229,7 +1205,7 @@ def phasor_istft_ola_reference(
     nf: int, frame_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain torch version of phasor_istft_ola, on mag's device."""
-    _check_synth(mag, pre, pim, n_fft, rs, nf, 2)
+    _check_planes(mag, pre, pim, n_fft, rs, nf, _SYNTH)
     mask = None if frame_mask is None else _full_mask(frame_mask, (), nf, mag)
     return _synth_reference(mag, pre, pim, n_fft, rs, nf, mask)
 
@@ -1250,7 +1226,7 @@ def phasor_istft_ola(
     launch as launches.phasor_istft_ola; a CPU tensor runs
     phasor_istft_ola_reference.
     """
-    _check_synth(mag, pre, pim, n_fft, rs, nf, 2)
+    _check_planes(mag, pre, pim, n_fft, rs, nf, _SYNTH)
     if mag.device.type == "cpu":
         return phasor_istft_ola_reference(mag, pre, pim, n_fft, rs, nf, frame_mask)
     mask = None if frame_mask is None else _full_mask(frame_mask, (1,), nf, mag)
@@ -1264,7 +1240,7 @@ def phasor_istft_ola_batch_reference(
 ) -> torch.Tensor:
     """Plain torch version of phasor_istft_ola_batch: the single-recording
     plain version row by row."""
-    _check_synth(mag, pre, pim, n_fft, rs, nf, 3)
+    _check_planes(mag, pre, pim, n_fft, rs, nf, _SYNTH, rank=3)
     mask = None if frame_mask is None else _full_mask(frame_mask, (mag.shape[0],), nf, mag)
     return torch.stack([
         _synth_reference(mag[b], pre[b], pim[b], n_fft, rs, nf, None if mask is None else mask[b])
@@ -1284,26 +1260,18 @@ def phasor_istft_ola_batch(
     counts one launch as launches.phasor_istft_ola_batch; a CPU tensor
     runs phasor_istft_ola_batch_reference.
     """
-    _check_synth(mag, pre, pim, n_fft, rs, nf, 3)
+    _check_planes(mag, pre, pim, n_fft, rs, nf, _SYNTH, rank=3)
     if mag.device.type == "cpu":
         return phasor_istft_ola_batch_reference(mag, pre, pim, n_fft, rs, nf, frame_mask)
     mask = None if frame_mask is None else _full_mask(frame_mask, (mag.shape[0],), nf, mag)
     return _synth_launch(mag, pre, pim, n_fft, rs, nf, mask, "phasor_istft_ola_batch")
 
 
-def _check_general(mag, pre, pim, n_fft: int, rs: int, nf: int) -> None:
-    if not (fft_size_supported(n_fft) and rs > 0):
-        raise ValueError(
-            f"phasor_synth_general requires {_FFT_LIMIT} and rs > 0 (got n_fft={n_fft}, rs={rs})"
-        )
-    _check_planes(mag, pre, pim, n_fft, nf, 2)
-
-
 def phasor_synth_general_reference(
     mag: torch.Tensor, pre: torch.Tensor, pim: torch.Tensor, n_fft: int, rs: int, nf: int
 ) -> torch.Tensor:
     """Plain torch version of phasor_synth_general, on mag's device."""
-    _check_general(mag, pre, pim, n_fft, rs, nf)
+    _check_planes(mag, pre, pim, n_fft, rs, nf, _GENERAL)
     return _synth_reference(mag, pre, pim, n_fft, rs, nf, None)
 
 
@@ -1324,20 +1292,12 @@ def phasor_synth_general(
     """
     if mag.device.type == "cpu":
         return phasor_synth_general_reference(mag, pre, pim, n_fft, rs, nf)
-    _check_general(mag, pre, pim, n_fft, rs, nf)
+    _check_planes(mag, pre, pim, n_fft, rs, nf, _GENERAL)
     return _synth_launch(mag[None], pre[None], pim[None], n_fft, rs, nf, None,
                          "phasor_synth_general")[0]
 
 
 # -------------------------------------- the general route at integer k
-
-
-def _check_general_closed(x: torch.Tensor, n_fft: int, hop: int, rs: int) -> int:
-    return _check_args(
-        x, n_fft, hop, rs,
-        real_body(n_fft) and 0 < hop and n_fft % hop == 0 and rs % hop == 0 and 2 * rs > n_fft,
-        f"phasor_general_closed requires n_fft a power of two from 256 to {MAX_N_FFT}, "
-        "hop | n_fft, hop | rs and rs > n_fft/2")
 
 
 def phasor_general_closed_reference(
@@ -1346,7 +1306,7 @@ def phasor_general_closed_reference(
     """Plain torch version of phasor_general_closed, on x's device: the
     plain fused TSM (fused_time_stretch_reference's body), whose frames,
     overlap-add and normalization rows take any m."""
-    nf = _check_general_closed(x, n_fft, hop, rs)
+    nf = _check_signal(x, n_fft, hop, rs, _GENERAL_CLOSED)
     return _tsm_reference(x, nf, n_fft, hop, rs)
 
 
@@ -1365,10 +1325,10 @@ def phasor_general_closed(x: torch.Tensor, n_fft: int, hop: int, rs: int) -> tor
     launches.phasor_general_closed; a CPU tensor runs
     phasor_general_closed_reference.
     """
-    nf = _check_general_closed(x, n_fft, hop, rs)
+    nf = _check_signal(x, n_fft, hop, rs, _GENERAL_CLOSED)
     if x.device.type == "cpu":
         return _tsm_reference(x, nf, n_fft, hop, rs)
-    return _fused_launch(x, nf, n_fft, hop, rs, phasor_general_closed)
+    return _fused_launch(x, nf, n_fft, hop, rs, "phasor_general_closed")
 
 
 # ------------------------------------ phasor helpers of the chunked bodies

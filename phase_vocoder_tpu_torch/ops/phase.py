@@ -427,19 +427,16 @@ def segment_phase(
     launches.segment_phase; for a CPU tensor segment_phase_reference.
     A CUDA tensor launches the kernel for every F or raises. The wrapper
     is on the faithful route's per-segment path, so it spends little host
-    time: no Stream object (_build.current_stream), no device guard when
-    the device is current, one unbind for the carry's two words."""
+    time: one unbind for the carry's two words (_build.launch builds no
+    Stream object and adds no device guard when the device is current)."""
     if phi.dim() != 2 or phi.shape[0] == 0 or phi.shape[1] != n_fft // 2 + 1 or n_fft % 2:
         raise ValueError(f"segment_phase: phi must be (F >= 1, {n_fft // 2 + 1}), got {tuple(phi.shape)}")
     args = dict(ra=ra, rs=rs, n_fft=n_fft, frame_offset=frame_offset, n_valid=n_valid, started=started)
     if phi.device.type == "cpu":
         return segment_phase_reference(phi, phi_prev, carry_hi, carry_lo, phi0, **args)
-    from .stft import _check_cuda  # not at the top: ops/stft.py imports this module (via ops/fused.py)
-
     with profiling.span("pv.prepare"):
         F, nb = phi.shape
-        for t in (phi, phi_prev, carry_hi, carry_lo, phi0):
-            _check_cuda(t, "segment_phase")
+        _build.check_cuda("segment_phase", phi, phi_prev, carry_hi, carry_lo, phi0, dtype=torch.float32)
         for t in (phi_prev, carry_hi, carry_lo, phi0):
             if t.shape != (nb,):
                 raise ValueError(f"segment_phase: state vectors must be ({nb},), got {tuple(t.shape)}")
@@ -450,14 +447,12 @@ def segment_phase(
         totals = torch.empty((2, blocks, nb), dtype=torch.float32, device=phi.device) if blocks else None
         dev = phi.get_device()
         het_hi, het_lo = _het_split(ra, n_fft, nb, phi.device)
-        lib = _build.kernels()
-    with _build.device_guard(dev):
-        _build.launch(
-            "segment_phase", lib.segment_phase,
-            phi.data_ptr(), phi_prev.data_ptr(), carry_hi.data_ptr(), carry_lo.data_ptr(),
-            (phi0 if started else phi).data_ptr(), het_hi.data_ptr(), het_lo.data_ptr(),
-            psi.data_ptr(), carry.data_ptr(), totals.data_ptr() if blocks else None,
-            F, nb, n_fft, rs % n_fft, frame_offset, frame_offset % n_fft,
-            min(max(n_valid, 0), F), _segment_consts(ra, rs, n_fft), _build.current_stream(dev),
-        )
+    _build.launch(
+        "segment_phase", "segment_phase", dev,
+        phi.data_ptr(), phi_prev.data_ptr(), carry_hi.data_ptr(), carry_lo.data_ptr(),
+        (phi0 if started else phi).data_ptr(), het_hi.data_ptr(), het_lo.data_ptr(),
+        psi.data_ptr(), carry.data_ptr(), totals.data_ptr() if blocks else None,
+        F, nb, n_fft, rs % n_fft, frame_offset, frame_offset % n_fft,
+        min(max(n_valid, 0), F), _segment_consts(ra, rs, n_fft),
+    )
     return (psi, *carry.unbind(0))

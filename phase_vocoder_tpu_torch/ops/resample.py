@@ -67,13 +67,6 @@ def _check_args(x: torch.Tensor) -> None:
         raise ValueError(f"expected a 1-D float32 tensor, got {x.dtype} {tuple(x.shape)}")
 
 
-def _check_cuda(x: torch.Tensor, what: str) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {x.device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{what} needs a contiguous tensor")
-
-
 def _lerp_at(x: torch.Tensor, lo: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:
     """x[lo] (1 - frac) + x[min(lo + 1, n - 1)] frac for lo in [0, n-1]."""
     hi = torch.clamp(lo + 1, max=x.shape[-1] - 1)
@@ -134,17 +127,14 @@ def _resample_f64(x: torch.Tensor, factor: float, out_len: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return resample_linear_reference(x, factor, out_len)
     with profiling.span("pv.prepare"):
-        _check_cuda(x, "resample_linear")
+        _build.check_cuda("resample_linear", x)
         if not factor > 0:
             raise ValueError(f"factor must be positive, got {factor}")
         out = torch.empty(out_len, dtype=torch.float32, device=x.device)
-        lib = _build.kernels()
-    with torch.cuda.device(x.device):
-        _build.launch(
-            "resample_linear", lib.resample_lerp,
-            x.data_ptr(), out.data_ptr(), n, out_len, float(factor),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    _build.launch(
+        "resample_linear", "resample_lerp", x.get_device(),
+        x.data_ptr(), out.data_ptr(), n, out_len, float(factor),
+    )
     return out
 
 
@@ -226,17 +216,13 @@ def resample_blocked(
     if x.device.type == "cpu":
         return resample_blocked_reference(x, start_int, start_frac, jo_int, jo_frac, out_len)
     with profiling.span("pv.prepare"):
-        for t in (x, start_int, start_frac, jo_int, jo_frac):
-            _check_cuda(t, "resample_blocked")
+        _build.check_cuda("resample_blocked", x, start_int, start_frac, jo_int, jo_frac)
         out = torch.empty(out_len, dtype=torch.float32, device=x.device)
-        lib = _build.kernels()
-    with torch.cuda.device(x.device):
-        _build.launch(
-            "resample_blocked", lib.resample_blocked,
-            x.data_ptr(), start_int.data_ptr(), start_frac.data_ptr(),
-            jo_int.data_ptr(), jo_frac.data_ptr(), out.data_ptr(),
-            x.shape[-1], out_len, torch.cuda.current_stream().cuda_stream,
-        )
+    _build.launch(
+        "resample_blocked", "resample_blocked", x.get_device(),
+        x.data_ptr(), start_int.data_ptr(), start_frac.data_ptr(),
+        jo_int.data_ptr(), jo_frac.data_ptr(), out.data_ptr(), x.shape[-1], out_len,
+    )
     return out
 
 
@@ -293,19 +279,15 @@ def _select_launch(x, origin, k, fr, c: int, bases, what: str) -> torch.Tensor:
     """The select_lerp kernel; `what` is the launching wrapper's name."""
     with profiling.span("pv.prepare"):
         nb, B = _check_select(x, origin, k, fr, c, bases)
-        for t in (x, origin, k, fr) + (() if bases is None else (bases,)):
-            _check_cuda(t, what)
+        _build.check_cuda(what, x, origin, k, fr, *(() if bases is None else (bases,)))
         if B > _SEL_MAX_B:
             raise ValueError(f"{what}: the kernel takes rows of at most {_SEL_MAX_B} outputs, got {B}")
         out = torch.empty((nb, B), dtype=torch.float32, device=x.device)
-        lib = _build.kernels()
-    with torch.cuda.device(x.device):
-        _build.launch(
-            what, lib.select_lerp,
-            x.data_ptr(), origin.data_ptr(), None if bases is None else bases.data_ptr(),
-            k.data_ptr(), fr.data_ptr(), out.data_ptr(), x.shape[-1], nb, B, c,
-            torch.cuda.current_stream().cuda_stream,
-        )
+    _build.launch(
+        what, "select_lerp", x.get_device(),
+        x.data_ptr(), origin.data_ptr(), None if bases is None else bases.data_ptr(),
+        k.data_ptr(), fr.data_ptr(), out.data_ptr(), x.shape[-1], nb, B, c,
+    )
     return out
 
 

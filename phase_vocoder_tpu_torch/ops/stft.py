@@ -55,13 +55,6 @@ def istft_ola_supported(n_fft: int, rs: int) -> bool:
     return fft_size_supported(n_fft) and 0 < rs and n_fft % rs == 0 and n_fft // rs >= 2
 
 
-def _check_cuda(t: torch.Tensor, what: str) -> None:
-    if not t.is_cuda:  # builds no torch.device: ~0.5 us a call less on a wrapper's path
-        raise ValueError(f"{what}: unsupported device {t.device}")
-    if t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"{what}: needs contiguous float32 tensors, got {t.dtype}")
-
-
 # ---------------------------------------------------------------- analysis
 
 
@@ -104,17 +97,14 @@ def _analysis(x: torch.Tensor, n_fft: int, hop: int, wrapper):
         ref = stft_polar_reference if wrapper is stft_polar else stft_fused_reference
         return ref(x, n_fft, hop)
     with profiling.span("pv.prepare"):
-        _check_cuda(x, what)
+        _build.check_cuda(what, x, dtype=torch.float32)
         a = torch.empty((nf, nb), dtype=torch.float32, device=x.device)
         b = torch.empty_like(a)
         table = _device_fft_table(n_fft, str(x.device))
-        lib = _build.kernels()
-    with torch.cuda.device(x.device):
-        _build.launch(
-            what, getattr(lib, what),
-            x.data_ptr(), table.data_ptr(), a.data_ptr(), b.data_ptr(),
-            nf, n_fft, hop, torch.cuda.current_stream().cuda_stream,
-        )
+    _build.launch(
+        what, what, x.get_device(),
+        x.data_ptr(), table.data_ptr(), a.data_ptr(), b.data_ptr(), nf, n_fft, hop,
+    )
     return a, b
 
 
@@ -217,20 +207,16 @@ def istft_ola(
     if mag.device.type == "cpu":
         return istft_ola_reference(mag, psi, n_fft, rs, frame_mask)
     with profiling.span("pv.prepare"):
-        _check_cuda(mag, "istft_ola")
-        _check_cuda(psi, "istft_ola")
+        _build.check_cuda("istft_ola", mag, psi, dtype=torch.float32)
         mask = _mask(frame_mask, nf, mag)
         frames = torch.empty((nf, n_fft), dtype=torch.float32, device=mag.device)
         out = torch.empty((nf - 1) * rs + n_fft, dtype=torch.float32, device=mag.device)
         table = _device_fft_table(n_fft, str(mag.device))
-        lib = _build.kernels()
-    with torch.cuda.device(mag.device):
-        _build.launch(
-            "istft_ola", lib.istft_ola,
-            mag.data_ptr(), psi.data_ptr(), mask.data_ptr(), table.data_ptr(),
-            frames.data_ptr(), out.data_ptr(), nf, n_fft, rs,
-            torch.cuda.current_stream().cuda_stream,
-        )
+    _build.launch(
+        "istft_ola", "istft_ola", mag.get_device(),
+        mag.data_ptr(), psi.data_ptr(), mask.data_ptr(), table.data_ptr(),
+        frames.data_ptr(), out.data_ptr(), nf, n_fft, rs,
+    )
     return out
 
 
@@ -251,19 +237,15 @@ def _istft_frames(a, b, n_fft: int, frame_mask, wrapper) -> torch.Tensor:
         ref = istft_frames_reference if polar else istft_frames_cart_reference
         return ref(a, b, n_fft, frame_mask)
     with profiling.span("pv.prepare"):
-        _check_cuda(a, what)
-        _check_cuda(b, what)
+        _build.check_cuda(what, a, b, dtype=torch.float32)
         mask = _mask(frame_mask, nf, a)
         frames = torch.empty((nf, n_fft), dtype=torch.float32, device=a.device)
         table = _device_fft_table(n_fft, str(a.device))
-        lib = _build.kernels()
-    with torch.cuda.device(a.device):
-        _build.launch(
-            what, lib.istft_frames,
-            a.data_ptr(), b.data_ptr(), mask.data_ptr(), table.data_ptr(),
-            frames.data_ptr(), nf, n_fft, int(polar),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    _build.launch(
+        what, "istft_frames", a.get_device(),
+        a.data_ptr(), b.data_ptr(), mask.data_ptr(), table.data_ptr(),
+        frames.data_ptr(), nf, n_fft, int(polar),
+    )
     return frames
 
 

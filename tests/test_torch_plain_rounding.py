@@ -132,7 +132,7 @@ def test_single_route_at_half_is_a_fresh_processes(tmp_path):
     try:
         chunked.chunked_time_stretch(x4, 0.5, force=True, device="cpu")
         got = {}
-        for n in (threads, 3, 1):
+        for n in (os.cpu_count(), 3, 1):  # every core, 3 and 1, whatever this worker runs at
             torch.set_num_threads(n)
             got[n] = tpv.time_stretch(x4, 0.5, device="cpu").numpy()
     finally:
@@ -167,7 +167,7 @@ def test_angle_domain_at_half_is_a_fresh_process(tmp_path):
     fused.set_q_algebraic(False)
     try:
         got = {}
-        for n in (threads, 3, 1):
+        for n in (os.cpu_count(), 3, 1):  # every core, 3 and 1, whatever this worker runs at
             torch.set_num_threads(n)
             got[n] = tpv.time_stretch(x4, 0.5, device="cpu").numpy()
     finally:

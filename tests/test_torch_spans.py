@@ -7,6 +7,8 @@ entry."""
 from __future__ import annotations
 
 import collections
+import contextlib
+import ctypes
 import json
 
 import numpy as np
@@ -187,28 +189,72 @@ class _Lib:
         return b"an error"
 
 
-def test_launch_counts_by_wrapper_and_raises_on_a_failed_entry(registry, monkeypatch):
+@pytest.fixture
+def stub_card(monkeypatch):
+    """_build.launch on the CPU: the library is _Lib, the device guard
+    records the device it was given and the stream is a handle per device."""
+    guarded = []
+
+    def guard(index):
+        guarded.append(index)
+        return contextlib.nullcontext()
+
     monkeypatch.setattr(_build, "kernels", lambda: _Lib)
+    monkeypatch.setattr(_build, "_device_guard", guard)
+    monkeypatch.setattr(_build, "_current_stream", lambda index: 0x5000 + index)
+    return guarded
+
+
+def test_launch_counts_by_wrapper_and_raises_on_a_failed_entry(registry, monkeypatch, stub_card):
     calls = []
 
     def pvoc_stub(*args):
         calls.append(args)
         return 0
 
-    _build.launch("fused_time_stretch", pvoc_stub, 1, 2.0, None)
+    monkeypatch.setattr(_Lib, "pvoc_stub", pvoc_stub, raising=False)
+    _build.launch("fused_time_stretch", "pvoc_stub", 0, 1, 2.0, None)
     with _cpu_profile():
-        _build.launch("fused_time_stretch", pvoc_stub, 3)
-        _build.launch("istft_ola", pvoc_stub)
-    assert calls == [(1, 2.0, None), (3,), ()]
+        _build.launch("fused_time_stretch", "pvoc_stub", 0, 3)
+        _build.launch("istft_ola", "pvoc_stub", 0)
+    assert calls == [(1, 2.0, None, 0x5000), (3, 0x5000), (0x5000,)]
     assert profiling.counters() == {"launches.fused_time_stretch": 2, "launches.istft_ola": 1}
     assert _names(profiling.spans()) == ["pv.launch:fused_time_stretch", "pv.launch:istft_ola"]
 
-    def failing(*args):
-        return 700
-
+    monkeypatch.setattr(_Lib, "failing", lambda *args: 700, raising=False)
     with pytest.raises(RuntimeError, match=r"failing: CUDA error 700 \(an error\)"):
-        _build.launch("fused_time_stretch", failing)
+        _build.launch("fused_time_stretch", "failing", 0)
     assert profiling.counters()["launches.fused_time_stretch"] == 2
+
+
+def test_launch_passes_its_devices_stream_last_as_every_entry_takes_it(registry, monkeypatch,
+                                                                        stub_card):
+    """The entry runs under the guard of the device it is given and takes
+    that device's current stream as its last argument; every entry's C
+    prototype (_SIGNATURES) ends with the stream pointer."""
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(_Lib, "entry", entry, raising=False)
+    _build.launch("w", "entry", 1, 7, None)
+    _build.launch("w", "entry", 0)
+    assert stub_card == [1, 0]
+    assert calls == [(7, None, 0x5001), (0x5000,)]
+    assert _build._SIGNATURES and all(
+        argtypes[-1] is ctypes.c_void_p for argtypes in _build._SIGNATURES.values()
+    )
+
+
+def test_check_cuda_refuses_every_tensor_off_the_card():
+    """The wrappers' one input check tests the device first: a CPU or a
+    meta tensor never reaches an entry."""
+    with pytest.raises(ValueError, match="w: unsupported device cpu"):
+        _build.check_cuda("w", torch.zeros(8))
+    with pytest.raises(ValueError, match="w: unsupported device meta"):
+        _build.check_cuda("w", torch.zeros(8, device="meta"), torch.zeros(2), dtype=torch.float32)
 
 
 def test_the_import_span_is_recorded():
