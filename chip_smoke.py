@@ -2315,10 +2315,11 @@ def main() -> int:
             **_bound(4 * (len(x) + len(a)), 2 * nf_x * _FFT_FLOP),
         }
         del a, b
-    # Row 1's passes, from one profiled call: the analysis (analysis_real),
-    # the anchor table (phase_anchor), and the synthesis with the integer-k
-    # phase in its load and the overlap-add in its epilogue
-    # (synth_real<10, 2>: kClosed); no ola_rows.
+    # Row 1's passes, from one profiled call: the analysis of frame 0
+    # (analysis_real), the anchor table (phase_anchor), and the synthesis
+    # that analyses every frame from the signal, forms the integer-k phase
+    # and overlap-adds in its epilogue (synth_real<10, 2>: kSignal); no
+    # ola_rows.
     passes = ("analysis_real<10>", "phase_anchor", "synth_real<10, 2>")
     split = _profiled(lambda: fused_time_stretch(x_long, N_FFT, HOP, 512), kernels=len(passes))
     _check(sorted(split["by_kernel_ms"]) == sorted(passes) and split["kernels"] == len(passes),

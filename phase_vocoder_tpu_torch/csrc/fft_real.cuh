@@ -2,9 +2,11 @@
 // pvoc_fused.cu for a power-of-two N from 256 to 4096: a real N-point
 // frame through an M = N/2-point complex FFT, a fixed group of threads per
 // frame, several frames per block. Besides the transform it holds the
-// whole analysis (analysis_groups: framing, Hann window, real-input FFT,
-// split), which stft.cu's stft_real_kernel and pvoc_fused.cu's
-// analysis_real run with different output forms.
+// whole analysis: a frame's (analyse_frame: Hann window, real-input FFT,
+// split), which pvoc_fused.cu's synth_real runs on its own frames at
+// integer k, and a kernel's (analysis_groups: framing and the groups of
+// frames over the grid), which stft.cu's stft_real_kernel and
+// pvoc_fused.cu's analysis_real run with different output forms.
 //
 // The transform. A frame of T = M/16 threads; each thread holds 16
 // complex values in registers. The M-point FFT is a Stockham (autosort)
@@ -359,13 +361,93 @@ __device__ __forceinline__ void split_bin(float zr, float zi, float mr,
   ob = FORM == kPolar ? atan2f(im, re) : im;
 }
 
+// The forward transform of one frame: its samples xf[0 : N) times the
+// window (win2, read as float2), packed z[n] = g[2n] + i g[2n+1], through
+// the M-point FFT (the frame's buffer br/bi for the exchanges). Returns
+// with Z[t + T v] (v < 16) in vr/vi at index (v % (16/RL)) RL + v / (16/RL)
+// (the last stage's dest order, RL its radix); br/bi are free again after
+// the frame's next group_sync.
+template <class P>
+__device__ __forceinline__ void transform_frame(const float* xf, const float2* __restrict__ win2,
+                                                float* br, float* bi, const float* twr,
+                                                const float* twi, int t, int slot,
+                                                float (&vr)[kV], float (&vi)[kV]) {
+  constexpr int R0 = 1 << P::lr(0);
+#pragma unroll
+  for (int kk = 0; kk < kV / R0; ++kk) {
+#pragma unroll
+    for (int r = 0; r < R0; ++r) {
+      const int n = source<P, 0>(t, kk, r);
+      const float2 w = __ldg(win2 + n);
+      vr[kk * R0 + r] = xf[2 * n] * w.x;
+      vi[kk * R0 + r] = xf[2 * n + 1] * w.y;
+    }
+  }
+  fft<P, true>(vr, vi, br, bi, twr, twi, t, slot);
+}
+
+// The analysis of one frame: transform_frame, then the split. Thread t
+// emits bins k = t + T u (u < 8) and M - k (k = 0 gives bins 0 and M)
+// from the same two values Z[k], Z[M - k], which only it reads, then
+// thread 0 bin M/2 (its own mirror): emit(k, a, b) with (a, b) = (|X|,
+// arg X) in the polar form, (Re X, Im X) otherwise. So emit may write
+// bin k back into br/bi at pad(k). The frame's threads all run it (its
+// barriers are the frame's own); every caller runs these instructions, so
+// a frame's bins have the same bits whichever kernel analyses it.
+template <class P, int FORM, class Emit>
+__device__ __forceinline__ void analyse_frame(const float* xf, const float2* __restrict__ win2,
+                                              float* br, float* bi, const float* twr,
+                                              const float* twi, const float* __restrict__ twc,
+                                              const float* __restrict__ tws, int t, int slot,
+                                              Emit&& emit) {
+  constexpr int M = P::M, T = P::T;
+  constexpr int RL = 1 << P::lr(P::S - 1);
+  float vr[kV], vi[kV];
+  transform_frame<P>(xf, win2, br, bi, twr, twi, t, slot, vr, vi);
+  group_sync<T>(slot);
+#pragma unroll
+  for (int kk = 0; kk < kV / RL; ++kk) {
+#pragma unroll
+    for (int r = 0; r < RL; ++r) {
+      const int q = pad(dest<P, P::S - 1>(t, kk, r));
+      br[q] = vr[kk * RL + r];
+      bi[q] = vi[kk * RL + r];
+    }
+  }
+  group_sync<T>(slot);
+#pragma unroll
+  for (int u = 0; u < kV / 2; ++u) {
+    const int k = t + T * u;
+    const int m = k == 0 ? 0 : M - k;
+    const float zr = br[pad(k)], zi = bi[pad(k)];
+    const float yr = br[pad(m)], yi = bi[pad(m)];
+    float a0, b0, a1, b1;
+    split_bin<FORM>(zr, zi, yr, -yi, __ldg(twc + k), -__ldg(tws + k), a0, b0);
+    if (k == 0) {
+      split_bin<FORM>(zr, zi, zr, -zi, -1.f, 0.f, a1, b1);
+    } else {
+      split_bin<FORM>(yr, yi, zr, -zi, __ldg(twc + m), -__ldg(tws + m), a1, b1);
+    }
+    emit(k, a0, b0);
+    emit(k == 0 ? M : m, a1, b1);
+  }
+  if (t == 0) {
+    constexpr int k = M / 2;
+    float a0, b0;
+    split_bin<FORM>(br[pad(k)], bi[pad(k)], br[pad(k)], -bi[pad(k)], __ldg(twc + k),
+                    -__ldg(tws + k), a0, b0);
+    emit(k, a0, b0);
+  }
+}
+
 // The analysis of `batch` rows of x (x_stride samples apart), row b's
 // first nfs[b] frames (nfs null: nf each), frame i of row b at
 // x[b x_stride + i hop :][: N]: X = rfft(x[...] * w) into the frame's
 // output row b nf + i, in the form FORM (oa, ob: the two arrays of rows
 // of M + 1; kPacked: oa alone, rows of 2 (M + 1)). The post-twiddle is
 // W^k = twc[k] - i tws[k] (W^(N/2) = -1). The whole kernel body: groups
-// of F frames flattened over the grid; shared memory as analysis_smem.
+// of F frames flattened over the grid, each frame through analyse_frame;
+// shared memory as analysis_smem.
 template <class P, int FORM>
 __device__ __forceinline__ void analysis_groups(
     const float* __restrict__ x, long long x_stride, long long nf, int batch,
@@ -373,7 +455,6 @@ __device__ __forceinline__ void analysis_groups(
     const float* __restrict__ twc, const float* __restrict__ tws,
     float* __restrict__ oa, float* __restrict__ ob) {
   constexpr int M = P::M, T = P::T, F = P::F;
-  constexpr int R0 = 1 << P::lr(0), RL = 1 << P::lr(P::S - 1);
   constexpr bool kStaged = T < 32;
   constexpr int kRow = FORM == kPacked ? 2 * (M + 1) : M + 1;  // floats a row
   extern __shared__ __align__(16) float sm[];
@@ -428,75 +509,20 @@ __device__ __forceinline__ void analysis_groups(
     if (gn < groups) o_next = start_span(gn, spans + (cur ^ 1) * span_len);
     const float* xf = spans + cur * span_len + o + slot * hop;  // past fg: stale, not stored
     cur ^= 1;
-    float vr[kV], vi[kV];
-#pragma unroll
-    for (int kk = 0; kk < kV / R0; ++kk) {
-#pragma unroll
-      for (int r = 0; r < R0; ++r) {
-        const int n = source<P, 0>(t, kk, r);
-        const float2 w = __ldg(win2 + n);
-        vr[kk * R0 + r] = xf[2 * n] * w.x;
-        vi[kk * R0 + r] = xf[2 * n + 1] * w.y;
-      }
-    }
-    fft<P, true>(vr, vi, br, bi, twr, twi, t, slot);
-    group_sync<T>(slot);
-#pragma unroll
-    for (int kk = 0; kk < kV / RL; ++kk) {
-#pragma unroll
-      for (int r = 0; r < RL; ++r) {
-        const int q = pad(dest<P, P::S - 1>(t, kk, r));
-        br[q] = vr[kk * RL + r];
-        bi[q] = vi[kk * RL + r];
-      }
-    }
-    group_sync<T>(slot);
     const bool live = slot < fg;
     const long long row0 = (long long)b * nf + i0;  // the group's first output row
     float* arow = oa + (row0 + slot) * kRow;
     float* brow = FORM == kPacked ? arow + M + 1 : ob + (row0 + slot) * kRow;
-    // Bins k and M - k from the same two values Z[k], Z[M - k] (Z[M] =
-    // Z[0], so k = 0 gives bins 0 and M), which only this thread reads:
-    // k = t + T u covers 0 .. M/2 - 1, and M/2 is its own mirror.
-#pragma unroll
-    for (int u = 0; u < kV / 2; ++u) {
-      const int k = t + T * u;
-      const int m = k == 0 ? 0 : M - k;
-      const float zr = br[pad(k)], zi = bi[pad(k)];
-      const float yr = br[pad(m)], yi = bi[pad(m)];
-      float a0, b0, a1, b1;
-      split_bin<FORM>(zr, zi, yr, -yi, __ldg(twc + k), -__ldg(tws + k), a0, b0);
-      if (k == 0) {
-        split_bin<FORM>(zr, zi, zr, -zi, -1.f, 0.f, a1, b1);
-      } else {
-        split_bin<FORM>(yr, yi, zr, -zi, __ldg(twc + m), -__ldg(tws + m), a1, b1);
-      }
-      const int km = k == 0 ? M : m;
-      if constexpr (kStaged) {
-        br[pad(k)] = a0;
-        bi[pad(k)] = b0;
-        br[pad(km)] = a1;
-        bi[pad(km)] = b1;
-      } else if (live) {
-        arow[k] = a0;
-        brow[k] = b0;
-        arow[km] = a1;
-        brow[km] = b1;
-      }
-    }
-    if (t == 0) {
-      constexpr int k = M / 2;
-      float a0, b0;
-      split_bin<FORM>(br[pad(k)], bi[pad(k)], br[pad(k)], -bi[pad(k)], __ldg(twc + k),
-                -__ldg(tws + k), a0, b0);
-      if constexpr (kStaged) {
-        br[pad(k)] = a0;
-        bi[pad(k)] = b0;
-      } else if (live) {
-        arow[k] = a0;
-        brow[k] = b0;
-      }
-    }
+    analyse_frame<P, FORM>(xf, win2, br, bi, twr, twi, twc, tws, t, slot,
+                           [&](int k, float a, float c) {
+                             if constexpr (kStaged) {
+                               br[pad(k)] = a;
+                               bi[pad(k)] = c;
+                             } else if (live) {
+                               arow[k] = a;
+                               brow[k] = c;
+                             }
+                           });
     if constexpr (kStaged) {
       __syncthreads();
       float* ga = oa + row0 * kRow;

@@ -43,11 +43,12 @@
 // time in DFT matrix products on the MXU; here each frame's DFT is an FFT
 // in FP32 (~2.5-5 N log2 N FLOP per transform, about a hundredth of a
 // matrix DFT), so the passes are bound by the spectra (nf x (N+2) floats,
-// written once and read once at integer k where fft_real.cuh serves N,
-// and a packed Y besides elsewhere) that go through device memory between
-// launches, and, where fft_real.cuh does not serve N, the windowed frames
-// (nf x N floats) besides; at integer k the synthesis pass also does the
-// closed form's square roots and divisions.
+// and a packed Y besides) that go through device memory between launches,
+// and, where fft_real.cuh does not serve N, the windowed frames (nf x N
+// floats) besides. At integer k where fft_real.cuh serves N none of them
+// does: one pass reads the signal and writes the output, and also does
+// both transforms of every frame and the closed form's square roots and
+// divisions.
 // FP32 FMA, no tensor cores: the forward transform feeds the unit phasors,
 // and every operand split with a ~2^-17 floor failed the 1e-4 golden gate
 // on the TPU; the FFT also sums with less rounding error than a direct
@@ -71,6 +72,10 @@
 //       element offset), and the groups of every batch row are flattened
 //       over a resident grid; bins 0..N/2 go to the packed spectrum row,
 //       through one block-wide sweep of the group's rows below N = 1024.
+//       At integer k the same per-frame transform and split
+//       (transform_frame, split_bin) run inside synth_real instead (b, c),
+//       and analysis_real over frame 0 of each batch row alone, for the
+//       anchor.
 //       Every other N (128, and every N that is not a power of two) keeps
 //       one block a frame (fft_analysis: the frame loaded at its FFT
 //       slots, the complex N-point FFT of fft_common.cuh, radix 2 or mixed
@@ -90,11 +95,13 @@
 //   (b) phase: elementwise per (frame, bin). Integer k = Rs/Ra uses the
 //       closed form P_i = u_0 (u_i conj u_0)^k, which needs only frame 0.
 //       Where fft_real.cuh serves N this is no pass of its own: a small
-//       pass (phase_anchor) makes each batch row's anchor table u_0 (a
-//       stream segment has it in its carry already), and synth_real forms
-//       Y = |X| P from the packed spectrum and that table as it loads each
-//       bin, so the spectra are read once and no packed Y goes through
-//       device memory. Every other N keeps the elementwise phase_closed.
+//       pass (phase_anchor) makes each batch row's anchor table u_0 from
+//       its frame 0 (a stream segment has it in its carry already), and
+//       synth_real analyses each frame from the signal and forms
+//       Y = |X| P from that X and the table (in registers where a frame's
+//       threads fit in a warp, else in the frame's shared buffer), so
+//       neither the spectra nor a packed Y goes through device memory.
+//       Every other N keeps the elementwise phase_closed.
 //       q >= 2 builds the step terms, then a three-pass chunked prefix
 //       product (in-chunk products -> serial scan of chunk carries per
 //       bin -> apply and renormalize), with no atomics. pvoc_terms runs
@@ -115,10 +122,12 @@
 //       at N = 1024), 8192/N frames a 256-thread block, stage twiddles in
 //       shared memory, each block of a resident grid on a contiguous run
 //       of frame groups of one batch row. synth_real reads Y from the
-//       packed rows of the q >= 2 phase passes, forms it at integer k from
-//       the spectrum and the anchor table (b), or, in pvoc_phasor_synth,
-//       forms it from the magnitude and phasor planes as it loads them, so
-//       that in those two no packed copy of Y goes through device memory.
+//       packed rows of the q >= 2 phase passes; at integer k it forms Y
+//       from the anchor table (b) and the X it makes itself from a span of
+//       the signal, read one group ahead, with (a)'s per-frame transform
+//       and split; in pvoc_phasor_synth it forms Y from the magnitude
+//       and phasor planes as it loads them. In those two no packed copy of
+//       Y, and at integer k no spectrum, goes through device memory.
 //       Its frames stay in shared memory for (d). Every other N takes
 //       fft_synthesis: one block a frame, a complex N-point FFT in shared
 //       memory (fft_common.cuh: radix 2 at N = 128, mixed radix for N not
@@ -509,9 +518,9 @@ fft_synthesis(const float* __restrict__ y, const float* __restrict__ win,
 // phase passes leave in y (kRows); Y = (|X| P_re) mask + i (|X| P_im) mask
 // formed from the (B, nf, nb) planes mag, pre, pim and the optional
 // (B, nf) mask, in phasor_y's order (kPlanes); or, at integer k, the
-// closed form of phase_closed formed from the packed spectrum rows X in y
-// and the anchor table u0 (kClosed).
-enum SynthSource { kRows, kPlanes, kClosed };
+// closed form of phase_closed formed from the anchor table u0 and the
+// spectrum X that synth_real makes itself from the signal x (kSignal).
+enum SynthSource { kRows, kPlanes, kSignal };
 
 // W consecutive floats: a float4 (16-byte aligned) or one float, read
 // through the read-only path (device memory only) or written.
@@ -698,17 +707,128 @@ __device__ __forceinline__ void ola_epilogue(const float* fbuf, int FB, int F, i
   }
 }
 
+// synth_real's merge: the inverse transform's input Z'[n] = (Y[n] +
+// conj Y[M-n]) + i W^-n (Y[n] - conj Y[M-n]) from Y[n] = (yr, yi), Y[M-n]
+// = (mr, mi) and W^-n = c + i s.
+__device__ __forceinline__ void merge_bin(float yr, float yi, float mr, float mi, float c, float s,
+                                          float& zr, float& zi) {
+  const float cr = mr, ci = -mi;  // conj Y[M-n]
+  const float sr = yr + cr, si = yi + ci;
+  const float dr = yr - cr, di = yi - ci;
+  zr = sr - (c * di + s * dr);
+  zi = si + (c * dr - s * di);
+}
+
+// synth_real<kSignal>'s frame where its threads are one warp or a part of
+// one (T <= 32, N <= 1024), in registers: from the forward transform's
+// Z[t + T v] in vr/vi (transform_frame's order) to the inverse transform's
+// input Z'[t + T v] in vr/vi (stage 0's order). The split, Y and the merge
+// each pair bin k with bin M - k; for k = t + T u (u < 8), M - k = T (15 -
+// u) + (T - t) is value 15 - u of the frame's lane (T - t) mod T (for t = 0
+// its own value 16 - u, and Z[M] = Z[0]), so round u takes Z[M - k] from
+// that lane and hands it Z'[M - k], a shuffle of each part each way. Thread
+// 0 also makes bin M/2, its own mirror (v = 8). The arithmetic is
+// analyse_frame's split (split_bin), the closed form (closed_bin with the
+// row's anchor a_row; DC passed through, Nyquist times nyq) and the merge
+// (merge_bin), value for value, so the frame has the bits that the same
+// steps through the frame's buffer give; a dead frame (live false) keeps
+// X for Y. Each thread's 32 values never leave its registers: no shared
+// memory and no barrier between the two transforms.
+template <class P>
+__device__ __forceinline__ void closed_frame(float (&vr)[real_fft::kV], float (&vi)[real_fft::kV],
+                                             int t, const float* __restrict__ a_row,
+                                             const float* __restrict__ twc,
+                                             const float* __restrict__ tws, float nyq, bool live,
+                                             const Geo& g) {
+  using real_fft::kV;
+  constexpr int M = P::M, T = P::T;
+  static_assert(T <= 32, "a frame in one warp");
+  constexpr int RL = 1 << P::lr(P::S - 1), R0 = 1 << P::lr(0);
+  constexpr int DL = kV / RL, D0 = kV / R0;
+  const int partner = (T - t) & (T - 1);
+  float zr[kV], zi[kV];  // Z[t + T v], then Z'[t + T v]
+#pragma unroll
+  for (int v = 0; v < kV; ++v) {
+    zr[v] = vr[(v % DL) * RL + v / DL];
+    zi[v] = vi[(v % DL) * RL + v / DL];
+  }
+  // Y of general bin k from X = (xr, xi).
+  auto closed = [&](int k, float xr, float xi, float& yr, float& yi) {
+    if (live) {
+      closed_bin(xr, xi, __ldg(a_row + k - 1), __ldg(a_row + M - 2 + k), g, yr, yi);
+    } else {
+      yr = xr;
+      yi = xi;
+    }
+  };
+#pragma unroll
+  for (int u = 0; u < kV / 2; ++u) {
+    const int k = t + T * u, m = M - k;  // t = 0, u = 0: bins 0 and M
+    const float pr = __shfl_sync(0xffffffffu, zr[kV - 1 - u], partner, T);
+    const float pi = __shfl_sync(0xffffffffu, zi[kV - 1 - u], partner, T);
+    const float mr = t == 0 ? zr[(kV - u) % kV] : pr;  // Z[M - k]
+    const float mi = t == 0 ? zi[(kV - u) % kV] : pi;
+    float xr0, xi0, xr1, xi1, yr0, yi0, yr1, yi1, or1 = 0.f, oi1 = 0.f;
+    real_fft::split_bin<real_fft::kPacked>(zr[u], zi[u], mr, -mi, __ldg(twc + k), -__ldg(tws + k),
+                                           xr0, xi0);
+    if (k == 0) {
+      real_fft::split_bin<real_fft::kPacked>(zr[u], zi[u], zr[u], -zi[u], -1.f, 0.f, xr1, xi1);
+      yr0 = xr0;  // DC passes through
+      yi0 = 0.f;
+      yr1 = xr1 * nyq;  // Nyquist times (-1)^(Rs (goff + i))
+      yi1 = 0.f;
+    } else {
+      real_fft::split_bin<real_fft::kPacked>(mr, mi, zr[u], -zi[u], __ldg(twc + m), -__ldg(tws + m),
+                                             xr1, xi1);
+      closed(k, xr0, xi0, yr0, yi0);
+      closed(m, xr1, xi1, yr1, yi1);
+      merge_bin(yr1, yi1, yr0, yi0, __ldg(twc + m), __ldg(tws + m), or1, oi1);
+    }
+    merge_bin(yr0, yi0, yr1, yi1, __ldg(twc + k), __ldg(tws + k), zr[u], zi[u]);
+    const float qr = __shfl_sync(0xffffffffu, or1, partner, T);
+    const float qi = __shfl_sync(0xffffffffu, oi1, partner, T);
+    if (t != 0) {
+      zr[kV - 1 - u] = qr;
+      zi[kV - 1 - u] = qi;
+    } else if (u > 0) {
+      zr[kV - u] = or1;
+      zi[kV - u] = oi1;
+    }
+  }
+  if (t == 0) {  // bin M/2
+    constexpr int k = M / 2;
+    float xr, xi, yr, yi;
+    real_fft::split_bin<real_fft::kPacked>(zr[kV / 2], zi[kV / 2], zr[kV / 2], -zi[kV / 2],
+                                           __ldg(twc + k), -__ldg(tws + k), xr, xi);
+    closed(k, xr, xi, yr, yi);
+    merge_bin(yr, yi, yr, yi, __ldg(twc + k), __ldg(tws + k), zr[kV / 2], zi[kV / 2]);
+  }
+#pragma unroll
+  for (int v = 0; v < kV; ++v) {
+    vr[(v % D0) * R0 + v / D0] = zr[v];
+    vi[(v % D0) * R0 + v / D0] = zi[v];
+  }
+}
+
 // (c) and (d) on fft_real.cuh's body, N = 2^LOG2N from 256 to 4096: each
 // frame w * irfft(Y_i) with the imaginary parts of DC and Nyquist
 // dropped, through the merge Z[k] = (Y[k] + conj Y[M-k]) + i W^-k (Y[k] -
 // conj Y[M-k]), W^-k = twc[k] + i tws[k], the inverse M-point FFT z and
 // samples 2n, 2n+1 = (Re z[n], Im z[n]) / N * w; then the overlap-add of
 // the frames into the normalized output rows of o. Y comes from SRC
-// (SynthSource). With kPlanes and kClosed it is formed as the bins are
-// loaded, so that no packed copy of Y goes through device memory; kClosed
-// runs phase_closed's arithmetic (closed_bin, DC passed through, Nyquist
-// times (-1)^(Rs (goff + i))) on each bin as it arrives, so its Y is
-// phase_closed's bit for bit.
+// (SynthSource). With kPlanes and kSignal it is formed in the kernel, so
+// that no packed copy of Y goes through device memory. kSignal analyses
+// the frame itself (a): the group's span of x, read as analysis_real reads
+// it, goes through fft_real.cuh's transform_frame, the split (split_bin),
+// phase_closed's arithmetic (closed_bin with the row's anchor, DC passed
+// through, Nyquist times (-1)^(Rs (goff + i))) and the merge (merge_bin).
+// Where a frame's threads are one warp or part of one (T <= 32, N <= 1024)
+// that middle runs in registers, with warp shuffles between the two lanes
+// that hold bins k and M - k (closed_frame); at N = 2048 and 4096 the
+// packed X goes through the frame's buffer as analysis_real's staged rows
+// do (analyse_frame), Y in its place. Either way its X is analysis_real's
+// bit for bit, its Y phase_closed's, and no spectrum goes through device
+// memory.
 //
 // A group is F consecutive frames of one batch row (ola_groups a row);
 // each block takes a contiguous share of the rows' groups, cut into runs
@@ -728,30 +848,41 @@ __device__ __forceinline__ void ola_epilogue(const float* fbuf, int FB, int F, i
 // atomics. A group with no live frame is not transformed; in a group that
 // has one, a dead frame (past the row's frames, or before a run's m-1)
 // runs the transform with its group where the group's barriers are a
-// warp's (T < 32) and else skips it, and is never added.
+// warp's (T < 32) and else skips it, and is never added. With kSignal the
+// block copies the span of the next group with a live frame (its frames
+// from the group's first to its last live one, as analysis_real's spans
+// end at a row's last frame) into the other span buffer with asynchronous
+// copies while it works on this one, so x is read once a group.
 // Shared memory: stage twiddles (2 M), F frame buffers (2 FS each, the
-// transform's, then the windowed frame), two carry buffers ((m-1) Rs each).
+// transform's, then the windowed frame), with kSignal two spans
+// (span_floats each), and two carry buffers ((m-1) Rs each).
 // Registers: fft_real.cuh's cap of 64 (kMinBlocks blocks an SM), but at
 // N = 2048 three blocks an SM (80 registers): under the cap of 64 this
 // kernel spilled 44-68 bytes there (nvcc -Xptxas -v) and ran slower on an
-// H100. kClosed at N = 4096 also takes three (80 registers): under 64 it
-// spilled 44 bytes. kPlanes takes three at every N: under 64, with the
-// overlap-add's state, it spilled 8-24 bytes and its 3.0x / 3600 s call
-// took 0.925 ms against 0.885 at three blocks an SM, on an H100. The
-// indices of groups and frames are 32-bit, so that the overlap-add's
+// H100. kPlanes takes three at every N: under 64, with the overlap-add's
+// state, it spilled 8-24 bytes and its 3.0x / 3600 s call took 0.925 ms
+// against 0.885 at three blocks an SM, on an H100. kSignal takes the
+// blocks its shared memory holds at hop N/4 and Rs N/2 (synth_smem): 4 at
+// N = 256 (54 KB a block: 64 registers, 24 bytes spilled), 3 at 512 and
+// 1024 (57, 65 KB: 80 registers, 36 bytes spilled at 512, none at 1024),
+// 2 at 2048 and 4096 (79, 107 KB: 113 and 119 registers, none spilled);
+// nvcc -Xptxas -v; a 32-byte stack frame at every N, as the closed-form
+// load from spectra had. At N = 1024, on the buffer path before the
+// register path, one span buffer (54 KB, 4 blocks an SM under 64
+// registers, 68 bytes spilled) read 4.5% faster to 3.7% slower than two at
+// 3 in three builds on an H100, and two blocks an SM (128 registers) 8%
+// slower; the register path was not timed with one.
+// The indices of groups and frames are 32-bit, so that the overlap-add's
 // state live across the transform stays small; still, kRows at N = 1024
-// and 2048 (q >= 2) and kClosed at N = 4096 spill 28-44 bytes. The rows
-// go in float4 pieces where ola_vec allows. kClosed loads the frame's
-// X first (32 values a thread, as kRows), then each bin's anchor from L1
-// as it forms that bin's Y: in four rounds of four bins, loads first in
-// each, its pass ran slower on an H100.
+// and 2048 (q >= 2) spills 28-44 bytes. The rows go in float4 pieces where
+// ola_vec allows.
 template <int LOG2N, int SRC>
 __global__ void __launch_bounds__(real_fft::kThreads,
-                                  LOG2N == 11 || SRC == kPlanes || (LOG2N == 12 && SRC == kClosed)
-                                      ? 3
-                                      : real_fft::kMinBlocks)
-synth_real(const float* __restrict__ y, const float* __restrict__ u0,
-           const float* __restrict__ mag,
+                                  SRC == kSignal ? (LOG2N == 8 ? 4 : LOG2N <= 10 ? 3 : 2)
+                                  : LOG2N == 11 || SRC == kPlanes ? 3
+                                                                  : real_fft::kMinBlocks)
+synth_real(const float* __restrict__ y, const float* __restrict__ x,
+           const float* __restrict__ u0, const float* __restrict__ mag,
            const float* __restrict__ pre, const float* __restrict__ pim,
            const float* __restrict__ mask, const float* __restrict__ win,
            const float* __restrict__ twc, const float* __restrict__ tws,
@@ -770,6 +901,10 @@ synth_real(const float* __restrict__ y, const float* __restrict__ u0,
   float* bi = br + P::FS;
   const int rs = g.rs, m = (N + rs - 1) / rs;
   const int cw = (m - 1) * rs;  // floats of the carried partial rows
+  // kSignal's two span buffers (16-byte aligned: F FB and span_len are
+  // multiples of 4), then the two carry buffers.
+  const int span_len = SRC == kSignal ? real_fft::span_floats<P>(g.ra) : 0;
+  float* spans = fbuf + F * FB;
   real_fft::build_twiddles<P>(twr, twi, twc, tws);
   const float2* win2 = reinterpret_cast<const float2*>(win);
   const float scale = 1.f / N;
@@ -780,6 +915,37 @@ synth_real(const float* __restrict__ y, const float* __restrict__ u0,
   const int total = per_row * g.batch;
   const int first = (int)((int64_t)total * blockIdx.x / gridDim.x);
   const int last = (int)((int64_t)total * (blockIdx.x + 1) / gridDim.x);
+  // kSignal: the first group from group j of batch row b on, in this
+  // block's order (its run of row b from the group j; then each later
+  // row's run from its group 0), that has a live frame: its row b, its
+  // group j and its live frames' end n_hi. False when none is left. The
+  // same for every thread of the block.
+  auto seek = [&](int& b, int& j, int& n_hi) -> bool {
+    for (; b * per_row < last; ++b, j = 0) {
+      const int j0 = first - b * per_row > 0 ? first - b * per_row : 0;
+      const int j1 = last - b * per_row < per_row ? last - b * per_row : per_row;
+      const int hb = j0 * F - (m - 1) > 0 ? j0 * F - (m - 1) : 0;
+      const int n_row = (int)row_frames(g, b);
+      if (j < hb / F) j = hb / F;
+      if (j < j1 && j * F < n_row && hb < n_row) {
+        n_hi = n_row - j * F < F ? n_row - j * F : F;
+        return true;
+      }
+    }
+    return false;
+  };
+  // kSignal: starts the copy of the span of group j of row b (live frames
+  // up to n_hi) into sp; returns its offset (load_span).
+  auto start_span = [&](int b, int j, int n_hi, float* sp) {
+    return real_fft::load_span(sp, x + b * g.x_stride + (int64_t)j * F * g.ra,
+                               (n_hi - 1) * g.ra + N);
+  };
+  // kSignal: the next live group (row sb, group sj, sn live frames) and
+  // its span's offset and buffer.
+  int sb = first / per_row, sj = 0, sn = 0, s_off = 0, s_cur = 0;
+  if constexpr (SRC == kSignal) {
+    if (seek(sb, sj, sn)) s_off = start_span(sb, sj, sn, spans);
+  }
   for (int run = first; run < last;) {
     const int bat = run / per_row;
     const int j0 = run - bat * per_row;  // the run's groups j0 .. j1-1
@@ -787,7 +953,7 @@ synth_real(const float* __restrict__ y, const float* __restrict__ u0,
     run = bat * per_row + j1;
     const int n_row = (int)row_frames(g, bat);
     const int hb = j0 * F - (m - 1) > 0 ? j0 * F - (m - 1) : 0;  // its first frame
-    float* cur = fbuf + F * FB;  // partial sums of rows j F .. j F + m - 2
+    float* cur = spans + 2 * span_len;  // partial sums of rows j F .. j F + m - 2
     float* nxt = cur + cw;
     __syncthreads();  // the last run's reads of the carry done
     for (int c = threadIdx.x; c < cw; c += real_fft::kThreads) {
@@ -802,97 +968,113 @@ synth_real(const float* __restrict__ y, const float* __restrict__ u0,
       const int k_hi = hi > k_lo ? hi : k_lo;
       const bool live = slot >= k_lo && slot < k_hi;
       const int64_t fr = bat * g.nf + i0 + slot;  // the frame's row in the buffers
-      __syncthreads();  // the last group's reads of the frame buffers done
+      // kSignal: this group's span is in (it is the one seek found last).
+      const float* xf = nullptr;
+      if constexpr (SRC == kSignal) {
+        if (k_lo < k_hi) real_fft::async_wait_all();
+      }
+      __syncthreads();  // the last group's reads of the frame buffers and spans done
+      if constexpr (SRC == kSignal) {
+        if (k_lo < k_hi) {
+          xf = spans + s_cur * span_len + s_off + slot * g.ra;  // past k_hi: stale
+          ++sj;
+          if (seek(sb, sj, sn)) s_off = start_span(sb, sj, sn, spans + (s_cur ^ 1) * span_len);
+          s_cur ^= 1;
+        }
+      }
       if (k_lo < k_hi && (live || T < 32)) {
         const int i = i0 + slot;
-        if (live) {
-          // All of a round's loads first, so that they are in flight
-          // together; bin k = t + T u, u < 16, then bin M (thread 0).
-          if constexpr (SRC == kPlanes) {
-            float ra[kV], rb[kV];
-            const float mk = mask != nullptr ? __ldg(mask + fr) : 1.f;
-            const float* m_row = mag + fr * (M + 1);
-            const float* re_row = pre + fr * (M + 1);
-            const float* im_row = pim + fr * (M + 1);
-#pragma unroll
-            for (int u = 0; u < kV; ++u) {
-              ra[u] = __ldg(m_row + t + T * u);
-              rb[u] = __ldg(re_row + t + T * u);
-            }
-#pragma unroll
-            for (int u = 0; u < kV; ++u) br[pad(t + T * u)] = (ra[u] * rb[u]) * mk;
-#pragma unroll
-            for (int u = 0; u < kV; ++u) rb[u] = __ldg(im_row + t + T * u);
-#pragma unroll
-            for (int u = 0; u < kV; ++u) {
-              const int k = t + T * u;
-              bi[pad(k)] = k == 0 ? 0.f : (ra[u] * rb[u]) * mk;
-            }
-            if (t == 0) br[pad(M)] = (__ldg(m_row + M) * __ldg(re_row + M)) * mk;
-          } else if constexpr (SRC == kClosed) {
-            // X of bins k (all loads first, as kRows), then each bin's anchor
-            // (bins 1..M-1 of the frame's batch row, u0 + bat 2 (M-1): [re |
-            // im]; the same table for every frame of the row, so it stays in
-            // L1) and its Y.
-            const float* row = y + fr * 2 * (M + 1);
-            const float* a_row = u0 + (int64_t)bat * 2 * (M - 1);
-            float ra[kV], rb[kV];
-#pragma unroll
-            for (int u = 0; u < kV; ++u) {
-              ra[u] = __ldg(row + t + T * u);
-              rb[u] = __ldg(row + M + 1 + t + T * u);
-            }
-#pragma unroll
-            for (int u = 0; u < kV; ++u) {
-              const int k = t + T * u;
-              const int a = k > 0 ? k - 1 : 0;  // bin 0 takes no anchor
-              const float ar = __ldg(a_row + a), ai = __ldg(a_row + M - 1 + a);
-              if (k == 0) {  // DC passes through
-                br[pad(0)] = ra[u];
-                bi[pad(0)] = 0.f;
-              } else {
+        // kSignal: the row's anchor table (bins 1..M-1, u0 + bat 2 (M-1):
+        // [re | im]; the same for every frame of the row, so it stays in
+        // L1) and the Nyquist bin's sign (-1)^(Rs (goff + i)).
+        const float* a_row = u0 + (int64_t)bat * 2 * (M - 1);
+        const float nyq = (g.rs & 1) && ((g.goff + i) & 1) ? -1.f : 1.f;
+        float vr[kV], vi[kV];
+        if constexpr (SRC == kSignal && T <= 32) {
+          real_fft::transform_frame<P>(xf, win2, br, bi, twr, twi, t, slot, vr, vi);
+          closed_frame<P>(vr, vi, t, a_row, twc, tws, nyq, live, g);
+        } else {
+          if constexpr (SRC == kSignal) {
+            // X through the frame's buffer: the bins each thread emitted,
+            // X -> Y in place (k = t + T u, u < 8, and its mirror, M for
+            // k = 0; then M/2, thread 0).
+            real_fft::analyse_frame<P, real_fft::kPacked>(
+                xf, win2, br, bi, twr, twi, twc, tws, t, slot, [&](int k, float a, float c) {
+                  br[pad(k)] = a;
+                  bi[pad(k)] = c;
+                });
+            if (live) {
+              auto closed = [&](int k) {
                 float yr, yi;
-                closed_bin(ra[u], rb[u], ar, ai, g, yr, yi);
+                closed_bin(br[pad(k)], bi[pad(k)], __ldg(a_row + k - 1), __ldg(a_row + M - 2 + k),
+                           g, yr, yi);
                 br[pad(k)] = yr;
                 bi[pad(k)] = yi;
+              };
+#pragma unroll
+              for (int u = 0; u < kV / 2; ++u) {
+                const int k = t + T * u;
+                if (k == 0) {  // DC passes through, Nyquist times nyq
+                  bi[pad(0)] = 0.f;
+                  br[pad(M)] = br[pad(M)] * nyq;
+                } else {
+                  closed(k);
+                  closed(M - k);
+                }
               }
+              if (t == 0) closed(M / 2);
             }
-            if (t == 0) {  // Nyquist times (-1)^(Rs (goff + i))
-              const float sign = ((g.rs & 1) && ((g.goff + i) & 1)) ? -1.f : 1.f;
-              br[pad(M)] = __ldg(row + M) * sign;
-            }
-          } else {
-            const float* row = y + fr * 2 * (M + 1);
-            float ra[kV], rb[kV];
+          } else if (live) {
+            // All of a round's loads first, so that they are in flight
+            // together; bin k = t + T u, u < 16, then bin M (thread 0).
+            if constexpr (SRC == kPlanes) {
+              float ra[kV], rb[kV];
+              const float mk = mask != nullptr ? __ldg(mask + fr) : 1.f;
+              const float* m_row = mag + fr * (M + 1);
+              const float* re_row = pre + fr * (M + 1);
+              const float* im_row = pim + fr * (M + 1);
 #pragma unroll
-            for (int u = 0; u < kV; ++u) {
-              ra[u] = __ldg(row + t + T * u);
-              rb[u] = __ldg(row + M + 1 + t + T * u);
-            }
+              for (int u = 0; u < kV; ++u) {
+                ra[u] = __ldg(m_row + t + T * u);
+                rb[u] = __ldg(re_row + t + T * u);
+              }
 #pragma unroll
-            for (int u = 0; u < kV; ++u) {
-              const int k = t + T * u;
-              br[pad(k)] = ra[u];
-              bi[pad(k)] = k == 0 ? 0.f : rb[u];
+              for (int u = 0; u < kV; ++u) br[pad(t + T * u)] = (ra[u] * rb[u]) * mk;
+#pragma unroll
+              for (int u = 0; u < kV; ++u) rb[u] = __ldg(im_row + t + T * u);
+#pragma unroll
+              for (int u = 0; u < kV; ++u) {
+                const int k = t + T * u;
+                bi[pad(k)] = k == 0 ? 0.f : (ra[u] * rb[u]) * mk;
+              }
+              if (t == 0) br[pad(M)] = (__ldg(m_row + M) * __ldg(re_row + M)) * mk;
+            } else {
+              const float* row = y + fr * 2 * (M + 1);
+              float ra[kV], rb[kV];
+#pragma unroll
+              for (int u = 0; u < kV; ++u) {
+                ra[u] = __ldg(row + t + T * u);
+                rb[u] = __ldg(row + M + 1 + t + T * u);
+              }
+#pragma unroll
+              for (int u = 0; u < kV; ++u) {
+                const int k = t + T * u;
+                br[pad(k)] = ra[u];
+                bi[pad(k)] = k == 0 ? 0.f : rb[u];
+              }
+              if (t == 0) br[pad(M)] = __ldg(row + M);
             }
-            if (t == 0) br[pad(M)] = __ldg(row + M);
           }
-          if (t == 0) bi[pad(M)] = 0.f;
-        }
-        real_fft::group_sync<T>(slot);
-        float vr[kV], vi[kV];
+          if (live && t == 0) bi[pad(M)] = 0.f;
+          real_fft::group_sync<T>(slot);
 #pragma unroll
-        for (int kk = 0; kk < kV / R0; ++kk) {
+          for (int kk = 0; kk < kV / R0; ++kk) {
 #pragma unroll
-          for (int r = 0; r < R0; ++r) {
-            const int n = real_fft::source<P, 0>(t, kk, r);
-            const float yr = br[pad(n)], yi = bi[pad(n)];
-            const float cr = br[pad(M - n)], ci = -bi[pad(M - n)];  // conj Y[M-n]
-            const float sr = yr + cr, si = yi + ci;
-            const float dr = yr - cr, di = yi - ci;
-            const float c = __ldg(twc + n), s = __ldg(tws + n);
-            vr[kk * R0 + r] = sr - (c * di + s * dr);
-            vi[kk * R0 + r] = si + (c * dr - s * di);
+            for (int r = 0; r < R0; ++r) {
+              const int n = real_fft::source<P, 0>(t, kk, r);
+              merge_bin(br[pad(n)], bi[pad(n)], br[pad(M - n)], bi[pad(M - n)], __ldg(twc + n),
+                        __ldg(tws + n), vr[kk * R0 + r], vi[kk * R0 + r]);
+            }
           }
         }
         real_fft::fft<P, false>(vr, vi, br, bi, twr, twi, t, slot);
@@ -1028,9 +1210,9 @@ __global__ void phase_closed(const float* __restrict__ spec,
 
 // The anchor table of the closed-form load (integer k): row b of anchor,
 // (batch, 2, ng) = [re | im], is u_0 of batch row b, the unit phasor of its
-// frame 0 until the recording has started, then rows 0-1 of carry_in.
-// A stream segment reads carry_phasor's output instead, which holds the
-// same anchor.
+// frame 0 (spec's row b: run_tsm analyses frame 0 of each row alone) until
+// the recording has started, then rows 0-1 of carry_in. A stream segment
+// reads carry_phasor's output instead, which holds the same anchor.
 __global__ void phase_anchor(const float* __restrict__ spec,
                              const float* __restrict__ carry_in,
                              float* __restrict__ anchor, Geo g) {
@@ -1043,7 +1225,7 @@ __global__ void phase_anchor(const float* __restrict__ spec,
     ur = carry_in[k];
     ui = carry_in[ng + k];
   } else {
-    const int64_t row = (int64_t)bat * g.nf * 2 * g.nb;
+    const int64_t row = (int64_t)bat * 2 * g.nb;
     unit_phasor_rn(spec[row + k + 1], spec[row + g.nb + k + 1], m, ur, ui);
   }
   float* out = anchor + (int64_t)bat * 2 * ng;
@@ -1656,10 +1838,11 @@ cudaError_t launch_analysis(const float* x, const float* fft,
   return cudaGetLastError();
 }
 
-// synth_real's inputs: y and u0 (kRows: y; kClosed: y the spectrum rows,
-// u0 the anchor table), or the planes mag, pre, pim and mask (kPlanes).
+// synth_real's inputs: y (kRows), the signal x and the anchor table u0
+// (kSignal), or the planes mag, pre, pim and mask (kPlanes).
 struct SynthIn {
   const float* y;
+  const float* x;
   const float* u0;
   const float* mag;
   const float* pre;
@@ -1667,12 +1850,21 @@ struct SynthIn {
   const float* mask;
 };
 
+// synth_real's shared memory, in bytes: stage twiddles, F frame buffers,
+// kSignal's two spans of x at hop ra, two carries of (m-1) rs floats.
+template <class P, int SRC>
+size_t synth_smem(int ra, int rs) {
+  const int m = (P::N + rs - 1) / rs;
+  const size_t spans = SRC == kSignal ? 2 * (size_t)real_fft::span_floats<P>(ra) : 0;
+  return sizeof(float) * (2 * P::M + P::F * 2 * P::FS + spans + 2 * (size_t)(m - 1) * rs);
+}
+
 template <int LOG2N, int SRC>
 cudaError_t launch_synth_real(const SynthIn& in, const float* fft, const OlaOut& o,
                               const Geo& g, cudaStream_t stream) {
   using P = real_fft::Plan<LOG2N>;
   const int m = (P::N + g.rs - 1) / g.rs;
-  const size_t smem = sizeof(float) * (2 * P::M + P::F * 2 * P::FS + 2 * (m - 1) * g.rs);
+  const size_t smem = synth_smem<P, SRC>(g.ra, g.rs);
   const int64_t rows = (o.n_out + g.rs - 1) / g.rs;
   if (rows * g.batch > INT32_MAX) return cudaErrorInvalidValue;  // 32-bit group indices
   const int64_t groups = (int64_t)ola_groups((int)rows, m, P::F) * g.batch;
@@ -1680,8 +1872,8 @@ cudaError_t launch_synth_real(const SynthIn& in, const float* fft, const OlaOut&
   const cudaError_t err = real_fft::grid_for(synth_real<LOG2N, SRC>, smem, groups, &grid);
   if (err != cudaSuccess) return err;
   synth_real<LOG2N, SRC><<<grid, real_fft::kThreads, smem, stream>>>(
-      in.y, in.u0, in.mag, in.pre, in.pim, in.mask, fft, fft + P::N, fft + P::N + P::M, o, g,
-      (int)ola_vec(o, g));
+      in.y, in.x, in.u0, in.mag, in.pre, in.pim, in.mask, fft, fft + P::N, fft + P::N + P::M, o,
+      g, (int)ola_vec(o, g));
   return cudaGetLastError();
 }
 
@@ -1807,10 +1999,12 @@ cudaError_t run_scan(float* y, float* tot, float* carry,
   return launch_scan_carry(tot, carry, carry_in, carry_out, g, L, stream);
 }
 
-// True where the integer-k phase runs in synth_real's load (kClosed):
-// q = 1 and fft_real.cuh serves N. Then no packed Y is made (y may be
-// null) and the anchor table is carry_out's rows 0-1 in a stream segment,
-// else `anchor` (batch, 2, ng), made by phase_anchor.
+// True where the integer-k phase runs in synth_real's load (kSignal):
+// q = 1 and fft_real.cuh serves N. Then synth_real analyses its frames
+// itself, spec holds frame 0 of each batch row alone (the anchor's
+// source), no packed Y is made (y may be null), and the anchor table is
+// carry_out's rows 0-1 in a stream segment, else `anchor` (batch, 2, ng),
+// made by phase_anchor.
 bool closed_in_synth(const Geo& g) {
   return g.q == 1 && real_fft::real_log2(g.n_fft) != 0;
 }
@@ -1819,10 +2013,14 @@ bool closed_in_synth(const Geo& g) {
 // be 0), then the overlap-add of n_out samples per row. carry_in/
 // carry_out/tail_in/tail_out are null for whole recordings. With fft_half
 // (the table of the N/2-point transform) the analysis is the fold pass.
-// Where fft_real.cuh serves N, synth_real makes the output rows itself
-// (frames may be null; it runs even with no frame, for a segment past the
-// recording's end); elsewhere fft_synthesis writes frames and ola_rows
-// gathers them.
+// Where the phase runs in synth_real's load (closed_in_synth), the
+// analysis covers frame 0 of each row alone, into spec's row per batch
+// row (none once a stream has started: its carry holds the anchor), for
+// phase_anchor or carry_phasor; synth_real<kSignal> analyses every frame
+// again from x. Where fft_real.cuh serves N, synth_real makes the output
+// rows itself (frames may be null; it runs even with no frame, for a
+// segment past the recording's end); elsewhere fft_synthesis writes frames
+// and ola_rows gathers them.
 cudaError_t run_tsm(const float* x, float* out, float* tail_out,
                     float* carry_out, float* spec, float* y, float* anchor,
                     float* frames, float* tot, float* carry, const float* fft,
@@ -1841,7 +2039,15 @@ cudaError_t run_tsm(const float* x, float* out, float* tail_out,
   cudaError_t err;
 
   if (g.nf > 0) {
-    if ((err = launch_analysis(x, fft, fft_half, spec, g, stream)) != cudaSuccess) return err;
+    // Frame 0 of each row where the load forms the phase, else every frame.
+    Geo ga = g;
+    if (closed) {
+      ga.nf = 1;
+      ga.nfs = nullptr;
+    }
+    if (!(closed && g.started) &&
+        (err = launch_analysis(x, fft, fft_half, spec, ga, stream)) != cudaSuccess)
+      return err;
     if (carry_out != nullptr) {
       carry_phasor<<<blocks_for(ng, kThreads), kThreads, 0, stream>>>(
           spec, carry_in, carry_out, g);
@@ -1880,10 +2086,12 @@ cudaError_t run_tsm(const float* x, float* out, float* tail_out,
 
   const OlaOut o = {out, tail_out, tail_in, norm_rows, n_out, n_main};
   if (log2n != 0) {
-    return closed ? synthesis_real<kClosed>(log2n, {spec, u0, nullptr, nullptr, nullptr, nullptr},
-                                            fft, o, g, stream)
-                  : synthesis_real<kRows>(log2n, {y, nullptr, nullptr, nullptr, nullptr, nullptr},
-                                          fft, o, g, stream);
+    return closed ? synthesis_real<kSignal>(
+                        log2n, {nullptr, x, u0, nullptr, nullptr, nullptr, nullptr}, fft, o, g,
+                        stream)
+                  : synthesis_real<kRows>(
+                        log2n, {y, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr}, fft, o,
+                        g, stream);
   }
   if (frames == nullptr) return cudaErrorInvalidValue;
   if (g.nf > 0 && (err = launch_fft_synthesis(y, fft, frames, g, stream)) != cudaSuccess) {
@@ -1900,7 +2108,9 @@ extern "C" const char* pvoc_cuda_error_string(int err) {
 
 // Buffers (all float32, allocated by the caller):
 //   x (>= (nf-1)*ra + n_fft), out ((nf-1)*rs + n_fft),
-//   spec (nf, 2*(n_fft/2+1));
+//   spec (nf, 2*(n_fft/2+1)), except where the phase runs in synth_real's
+//   load (q == 1 and fft_real.cuh serves n_fft: there (1, 2*(n_fft/2+1)),
+//   frame 0's spectrum alone, since synth_real analyses its frames itself);
 //   frames (nf, n_fft) where fft_real.cuh does not serve n_fft (else null:
 //   synth_real overlap-adds its frames in shared memory);
 //   y (nf, 2*(n_fft/2+1)), the packed Y, except where the phase runs in
@@ -1948,7 +2158,8 @@ extern "C" int pvoc_fused_zrev(const float* x, float* out, float* spec,
 // The TSM of every row of a (batch, x_stride) signal, row b's first
 // nfs[b] frames (0 <= nfs[b] <= nf). out (batch, (nf+m-1)*rs): row b's
 // output, normalized at its own frame count, then zeros. Scratch as for
-// pvoc_fused with batch*nf frames (anchor (batch, 2, n_fft/2-1)), tot
+// pvoc_fused with batch*nf frames (spec (batch, 2*(n_fft/2+1)) and anchor
+// (batch, 2, n_fft/2-1) where the phase runs in synth_real's load), tot
 // and carry (batch*ceil(nf/chunk), n_fft/2-1, 2); norm_stack (m-1, 2m-1, rs) holds
 // the normalization rows of the frame counts 1..m-1 (m = ceil(n_fft/rs)).
 extern "C" int pvoc_fused_batch(
@@ -1977,8 +2188,9 @@ extern "C" int pvoc_fused_batch(
 //     running phasor P;
 //   tail_in/tail_out (m-1, rs): un-normalized partial sums of the first
 //     m-1 output rows of this / the next segment;
-//   spec, y, frames, tot, carry: scratch for F frames, as for pvoc_fused;
-//     anchor may be null (the closed-form load reads carry_out's anchor);
+//   spec, y, frames, tot, carry: scratch for F frames, as for pvoc_fused
+//     (spec one row where the phase runs in synth_real's load); anchor may
+//     be null (the closed-form load reads carry_out's anchor);
 //   started: 0 for the recording's first segment.
 // Needs F a multiple of chunk and F >= m-1.
 extern "C" int pvoc_fused_segment(
@@ -2063,7 +2275,8 @@ extern "C" int pvoc_phasor_synth(const float* mag, const float* pre,
   const int64_t out_len = (nf - 1) * (int64_t)rs + n_fft;
   const OlaOut o = {out, nullptr, nullptr, norm_rows, out_len, out_len};
   if (const int l = real_fft::real_log2(n_fft)) {
-    return synthesis_real<kPlanes>(l, {nullptr, nullptr, mag, pre, pim, mask}, fft, o, g, stream);
+    return synthesis_real<kPlanes>(l, {nullptr, nullptr, nullptr, mag, pre, pim, mask}, fft, o, g,
+                                    stream);
   }
   if (y == nullptr || frames == nullptr) return cudaErrorInvalidValue;
   phasor_y<<<grid_for(nf * g.nb, g), kThreads, 0, stream>>>(mag, pre, pim, mask, y, g);

@@ -52,9 +52,12 @@ frame, several frames a block): the analysis in analysis_real (a group of
 frames read as one span, the packed real frame transformed and split;
 the fold pass of zrev=True is this same kernel there), the synthesis in
 synth_real, which phasor_istft_ola(_batch) feed straight from the
-magnitude and phasor planes, and which at integer k forms the closed form
-itself from the spectra and a per-row anchor table (closed_in_synth: no
-phase pass, no packed Y). For any other even n_fft, a block a frame on
+magnitude and phasor planes, and which at integer k analyses each frame
+itself from the signal and forms the closed form from it and a per-row
+anchor table (closed_in_synth: analysis_real over frame 0 of each row
+alone, no phase pass, no spectra or packed Y of the frames; each wrapper
+counts those frames as frames_in_synth.<wrapper>). For any other even
+n_fft, a block a frame on
 csrc/fft_common.cuh's FFT: fft_analysis (fft_analysis_fold for zrev=True)
 and fft_synthesis, after a pass that packs Y. The overlap-add sums each
 output sample's frames oldest first, then normalizes it by its row: in
@@ -749,30 +752,42 @@ def _fused_launch(x: torch.Tensor, nf: int, n_fft: int, hop: int, rs: int, what:
         norm.data_ptr(), nf, n_fft, hop, rs, p, q, int(_pow_alg(p, q)), SCAN_CHUNK,
         float(np.float32(p / q)),
     )
+    _count_frames_in_synth(what, n_fft, q, nf)
     return out
 
 
 def closed_in_synth(n_fft: int, q: int) -> bool:
     """True where the kernels run the integer-k phase in the synthesis's
     load (csrc/pvoc_fused.cu closed_in_synth): q = 1 and real_body(n_fft).
-    There synth_real forms Y = |X| u_0 (u conj u_0)^k from the spectra and
-    an anchor table as it loads them, so the TSM entries need no packed-Y
-    scratch; everywhere else phase_closed or the q >= 2 passes write Y."""
+    There synth_real analyses each frame from the signal itself and forms
+    Y = |X| u_0 (u conj u_0)^k from it and an anchor table, so the TSM
+    entries need spectra of frame 0 alone (the anchor's source) and no
+    packed-Y scratch; everywhere else analysis_real (or its one-block-a-
+    frame kin) writes every frame's spectrum and phase_closed or the
+    q >= 2 passes write Y."""
     return q == 1 and real_body(n_fft)
+
+
+def _count_frames_in_synth(what: str, n_fft: int, q: int, frames: int) -> None:
+    """Count the frames that the wrapper `what` sends through synth_real's
+    own analysis (closed_in_synth) as frames_in_synth.<what>."""
+    if closed_in_synth(n_fft, q):
+        profiling.count(f"frames_in_synth.{what}", frames)
 
 
 def _workspace(frames: int, n_fft: int, q: int, device, batch: int = 1,
                segment: bool = False) -> dict:
     """Scratch of the TSM passes for `batch` rows of `frames` frames:
-    spectra; the windowed frames only where not real_body(n_fft) (there
-    synth_real overlap-adds its frames in shared memory); either the packed
-    Y or, where closed_in_synth, the (batch, 2, n_fft/2-1) anchor table
-    (none for a stream segment, whose carry holds its anchor); and the
-    chunk totals and carries of the q >= 2 scan."""
+    spectra, one row a batch row (frame 0's) where closed_in_synth, every
+    frame's elsewhere; the windowed frames only where not real_body(n_fft)
+    (there synth_real overlap-adds its frames in shared memory); either the
+    packed Y or, where closed_in_synth, the (batch, 2, n_fft/2-1) anchor
+    table (none for a stream segment, whose carry holds its anchor); and
+    the chunk totals and carries of the q >= 2 scan."""
     f32 = dict(dtype=torch.float32, device=device)
     closed = closed_in_synth(n_fft, q)
     work = {
-        "spec": torch.empty((batch * frames, n_fft + 2), **f32),
+        "spec": torch.empty((batch if closed else batch * frames, n_fft + 2), **f32),
         "y": None if closed else torch.empty((batch * frames, n_fft + 2), **f32),
         "anchor": (torch.empty((batch, 2, n_fft // 2 - 1), **f32)
                    if closed and not segment else None),
@@ -902,6 +917,7 @@ def fused_stream_segment(
         n_fft, hop, rs, p, q, int(_pow_alg(p, q)), SCAN_CHUNK,
         float(np.float32(p / q)),
     )
+    _count_frames_in_synth("fused_stream_segment", n_fft, q, n_valid)
     return out, carry_out, tail_out
 
 
@@ -1101,6 +1117,7 @@ def fused_time_stretch_batch(
         B, xs.shape[1], nf, n_fft, hop, rs, p, q, int(_pow_alg(p, q)), SCAN_CHUNK,
         float(np.float32(p / q)),
     )
+    _count_frames_in_synth("fused_time_stretch_batch", n_fft, q, sum(nfs))
     return out
 
 

@@ -9,8 +9,9 @@ plain versions and to the parent's output hashes):
     package's fused stream (converted) and the port's own, bitwise;
   * _workspace: no packed-Y scratch where closed_in_synth (q = 1, N =
     256-4096 a power of two), a (batch, 2, N/2-1) anchor table instead
-    (none for a stream segment, whose carry holds its anchor); the packed
-    Y kept at q >= 2 and at N = 768;
+    (none for a stream segment, whose carry holds its anchor) and spectra
+    of frame 0 of each row alone; the packed Y kept at q >= 2 and at
+    N = 768;
   * ola_rows_twin, the twin of the kernel ola_rows (a warp owns an output
     row, its lanes walk the row W samples at a time, the frames covering a
     sample summed oldest first after the tail, the normalization row and
@@ -139,7 +140,8 @@ def test_workspace_has_no_y_on_the_closed_route(n_fft, batch):
     assert work["y"] is None and work["tot"] is None and work["carry"] is None
     assert work["frames"] is None  # synth_real overlap-adds in shared memory
     assert work["anchor"].shape == (batch, 2, n_fft // 2 - 1)
-    assert work["spec"].shape == (batch * 40, n_fft + 2)
+    # frame 0 of each row alone: synth_real analyses its frames from x
+    assert work["spec"].shape == (batch, n_fft + 2)
     seg = fused.segment_workspace(64, n_fft, n_fft // 4, n_fft // 2, "cpu")
     assert seg["y"] is None and seg["anchor"] is None
     # the six pointers each TSM entry takes: y null, the table where needed

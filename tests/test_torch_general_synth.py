@@ -142,7 +142,9 @@ def test_gather_is_the_plain_fold_of_its_frames_bit_for_bit(card, rs, nf):
 
 
 def _route_launches(x: torch.Tensor, stretch: float) -> tuple[dict, torch.Tensor]:
-    """The launches.* counts of one time_stretch call, and its output."""
+    """The counters one time_stretch call moves (launches.*, and
+    frames_in_synth.* where synth_real analyses the frames), and its
+    output."""
     torch.cuda.synchronize()
     before = profiling.counters()
     y = tpv.time_stretch(x, stretch)
@@ -170,7 +172,8 @@ def test_the_general_route_launches_two_entries(card):
 @pytest.mark.card
 def test_the_integer_k_general_route_launches_one_entry(card):
     """At 3.0x (Rs = 768, k = 3) the general route's prefix product is the
-    closed form: one pvoc_fused launch (phasor_general_closed). Where the
+    closed form: one pvoc_fused launch (phasor_general_closed), its 247
+frames counted as analysed inside synth_real. Where the
     window energy is at least 1e-2, within 1e-5 of the float64 reference
     (pvbench/reference/pv64.py; 2.8e-6 for the plain version) and within
     the port's waveform bar, 1e-4, of the terms-plus-synthesis chain on the
@@ -180,7 +183,9 @@ def test_the_integer_k_general_route_launches_one_entry(card):
 
     x = _tone(card)
     got, y = _route_launches(x, 3.0)
-    assert got == {"launches.phasor_general_closed": 1}
+    # one launch, whose synth_real analyses every frame from x itself
+    nf_x = (x.shape[0] - N) // 256 + 1
+    assert got == {"launches.phasor_general_closed": 1, "frames_in_synth.phasor_general_closed": nf_x}
     mag, pre, pim, nf = fused.stft_phasor_terms(x, N, 256, 768)
     chain = fused.phasor_synth_general(mag, pre, pim, N, 768, nf)
     ref = pv64.time_stretch(x, 3.0, N, 256)
