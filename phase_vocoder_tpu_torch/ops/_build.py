@@ -201,8 +201,8 @@ def check(rc: int, what: str) -> None:
 
 
 @functools.cache
-def _launch_names(wrapper: str) -> tuple[str, str]:
-    return "pv.launch:" + wrapper, "launches." + wrapper
+def _launch_names(wrapper: str) -> tuple[str, str, str]:
+    return "pv.launch:" + wrapper, "launches." + wrapper, "channels." + wrapper
 
 
 def launch(wrapper: str, entry: str, device: int, *args) -> None:
@@ -211,14 +211,18 @@ def launch(wrapper: str, entry: str, device: int, *args) -> None:
     which every entry takes as its last argument. The C call alone is the
     span pv.launch:<wrapper>; raise on its return code (check) and count
     one launch as launches.<wrapper>, keyed by the launching wrapper's
-    name."""
+    name, and inside profiling.channels(n) the n channels it covers as
+    channels.<wrapper>."""
     fn = getattr(kernels(), entry)
-    span, counter = _launch_names(wrapper)
+    span, counter, per_channel = _launch_names(wrapper)
     with _device_guard(device):
         stream = _current_stream(device)
         with profiling.span(span):
             check(fn(*args, stream), entry)
     profiling.count(counter)
+    channels = profiling.launch_channels()
+    if channels:
+        profiling.count(per_channel, channels)
 
 
 def check_cuda(what: str, *tensors: torch.Tensor, dtype: torch.dtype | None = None) -> None:

@@ -302,6 +302,14 @@ def _device_norm_stack(n_fft: int, rs: int, device: str) -> torch.Tensor:
         )
 
 
+@functools.lru_cache(maxsize=64)
+def _device_counts(nfs: tuple, device: str) -> torch.Tensor:
+    """The int32 frame counts of a batch's rows on `device`, copied there
+    once per tuple of counts: a copy from the host each call would be a
+    device operation and a wait on the stream."""
+    return torch.tensor(nfs, dtype=torch.int32, device=device)
+
+
 @functools.lru_cache(maxsize=16)
 def _device_unit_rows(n_fft: int, rs: int, device: str) -> torch.Tensor:
     """(2m-1, rs) ones: the gather's table for an un-normalized sum."""
@@ -1106,7 +1114,7 @@ def fused_time_stretch_batch(
         dev = str(xs.device)
         tables = _device_tables(n_fft, hop, rs, dev)
         norm = _device_norm_stack(n_fft, rs, dev)
-        counts = torch.tensor(nfs, dtype=torch.int32, device=xs.device)
+        counts = _device_counts(tuple(nfs), dev)
         p, q = _rational_k(rs, hop)
         out = torch.empty((B, (nf + m - 1) * rs), dtype=torch.float32, device=xs.device)
         work = _workspace(nf, n_fft, q, xs.device, batch=B)

@@ -50,6 +50,7 @@ from .ops.fused import (
     closed_in_synth,
     fft_size_supported,
     fused_time_stretch,
+    fused_time_stretch_batch,
     phasor_general_closed,
     phasor_supported,
     phasor_synth_general,
@@ -306,6 +307,43 @@ def _route(
     return "general" if general else "polar"
 
 
+def _routed(x: torch.Tensor, stretch: float, cfg: PvocConfig, branch_policy: str,
+            max_monolithic_frames: int, max_phasor_general_frames: int) -> tuple:
+    """time_stretch's (Rs, frames, route) for the last axis of x, the span
+    pv.route; the route is None where x holds no whole frame."""
+    with profiling.span("pv.route"):
+        rs = cfg.synthesis_hop(stretch)
+        nf = framing.num_frames(x.shape[-1], cfg.n_fft, cfg.hop)
+        if nf <= 0:
+            return rs, nf, None
+        return rs, nf, _route(
+            cfg, rs, nf, branch_policy, max_monolithic_frames, max_phasor_general_frames
+        )
+
+
+def _check_channels(x: torch.Tensor) -> None:
+    """ValueError unless x is a (C, T) signal with C >= 1 (a 1-D one takes
+    the single-recording path before this check)."""
+    if x.dim() != 2 or x.shape[0] == 0:
+        raise ValueError(
+            f"expected a 1-D waveform or a (C, T) one with C >= 1 channels, got shape {tuple(x.shape)}"
+        )
+
+
+def _stretch_channels(route: str, x: torch.Tensor, stretch: float, cfg: PvocConfig, rs: int,
+                      nf: int) -> torch.Tensor:
+    """The time stretch of each row of a (C, T) signal on `route`, (C,
+    T_out). On the fused route the rows are the batch axis of one
+    fused_time_stretch_batch launch, each row bitwise the 1-D call; every
+    other route runs the 1-D route on each channel and stacks the rows."""
+    if route == "fused":
+        with profiling.channels(x.shape[0]):
+            y = fused_time_stretch_batch(x, cfg.n_fft, cfg.hop, rs, [nf] * x.shape[0])
+        return y[:, : framing.output_length(nf, cfg.n_fft, rs)]
+    with profiling.channels(1):
+        return torch.stack([_stretch(route, row, stretch, cfg, rs) for row in x])
+
+
 def time_stretch(
     x,
     stretch: float,
@@ -315,7 +353,14 @@ def time_stretch(
     branch_policy: str = "auto",
     device="cuda",
 ) -> torch.Tensor:
-    """Time-scale-modify a 1-D waveform by `stretch` (duration multiplier).
+    """Time-scale-modify a waveform by `stretch` (duration multiplier).
+
+    x is 1-D, or (C, T) with C >= 1 channels, channels first (as
+    torchaudio.load gives a multichannel file); the output is 1-D or
+    (C, T_out). Row c of a (C, T) call is bit for bit the 1-D call on
+    x[c]: on the fused route the channels are the batch axis of one
+    launch, on every other route each channel takes the 1-D route in
+    turn. Any other shape raises ValueError before any launch.
 
     Pitch is preserved; output length (nf-1)*Rs + n_fft with Rs =
     round(hop * stretch). branch_policy governs q >= 2 hop ratios (stretch
@@ -326,17 +371,18 @@ def time_stretch(
     has no branch cuts. The max_* limits select the streaming executor for
     long inputs on the routes without a fused kernel, as in the JAX package.
     """
+    limits = (max_monolithic_frames, max_phasor_general_frames)
     with profiling.span("pv.time_stretch"):
         x = _as_signal(x, device)
-        with profiling.span("pv.route"):
-            rs = cfg.synthesis_hop(stretch)
-            nf = framing.num_frames(x.shape[-1], cfg.n_fft, cfg.hop)
-            if nf <= 0:
-                return x.new_zeros((0,))
-            route = _route(
-                cfg, rs, nf, branch_policy, max_monolithic_frames, max_phasor_general_frames
-            )
-        return _stretch(route, x, stretch, cfg, rs)
+        if x.dim() == 1:
+            rs, nf, route = _routed(x, stretch, cfg, branch_policy, *limits)
+            return x.new_zeros((0,)) if route is None else _stretch(route, x, stretch, cfg, rs)
+        with profiling.span("pv.channels"):
+            _check_channels(x)
+            rs, nf, route = _routed(x, stretch, cfg, branch_policy, *limits)
+            if route is None:
+                return x.new_zeros((x.shape[0], 0))
+            return _stretch_channels(route, x, stretch, cfg, rs, nf)
 
 
 def pitch_shift(
@@ -349,17 +395,32 @@ def pitch_shift(
     """Pitch-shift by `semitones`: time-stretch by 2^(semitones/12), then
     resample by the inverse factor. Duration is preserved. branch_policy as
     in time_stretch: long q >= 2 inputs run the stretch stage on the
-    branch-faithful polar streaming executor."""
+    branch-faithful polar streaming executor. x is 1-D or (C, T), as in
+    time_stretch: the stretch takes time_stretch's channel handling, the
+    resampler each row in turn, and row c is bit for bit the 1-D call on
+    x[c]."""
     with profiling.span("pv.pitch_shift"):
         x = _as_signal(x, device)
-        factor = 2.0 ** (semitones / 12.0)
-        rs = cfg.synthesis_hop(factor)
-        stretched_len = stretch_output_length(x.shape[-1], cfg, factor)
-        if stretched_len <= 0:
-            return x.new_zeros((0,))
-        out_len = int(round(stretched_len / factor))
-        with profiling.span("pv.route"):
-            nf = framing.num_frames(x.shape[-1], cfg.n_fft, cfg.hop)
-            route = _route(cfg, rs, nf, branch_policy)
-        y = _stretch(route, x, factor, cfg, rs)
-        return resample_linear(y, 1.0 / factor, out_len)
+        if x.dim() == 1:
+            return _pitch_shift(x, semitones, cfg, branch_policy)
+        with profiling.span("pv.channels"):
+            _check_channels(x)
+            return _pitch_shift(x, semitones, cfg, branch_policy)
+
+
+def _pitch_shift(x: torch.Tensor, semitones: float, cfg: PvocConfig, branch_policy: str) -> torch.Tensor:
+    """pitch_shift's body on a 1-D signal or a checked (C, T) one."""
+    factor = 2.0 ** (semitones / 12.0)
+    rs = cfg.synthesis_hop(factor)
+    stretched_len = stretch_output_length(x.shape[-1], cfg, factor)
+    if stretched_len <= 0:
+        return x.new_zeros(x.shape[:-1] + (0,))
+    out_len = int(round(stretched_len / factor))
+    with profiling.span("pv.route"):
+        nf = framing.num_frames(x.shape[-1], cfg.n_fft, cfg.hop)
+        route = _route(cfg, rs, nf, branch_policy)
+    if x.dim() == 1:
+        return resample_linear(_stretch(route, x, factor, cfg, rs), 1.0 / factor, out_len)
+    y = _stretch_channels(route, x, factor, cfg, rs, nf)
+    with profiling.channels(1):
+        return torch.stack([resample_linear(row, 1.0 / factor, out_len) for row in y])

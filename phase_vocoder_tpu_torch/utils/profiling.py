@@ -24,8 +24,10 @@ event, and the profiler's own ops keep their parents (pvbench names an
 idle gap by the host op the gap falls in). The outermost span of a
 call is its entry point's (pv.time_stretch, ...), and readers take it
 so. count(name, n) adds to a counter, always: ops/_build.launch counts
-each kernel launch as launches.<wrapper>. spans(), counters() and
-reset() read and clear the registry.
+each kernel launch as launches.<wrapper>, and inside channels(n) also
+the n channels of a multichannel recording that the launch covers as
+channels.<wrapper>. spans(), counters() and reset() read and clear the
+registry.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ RING = 65_536  # spans kept, the oldest dropped first
 _spans: collections.deque = collections.deque(maxlen=RING)
 _counters: dict = {}
 _depth = 0  # spans open now (one thread records)
+_channels = 0  # channels each kernel launch covers inside channels(n); 0 outside
 _emit = False  # inside trace(): spans also enter record_function
 _recording = torch._C._autograd._profiler_enabled
 _NULL = contextlib.nullcontext()
@@ -95,6 +98,32 @@ def setup(step: str):
 def count(name: str, n: int = 1) -> None:
     """Add n to the counter `name`."""
     _counters[name] = _counters.get(name, 0) + n
+
+
+class channels:
+    """A context in which every kernel launch covers n channels of one
+    multichannel recording (the pipeline's channel handling: all C on a
+    batch-axis launch, 1 in a loop over the channels)."""
+
+    __slots__ = ("n", "outer")
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __enter__(self):
+        global _channels
+        self.outer, _channels = _channels, self.n
+        return self
+
+    def __exit__(self, *exc):
+        global _channels
+        _channels = self.outer
+        return False
+
+
+def launch_channels() -> int:
+    """The channels a kernel launch covers now: channels()'s n, 0 outside."""
+    return _channels
 
 
 def spans() -> list:
