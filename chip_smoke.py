@@ -237,18 +237,17 @@ stft.cu outputs at N = 1024, the sizes that keep the
 one-block-a-frame analysis and fft_synthesis (stft/istft and
 phasor_istft_ola at N = 768; pvoc_fused at N = 128 with q >= 2),
 phasor_istft_ola(_batch) on seeded random planes (Rs = 128, 256, 512),
-time_stretch 2.0x on 3600 s with pvoc_fused and zrev there, the phasor
-terms
+the phasor terms
 (3.0x / 3600 s scanned, 60 s with unit phasors), q >= 2 at N = 1024 and
 Rs = 171 (pvoc_fused, zrev, one stream segment, a ragged batch: the carry
 scan of every q >= 2 caller) and select_lerp with and without chunk bases
 on seeded tables at strides 0, 1 and 2; every integer-k output
 (pvoc_fused, zrev, one stream segment and a ragged batch at N = 256, 1024
-and 4096; pvoc_fused at N = 768 and 128), whose closed form is rounded as
-written since the phase moved into the synthesis, is hashed as an output
-that may move, and so is time_stretch 3.0x on 3600 s, whose general route
-forms the integer-k closed form since the prefix product of step terms
-gave way to it. Also times pvoc_fused and zrev at Rs = 171 on 300 s,
+and 4096; pvoc_fused at N = 768 and 128; time_stretch 2.0x on 3600 s with
+pvoc_fused and zrev there, the 8192-frame segment, the batch's 2.0x group
+and time_stretch 3.0x on 3600 s), whose closed form (closed_bin) may be
+rounded otherwise in another checkout, is hashed as an output that may
+move. Also times pvoc_fused and zrev at Rs = 171 on 300 s,
 pitch_shift -7 st on 300 s, and select_lerp in both modes beside
 F.interpolate (per-call means and profiler device times), and records
 pvoc_terms' and the q >= 2 pvoc_fused's passes by name. First of all
@@ -827,16 +826,19 @@ def _ab_worker(root: str, faithful_only: bool = False) -> int:
     # The two cells' routes through the public API (2.0x: the fused route;
     # 3.0x: the general route, at integer k phasor_general_closed): time,
     # device time by kernel from one trace, peak memory, and the outputs'
-    # hashes: 2.0x with pvoc_fused and zrev at 2.0x / 3600 s must not move;
-    # 3.0x may, where this checkout's general route forms the integer-k
-    # closed form in place of the parent's prefix product of step terms
-    # (the same mathematics, another rounding).
+    # hashes. Every output here runs the q = 1 closed form (closed_bin),
+    # so each may move against a checkout that rounds it otherwise: since
+    # it is formed as X z^(k-1) with one correctly rounded reciprocal
+    # square root (the same mathematics, fewer roundings), 2.0x with
+    # pvoc_fused and zrev at 2.0x / 3600 s, the stream segment and the
+    # batch group below as well as 3.0x (whose route forms the closed form
+    # in place of a prefix product of step terms).
     for factor in (2.0, 3.0):
         fn = lambda: pv.time_stretch(x_long, factor, cfg)  # noqa: E731
         rec[f"time_stretch_{factor:g}x_3600s_ms"] = _time_ms(fn, reps=5)
         rec[f"time_stretch_{factor:g}x_3600s_passes"] = _profile_call(fn)["by_kernel_ms"]
         rec[f"time_stretch_{factor:g}x_3600s_peak_gb"] = _peak_gb(fn)
-    rec["hash_stretch_2x_3600s"] = digest(
+    rec["moved_stretch_2x_3600s"] = digest(
         pv.time_stretch(x_long, 2.0, cfg),
         fused.fused_time_stretch(x_long, N_FFT, HOP, 512), fused.fused_time_stretch(x_long, N_FFT, HOP, 512, zrev=True))
     rec["moved_stretch_3x_3600s"] = digest(pv.time_stretch(x_long, 3.0, cfg))
@@ -846,7 +848,7 @@ def _ab_worker(root: str, faithful_only: bool = False) -> int:
         x_long, streaming.fused_init_state(N_FFT, 512, dev), nf_long, N_FFT, HOP, 512, F_long, 10)
     seg_args = (x_long, st10.carry, st10.tail, 1, 10 * F_long, nf_long, N_FFT, HOP, 512, F_long)
     rec["pvoc_fused_segment_8192_ms"] = _time_ms(lambda: fused.fused_stream_segment(*seg_args), reps=20)
-    rec["hash_pvoc_fused_segment_8192"] = digest(*fused.fused_stream_segment(*seg_args))
+    rec["moved_pvoc_fused_segment_8192"] = digest(*fused.fused_stream_segment(*seg_args))
     del st10, seg_args
     rows = [torch.as_tensor(x, dtype=torch.float32, device=dev)
             for x in baseline_batch(SR)[0][5::6]]  # the 2.0x utterances of chip_smoke.py's batch
@@ -855,7 +857,7 @@ def _ab_worker(root: str, faithful_only: bool = False) -> int:
     nfs_b = [(len(x) - N_FFT) // HOP + 1 for x in rows]
     rec["pvoc_fused_batch_2x_group_ms"] = _time_ms(
         lambda: fused.fused_time_stretch_batch(xb, N_FFT, HOP, 512, nfs_b), reps=20)
-    rec["hash_pvoc_fused_batch_2x_group"] = digest(fused.fused_time_stretch_batch(xb, N_FFT, HOP, 512, nfs_b))
+    rec["moved_pvoc_fused_batch_2x_group"] = digest(fused.fused_time_stretch_batch(xb, N_FFT, HOP, 512, nfs_b))
     del rows, xb
     # pvoc_fused at 2.0x on 3600 s at every N of fft_real.cuh's body (hop
     # N/4, Rs = N/2), and the phasor terms at the shapes of their main

@@ -47,8 +47,8 @@
 // and, where fft_real.cuh does not serve N, the windowed frames (nf x N
 // floats) besides. At integer k where fft_real.cuh serves N none of them
 // does: one pass reads the signal and writes the output, and also does
-// both transforms of every frame and the closed form's square roots and
-// divisions.
+// both transforms of every frame and the closed form's arithmetic (a
+// reciprocal square root and a few complex products a bin).
 // FP32 FMA, no tensor cores: the forward transform feeds the unit phasors,
 // and every operand split with a ~2^-17 floor failed the 1e-4 golden gate
 // on the TPU; the FFT also sums with less rounding error than a direct
@@ -98,7 +98,7 @@
 //       pass (phase_anchor) makes each batch row's anchor table u_0 from
 //       its frame 0 (a stream segment has it in its carry already), and
 //       synth_real analyses each frame from the signal and forms
-//       Y = |X| P from that X and the table (in registers where a frame's
+//       Y = |X| P = X (u_i conj u_0)^(k-1) from that X and the table (in registers where a frame's
 //       threads fit in a warp, else in the frame's shared buffer), so
 //       neither the spectra nor a packed Y goes through device memory.
 //       Every other N keeps the elementwise phase_closed.
@@ -352,6 +352,15 @@ __device__ __forceinline__ void principal_sqrt(float zr, float zi, float& wr,
   }
 }
 
+// e^{i kf arg z} of unit z. zi == -0 counts as +0, so the branch point
+// maps to +pi as the golden model's princarg does.
+__device__ __forceinline__ void angle_pow(float zr, float zi, float kf, float& wr,
+                                          float& wi) {
+  const float ang = atan2f(zi == 0.f ? 0.f : zi, zr) * kf;
+  wr = cosf(ang);
+  wi = sinf(ang);
+}
+
 __device__ __forceinline__ void pow_k(float zr, float zi, const Geo& g,
                                       float& wr, float& wi) {
   if (g.alg) {
@@ -363,11 +372,7 @@ __device__ __forceinline__ void pow_k(float zr, float zi, const Geo& g,
       int_pow(zr, zi, g.p, wr, wi);
     }
   } else {
-    // zi == -0 counts as +0, so the branch point maps to +pi as the
-    // golden model's princarg does.
-    const float ang = atan2f(zi == 0.f ? 0.f : zi, zr) * g.kf;
-    wr = cosf(ang);
-    wi = sinf(ang);
+    angle_pow(zr, zi, g.kf, wr, wi);
   }
 }
 
@@ -415,13 +420,14 @@ __device__ __forceinline__ void normalize(float& re, float& im) {
 }
 
 // The integer-k closed form, rounded as written: every product and sum
-// of the next three functions is its own IEEE operation (__fmul_rn,
-// __fadd_rn: nvcc contracts none of them into an FMA), so that every
-// kernel that forms the closed form or its anchor rounds it alike. nvcc
-// picks which product of a*b + c*d it fuses by the surrounding code, so
-// the same expression inlined into two kernels could round two ways.
-// This is also the plain version's order (ops/fused.py _unit, _int_pow,
-// _cmul on the CPU, where nothing is fused).
+// of the functions from here to closed_bin is its own IEEE operation
+// (__fmul_rn, __fadd_rn: nvcc contracts none of them into an FMA), so
+// that every kernel that forms the closed form or its anchor rounds it
+// alike. nvcc picks which product of a*b + c*d it fuses by the
+// surrounding code, so the same expression inlined into two kernels could
+// round two ways.
+// This is also the plain version's order (ops/fused.py _unit, _closed_y
+// on the CPU, where nothing is fused).
 __device__ __forceinline__ float mul_add(float a, float b, float c, float d) {
   return __fadd_rn(__fmul_rn(a, b), __fmul_rn(c, d));
 }
@@ -443,40 +449,69 @@ __device__ __forceinline__ void unit_phasor_rn(float re, float im, float& mag,
   }
 }
 
-// Y of general bin X = (re, im) at integer k = p: |X| u_0 (u conj u_0)^k,
-// u = X/|X|; z^k by repeated squaring (int_pow's order) where g.alg, else
-// pow_k's angle domain. phase_closed and synth_real's closed-form load
-// both call it, so that the two make the same Y.
+// closed_bin past k = 8 (the angle domain): |X| u_0 e^{i k arg(u conj
+// u_0)}. Out of line, so that each of synth_real's 17 call sites a thread
+// carries the algebraic form alone: inlined, this branch nearly doubled
+// synth_real<10, 2>'s code (14,664 against 7,648 instructions) and made
+// it 3.5% slower on an H100.
+__device__ __noinline__ float2 closed_bin_angle(float re, float im, float u0r, float u0i,
+                                                float kf) {
+  float mag, ur, ui, wr, wi;
+  unit_phasor_rn(re, im, mag, ur, ui);
+  angle_pow(mul_add(ur, u0r, ui, u0i), mul_sub(ui, u0r, ur, u0i), kf, wr, wi);
+  return make_float2(__fmul_rn(mag, mul_sub(wr, u0r, wi, u0i)),
+                     __fmul_rn(mag, mul_add(wr, u0i, wi, u0r)));
+}
+
+// Y of general bin X = (re, im) at integer k = p: |X| u_0 (u conj u_0)^p,
+// u = X/|X|. Where g.alg, with z = u conj u_0 and |u_0| = 1 that is
+// X z^(p-1): u = X r with r one correctly rounded reciprocal square root
+// of |X|^2 (u = 1 where |X|^2 <= kTiny), z^(p-1) by int_pow's repeated
+// squaring less its first product (1 times a power of z), then one
+// complex product; p = 1 keeps X. Else the angle domain on u
+// (closed_bin_angle). Every operation is its own IEEE rounding, the plain
+// version's order (ops/fused.py _closed_y). phase_closed and synth_real's
+// closed-form load both call it, so that the two make the same Y.
 __device__ __forceinline__ void closed_bin(float re, float im, float u0r,
                                            float u0i, const Geo& g,
                                            float& yr, float& yi) {
-  float mag, ur, ui;
-  unit_phasor_rn(re, im, mag, ur, ui);
-  const float zr = mul_add(ur, u0r, ui, u0i);
-  const float zi = mul_sub(ui, u0r, ur, u0i);
-  float wr = zr, wi = zi;
   if (!g.alg) {
-    pow_k(zr, zi, g, wr, wi);
-  } else if (g.p != 1) {
-    float ar = 1.f, ai = 0.f, br = zr, bi = zi;
-    for (int e = g.p; e > 0;) {
-      if (e & 1) {
-        const float t = mul_sub(ar, br, ai, bi);
-        ai = mul_add(ar, bi, ai, br);
-        ar = t;
-      }
-      e >>= 1;
-      if (e) {
-        const float t = mul_sub(br, br, bi, bi);
-        bi = __fmul_rn(__fmul_rn(2.f, br), bi);
-        br = t;
-      }
-    }
-    wr = ar;
-    wi = ai;
+    const float2 y = closed_bin_angle(re, im, u0r, u0i, g.kf);
+    yr = y.x;
+    yi = y.y;
+    return;
   }
-  yr = __fmul_rn(mag, mul_sub(wr, u0r, wi, u0i));
-  yi = __fmul_rn(mag, mul_add(wr, u0i, wi, u0r));
+  if (g.p == 1) {
+    yr = re;
+    yi = im;
+    return;
+  }
+  const float n2 = mul_add(re, re, im, im);
+  float ur = 1.f, ui = 0.f;
+  if (n2 > kTiny) {
+    const float r = __frsqrt_rn(n2);
+    ur = __fmul_rn(re, r);
+    ui = __fmul_rn(im, r);
+  }
+  float br = mul_add(ur, u0r, ui, u0i), bi = mul_sub(ui, u0r, ur, u0i);
+  auto square = [&] {
+    const float t = mul_sub(br, br, bi, bi);
+    bi = __fmul_rn(__fmul_rn(2.f, br), bi);
+    br = t;
+  };
+  int e = g.p - 1;
+  for (; !(e & 1); e >>= 1) square();
+  float wr = br, wi = bi;
+  for (e >>= 1; e > 0; e >>= 1) {
+    square();
+    if (e & 1) {
+      const float t = mul_sub(wr, br, wi, bi);
+      wi = mul_add(wr, bi, wi, br);
+      wr = t;
+    }
+  }
+  yr = mul_sub(re, wr, im, wi);
+  yi = mul_add(re, wi, im, wr);
 }
 
 // (c), N not served by fft_real.cuh: one block per frame, frames[i] =
@@ -2284,4 +2319,59 @@ extern "C" int pvoc_phasor_synth(const float* mag, const float* pre,
   if (err != cudaSuccess) return err;
   if ((err = launch_fft_synthesis(y, fft, frames, g, stream)) != cudaSuccess) return err;
   return launch_ola(frames, o, g, m, stream);
+}
+
+// ------------------------------------------------------ test entries
+// No wrapper of the package calls these: the card tests do
+// (tests/test_torch_closed_rsqrt.py).
+
+namespace {
+
+// Mismatches of __frsqrt_rn(x) against 1 / sqrt(x) in float64 (each step
+// an IEEE operation) rounded to float32, over the float32 bit patterns
+// lo .. lo + n - 1; the first 16 mismatching patterns into `first`.
+__global__ void rsqrt_sweep(uint32_t lo, uint32_t n, unsigned long long* count,
+                            uint32_t* first) {
+  const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
+  for (uint64_t i = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    const uint32_t bits = lo + (uint32_t)i;
+    const float x = __uint_as_float(bits);
+    const float want = __double2float_rn(__ddiv_rn(1.0, __dsqrt_rn((double)x)));
+    if (__float_as_uint(__frsqrt_rn(x)) != __float_as_uint(want)) {
+      const unsigned long long c = atomicAdd(count, 1ull);
+      if (c < 16) first[c] = bits;
+    }
+  }
+}
+
+}  // namespace
+
+// rsqrt_sweep over bit patterns lo .. lo + n - 1; count (1) and first
+// (16) on the device, count zeroed by the caller.
+extern "C" int pvoc_test_rsqrt_sweep(unsigned lo, unsigned n, unsigned long long* count,
+                                     unsigned* first, cudaStream_t stream) {
+  rsqrt_sweep<<<132 * 16, kThreads, 0, stream>>>(lo, n, count, first);
+  return cudaGetLastError();
+}
+
+// pvoc_fused at q = 1 where fft_real.cuh serves n_fft, with the phase in
+// its own pass: analysis_real over every frame into spec (nf, 2*nb),
+// phase_closed into the packed Y y (nf, 2*nb), then synth_real from those
+// rows (kRows). pvoc_fused forms the same Y in synth_real's load, so the
+// two outputs agree bit for bit.
+extern "C" int pvoc_test_closed_rows(const float* x, float* out, float* spec, float* y,
+                                     const float* fft, const float* norm_rows, long long nf,
+                                     int n_fft, int ra, int rs, int p, int alg, float kf,
+                                     cudaStream_t stream) {
+  const int log2n = real_fft::real_log2(n_fft);
+  if (log2n == 0 || nf <= 0) return cudaErrorInvalidValue;
+  const Geo g = make_geo(nf, n_fft, ra, rs, p, 1, alg, 1, kf);
+  cudaError_t err = launch_analysis(x, fft, nullptr, spec, g, stream);
+  if (err != cudaSuccess) return err;
+  phase_closed<<<grid_for(g.nf * g.nb, g), kThreads, 0, stream>>>(spec, nullptr, y, g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int64_t out_len = (nf - 1) * (int64_t)rs + n_fft;
+  const OlaOut o = {out, nullptr, nullptr, norm_rows, out_len, out_len};
+  return synthesis_real<kRows>(log2n, {y, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr},
+                               fft, o, g, stream);
 }

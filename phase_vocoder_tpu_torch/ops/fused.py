@@ -356,6 +356,19 @@ def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x)
 
 
+def _rsqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded reciprocal square root of positive x, as the
+    kernels' __frsqrt_rn gives it: 1 / sqrt(x) in float64, each step an
+    IEEE operation, rounded to float32 (the card's tests hold the two equal
+    over every positive finite float32). On the CPU through numpy, whose
+    square root is the processor's correctly rounded one (_sqrt_rn says
+    why not torch's); on a card, torch's float64 square root and division
+    are IEEE."""
+    if x.device.type == "cpu":
+        return torch.from_numpy((1.0 / np.sqrt(x.numpy().astype(np.float64))).astype(np.float32))
+    return (1.0 / torch.sqrt(x.double())).float()
+
+
 def _principal_sqrt(zre, zim):
     """Principal square root (Re >= 0) of unit-modulus z, elementwise.
 
@@ -447,6 +460,48 @@ def _unit(re, im):
     mag = _sqrt_rn(n2)
     safe = n2 > _TINY
     return mag, torch.where(safe, re / mag, 1.0), torch.where(safe, im / mag, 0.0)
+
+
+def _closed_y(re, im, u0re, u0im, rs: int, ra: int):
+    """Y of general bins X = (re, im) at integer k = p = rs/ra with anchor
+    u_0: |X| u_0 (u conj u_0)^p, u = X/|X|. Where p <= 8 (_pow_alg) it is
+    formed as X z^(p-1), z = u conj u_0 (|u_0| = 1): u = X r with r =
+    _rsqrt_rn(|X|^2), or u = 1 where |X|^2 <= 1e-30 (there Y keeps X's
+    modulus but not |X| u_0 conj(u_0)^p's phase, at most 2e-15 away);
+    z^(p-1) by _int_pow's repeated squaring less its first product (1
+    times a power of z); p = 1 gives X itself. Past p = 8, _pow_k's angle
+    domain on _unit's u, times |X|. csrc/pvoc_fused.cu closed_bin's order,
+    each operation rounded once."""
+    p = rs // ra
+    if not _pow_alg(p, 1):
+        mag, ure, uim = _unit(re, im)
+        wre, wim = _pow_k(ure * u0re + uim * u0im, uim * u0re - ure * u0im, rs, ra)
+        pre, pim = _cmul(wre, wim, u0re, u0im)
+        return mag * pre, mag * pim
+    if p == 1:
+        return re, im
+    n2 = re * re + im * im
+    safe = n2 > _TINY
+    r = _rsqrt_rn(torch.clamp_min(n2, _TINY))
+    ure = torch.where(safe, re * r, 1.0)
+    uim = torch.where(safe, im * r, 0.0)
+    bre, bim = ure * u0re + uim * u0im, uim * u0re - ure * u0im
+
+    def square(bre, bim):
+        return bre * bre - bim * bim, 2.0 * bre * bim
+
+    e = p - 1
+    while not e & 1:
+        bre, bim = square(bre, bim)
+        e >>= 1
+    wre, wim = bre, bim
+    e >>= 1
+    while e:
+        bre, bim = square(bre, bim)
+        if e & 1:
+            wre, wim = wre * bre - wim * bim, wre * bim + wim * bre
+        e >>= 1
+    return re * wre - im * wim, re * wim + im * wre
 
 
 def _cmul(ar, ai, br, bi):
@@ -597,17 +652,14 @@ def _tsm_frames_reference(
     windowed = frame_signal(xs, n_fft, hop) * w
     spec = _rfft_fold(windowed) if fold else torch.fft.rfft(windowed, dim=-1)
     re, im = spec.real, spec.imag  # (n_valid, nh + 1)
-    mag, ure, uim = _unit(re[:, 1:nh], im[:, 1:nh])  # general bins
     p, q = _rational_k(rs, hop)
     if q == 1:
         anchor = anchor_table_reference(re[0], im[0], carry, started)
         u0re, u0im = anchor[0:1], anchor[1:2]
-        zre = ure * u0re + uim * u0im
-        zim = uim * u0re - ure * u0im
-        wre, wim = _pow_k(zre, zim, rs, hop)
-        pre, pim = _cmul(wre, wim, u0re, u0im)
+        gre, gim = _closed_y(re[:, 1:nh], im[:, 1:nh], u0re, u0im, rs, hop)
         new_carry = torch.cat([u0re, u0im, carry[2:]])
     else:
+        mag, ure, uim = _unit(re[:, 1:nh], im[:, 1:nh])  # general bins
         c = torch.as_tensor(_phasor_consts(n_fft, hop, rs)[:, 1:], device=x.device)
         prev_re = torch.cat([carry[0:1], ure[:-1]])
         prev_im = torch.cat([carry[1:2], uim[:-1]])
@@ -616,11 +668,12 @@ def _tsm_frames_reference(
             tre[0], tim[0] = ure[0], uim[0]
         pre, pim, (cre, cim) = _chunked_prefix_product(tre, tim, carry=(carry[2], carry[3]))
         new_carry = torch.stack([ure[-1], uim[-1], cre, cim])
+        gre, gim = mag * pre, mag * pim
     sign = torch.ones(n_valid, device=x.device)
     if rs % 2:
         sign[(goff + torch.arange(n_valid, device=x.device)) % 2 == 1] = -1.0
-    y_re = torch.cat([re[:, :1], mag * pre, (re[:, nh] * sign)[:, None]], dim=1)
-    y_im = torch.cat([torch.zeros_like(re[:, :1]), mag * pim, torch.zeros_like(re[:, :1])], dim=1)
+    y_re = torch.cat([re[:, :1], gre, (re[:, nh] * sign)[:, None]], dim=1)
+    y_im = torch.cat([torch.zeros_like(re[:, :1]), gim, torch.zeros_like(re[:, :1])], dim=1)
     frames = torch.fft.irfft(torch.complex(y_re, y_im), n=n_fft, dim=-1) * w
     return frames, new_carry
 
